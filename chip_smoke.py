@@ -8,16 +8,29 @@ Phases, each printing one JSON line:
 
 1. build  — compile every CUDA source in modegpt_tpu_torch/csrc with nvcc
    for sm_90a (modegpt_tpu_torch/_build/), all at once.
-2. kernel — hold each kernel against its plain PyTorch version on the card
-   at the main path's shapes and a few edge shapes, and time the kernel,
-   the plain version and the nearest single PyTorch call (library_ms).
+2. kernel — hold each kernel (K1 flash_attention, K3 ragged_gqa_attend)
+   against its plain PyTorch version on the card at the main path's
+   shapes and a few edge shapes, and time the kernel, the plain version
+   and the nearest single PyTorch call (library_ms).
 3. main   — one full compression job through
    `modegpt_tpu_torch.compress.pipeline.run_compression` at the published
    Meta-Llama-3-8B widths (hidden 4096, intermediate 14336, 32 heads,
    8 kv heads, head_dim 128, vocab 128256, rope_theta 5e5, untied head),
    depth cut 32 -> 4 layers, random f32 weights from a seed, on the
-   offline synthetic corpus, solving in float32 on the card. Every kernel
-   launch counter is zeroed just before the job and read just after.
+   offline synthetic corpus, solving in float32 on the card. The
+   compressed evaluation takes compressed_exec="auto" (padded execution
+   when the padding costs < 1.5x). K1's launch counter is zeroed just
+   before the job and read just after.
+4. serve  — serve the compressed model the main phase reloaded, padded,
+   through `modegpt_tpu_torch.models.serving.ContinuousBatcher` (8 slots
+   over a 1024-position pool, prefill chunks of 128, greedy,
+   decode_attn="auto", which is K3 on the card): 16 requests, then 4 with
+   an int8 KV cache. K3's launch counter is zeroed just before and read
+   just after; it must equal the layers times the prefill and decode
+   dispatches, counted around the port's two step functions. In each
+   round one decode step's logits through K3 are held against its plain
+   version, and every served token of the 16 requests against the
+   unrolled forward over prompt + output (teacher forcing).
 
 Then a `{"kernels": [...]}` line, the card's name and power limit as
 nvidia-smi reports them, and last `{"ok": true, "device": {...}}`. Any
@@ -53,8 +66,41 @@ KERNEL_CASES = [
     dict(name="window100", B=2, H=32, Hk=8, T=2048, hd=128, hd_v=128, dtype="float32", window=100),
     dict(name="mha", B=2, H=32, Hk=32, T=2048, hd=128, hd_v=128, dtype="float32", window=None),
 ]
-# The JAX package's own kernel tolerances (tests/test_models.py).
+# The JAX package's own kernel tolerances (tests/test_models.py,
+# tests/test_ragged_decode.py).
 TOLERANCE = {"float32": dict(rtol=2e-4, atol=2e-5), "bfloat16": dict(rtol=2e-2, atol=2e-2)}
+
+# K3 (ragged_gqa_attend) cases. The first is the decode dispatch of the
+# serve phase: 8 slots over a 1024-position pool, 32 heads over 8 kv
+# heads, at the padded ranks of the compressed model it serves (the
+# widest layer keeps 126 of 128 q/k and v dims per head, so Rq = Rv = 126
+# after padding). "chunk" is one per-slot prefill dispatch (bucket 128),
+# in the pool's dtype and with int8 codes. pos is drawn over the pool
+# from a seeded generator; "edge" puts one row past the pool's end, as a
+# masked serving row can be.
+_DECODE = dict(B=8, H=32, Hk=8, T=1024, S=1, Rq=126, Rv=126, dtype="float32",
+               window=None, softcap=None, int8=False, pos=None)
+RAGGED_CASES = [
+    dict(_DECODE, name="decode_f32"),
+    dict(_DECODE, name="decode_bf16", dtype="bfloat16"),
+    dict(_DECODE, name="aligned_128", Rq=128, Rv=128),
+    dict(_DECODE, name="unaligned_126_90", Rv=90),
+    dict(_DECODE, name="chunk_S128_pos384", B=1, S=128, pos=[384]),
+    dict(_DECODE, name="chunk_S128_pos384_int8", B=1, S=128, pos=[384], int8=True),
+    dict(_DECODE, name="window100", window=100),
+    dict(_DECODE, name="softcap50", softcap=50.0),
+    dict(_DECODE, name="int8_f32", int8=True),
+    dict(_DECODE, name="int8_bf16", dtype="bfloat16", int8=True),
+    dict(_DECODE, name="mha", Hk=32),
+    dict(_DECODE, name="edge_row", pos="edge"),
+]
+
+# The serve phase's traffic: prompts of token ids from the synthetic eval
+# set, lengths uniform over [min_prompt, max_prompt] from a seeded numpy
+# generator, greedy, a fixed generation budget; then int8_requests more
+# with an int8 KV cache.
+SERVE = dict(slots=8, max_len=1024, prefill_bucket=128, requests=16, int8_requests=4,
+             min_prompt=16, max_prompt=640, max_new_tokens=32, seed=0)
 
 N_LAYERS = 4  # Meta-Llama-3-8B's 32 layers cut to 4: about 7.7 GB of f32 weights
 LLAMA3_8B = dict(  # Meta-Llama-3-8B config.json
@@ -102,6 +148,31 @@ def phase_build() -> dict:
 
 
 def phase_kernel(records: dict) -> list:
+    lines = _flash_cases(records) + _ragged_cases(records)
+    bad = [f"{ln['kernel']}:{ln['case']}" for ln in lines if not ln["ok"]]
+    if bad:
+        raise AssertionError(f"kernels disagree with their plain versions at {bad}")
+    return lines
+
+
+def _bound(flops: float, nbytes: float, dtype: str):
+    t_ops = flops / PEAK_FLOPS[dtype]
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def _library_ms(name: str, fn):
+    """One PyTorch call computing the same function, timed as a yardstick
+    (the port never calls it); None where no backend takes the case."""
+    try:
+        fn()
+        return cuda_ms(fn, iters=10)
+    except (TypeError, RuntimeError) as e:
+        print(f"[kernel {name}] SDPA not timed: {e}", file=sys.stderr)
+        return None
+
+
+def _flash_cases(records: dict) -> list:
     import torch
     import torch.nn.functional as F
 
@@ -132,48 +203,143 @@ def phase_kernel(records: dict) -> list:
             i = torch.arange(T, device="cuda")
             mask = (i[None, :] <= i[:, None]) & (i[None, :] > i[:, None] - w)
         kw = dict(attn_mask=mask, is_causal=mask is None, scale=scale)
-        try:
-            F.scaled_dot_product_attention(q, k, v, enable_gqa=True, **kw)
-            library_ms = cuda_ms(
-                lambda: F.scaled_dot_product_attention(q, k, v, enable_gqa=True, **kw), iters=10
-            )
-        except (TypeError, RuntimeError) as e:  # no kernel for this shape/dtype
-            print(f"[kernel {case['name']}] SDPA not timed: {e}", file=sys.stderr)
-            library_ms = None
+        library_ms = _library_ms(
+            case["name"], lambda: F.scaled_dot_product_attention(q, k, v, enable_gqa=True, **kw)
+        )
 
         flops = 2.0 * B * H * visible_pairs(T, w) * (hd + hd_v)
         nbytes = sum(t.numel() * t.element_size() for t in (q, k, v, got))
-        t_ops = flops / PEAK_FLOPS[case["dtype"]]
-        t_bytes = nbytes / HBM_BYTES_PER_S
+        bound_ms, bound_by = _bound(flops, nbytes, case["dtype"])
         line = {
             "phase": "kernel", "kernel": "flash_attention", "case": case["name"],
             "shape": {k_: case[k_] for k_ in ("B", "H", "Hk", "T", "hd", "hd_v", "window")},
             "dtype": case["dtype"], "max_abs_err": err, "tolerance": tol, "ok": ok,
             "kernel_ms": kernel_ms, "plain_ms": plain_ms, "library_ms": library_ms,
-            "bound_ms": max(t_ops, t_bytes) * 1e3,
-            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "bound_ms": bound_ms, "bound_by": bound_by,
         }
         emit(line)
         lines.append(line)
         del q, k, v, got, want
         torch.cuda.empty_cache()
-    main = lines[0]
-    records["flash_attention"] = {
-        "name": "flash_attention",
-        "route": "cuda",
-        "source": "modegpt_tpu_torch/csrc/flash_attention.cu",
-        "replaces": "modegpt_tpu/kernels/flash_attention.py:156",
+    records["flash_attention"] = _record(
+        "flash_attention", "modegpt_tpu_torch/csrc/flash_attention.cu",
+        "modegpt_tpu/kernels/flash_attention.py:156", lines[0],
+    )
+    return lines
+
+
+def _record(name: str, source: str, replaces: str, main: dict) -> dict:
+    """The kernels-line entry of one kernel, from its main-path case."""
+    return {
+        "name": name, "route": "cuda", "source": source, "replaces": replaces,
         "launches": None,
-        "max_abs_err": main["max_abs_err"],
-        "ms": main["kernel_ms"],
-        "plain_ms": main["plain_ms"],
-        "bound_ms": main["bound_ms"],
-        "bound_by": main["bound_by"],
+        "max_abs_err": main["max_abs_err"], "ms": main["kernel_ms"], "plain_ms": main["plain_ms"],
+        "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
         "library_ms": main["library_ms"],
     }
-    bad = [ln["case"] for ln in lines if not ln["ok"]]
-    if bad:
-        raise AssertionError(f"flash_attention disagrees with its plain version at {bad}")
+
+
+def ragged_live(pos, S: int, T: int, window):
+    """Per (row, query) live-key counts and per-row union counts of
+    ragged_gqa_attend: query s of row b attends t in
+    [max(0, pos+s+1-window), pos+s] with t < T."""
+    per_query, union = [], []
+    for p in pos:
+        lo0 = max(0, p + 1 - window) if window else 0
+        union.append(max(0, min(p + S - 1, T - 1) - lo0 + 1))
+        for s in range(S):
+            lo = max(0, p + s + 1 - window) if window else 0
+            per_query.append(max(0, min(p + s, T - 1) - lo + 1))
+    return per_query, union
+
+
+def _ragged_cases(records: dict) -> list:
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    from modegpt_tpu_torch.kernels.ragged_decode import (
+        ragged_gqa_attend,
+        ragged_gqa_attend_reference,
+    )
+
+    lines = []
+    rng = np.random.default_rng(0)
+    for case in RAGGED_CASES:
+        B, H, Hk, T, S, Rq, Rv = (case[k] for k in ("B", "H", "Hk", "T", "S", "Rq", "Rv"))
+        w, cap, dt = case["window"], case["softcap"], getattr(torch, case["dtype"])
+        if case["pos"] is None:
+            pos_host = rng.integers(0, T, size=B).tolist()
+        elif case["pos"] == "edge":
+            pos_host = rng.integers(0, T, size=B).tolist()
+            pos_host[1] = T + 5  # a masked row: at or past the pool's end
+        else:
+            pos_host = list(case["pos"])
+
+        def randn(*shape, scale=1.0):
+            return torch.from_numpy((rng.standard_normal(shape) * scale).astype(np.float32)).cuda()
+
+        q = randn(B, H, S, Rq, scale=Rq**-0.5).to(dt)  # pre-scaled, as the serving path passes it
+        k_scale = v_scale = None
+        if case["int8"]:
+            k = torch.from_numpy(rng.integers(-127, 128, (B, Hk, T, Rq), dtype=np.int8)).cuda()
+            v = torch.from_numpy(rng.integers(-127, 128, (B, Hk, T, Rv), dtype=np.int8)).cuda()
+            k_scale = torch.from_numpy(rng.uniform(0.5, 1.5, (B, Hk, T)).astype(np.float32) / 127).cuda()
+            v_scale = torch.from_numpy(rng.uniform(0.5, 1.5, (B, Hk, T)).astype(np.float32) / 127).cuda()
+        else:
+            k = randn(B, Hk, T, Rq).to(dt)
+            v = randn(B, Hk, T, Rv).to(dt)
+        pos = torch.tensor(pos_host, dtype=torch.int32, device="cuda")
+        kw = dict(k_scale=k_scale, v_scale=v_scale, window=w, softcap=cap)
+
+        got = ragged_gqa_attend(q, k, v, pos, **kw)
+        torch.cuda.synchronize()
+        want = ragged_gqa_attend_reference(q, k, v, pos, **kw)
+        err = float((got.float() - want.float()).abs().max())
+        tol = TOLERANCE[case["dtype"]]
+        ok = bool(torch.allclose(got.float(), want.float(), **tol)) and bool(torch.isfinite(got).all())
+        kernel_ms = cuda_ms(lambda: ragged_gqa_attend(q, k, v, pos, **kw), iters=20)
+        plain_ms = cuda_ms(lambda: ragged_gqa_attend_reference(q, k, v, pos, **kw), iters=5)
+
+        library_ms = None
+        if not case["int8"] and cap is None:
+            t_ids = torch.arange(T, device="cuda")
+            limit = pos.long()[:, None] + torch.arange(S, device="cuda")[None, :]  # [B, S]
+            mask = t_ids[None, None, :] <= limit[:, :, None]
+            if w:
+                mask = mask & (t_ids[None, None, :] > limit[:, :, None] - w)
+            mask = mask[:, None]  # [B, 1, S, T]
+            if bool(mask.any(-1).all()):  # SDPA gives NaN for a row with no visible key
+                library_ms = _library_ms(
+                    case["name"],
+                    lambda: F.scaled_dot_product_attention(
+                        q, k, v, attn_mask=mask, scale=1.0, enable_gqa=True
+                    ),
+                )
+
+        per_query, union = ragged_live(pos_host, S, T, w)
+        flops = 2.0 * H * sum(per_query) * (Rq + Rv)
+        kv_row_bytes = Hk * ((Rq + Rv) * k.element_size() + (8 if case["int8"] else 0))
+        nbytes = sum(union) * kv_row_bytes + sum(
+            t.numel() * t.element_size() for t in (q, got, pos)
+        )
+        bound_ms, bound_by = _bound(flops, nbytes, case["dtype"])
+        line = {
+            "phase": "kernel", "kernel": "ragged_gqa_attend", "case": case["name"],
+            "shape": {k_: case[k_] for k_ in ("B", "H", "Hk", "T", "S", "Rq", "Rv", "window", "softcap", "int8")},
+            "pos": pos_host if B <= 8 else None,
+            "dtype": case["dtype"], "max_abs_err": err, "tolerance": tol, "ok": ok,
+            "kernel_ms": kernel_ms, "plain_ms": plain_ms, "library_ms": library_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by,
+        }
+        emit(line)
+        lines.append(line)
+        del q, k, v, got, want
+        torch.cuda.empty_cache()
+    records["ragged_gqa_attend"] = _record(
+        "ragged_gqa_attend", "modegpt_tpu_torch/csrc/ragged_decode.cu",
+        "modegpt_tpu/kernels/ragged_decode.py:289", lines[0],
+    )
     return lines
 
 
@@ -184,9 +350,9 @@ def _profiler():
     return torch.profiler.profile(activities=acts)
 
 
-def _profile_line(prof, wall_s: float) -> dict:
+def _profile_line(prof, wall_s: float, phase: str = "main") -> dict:
     """Device busy time (the sum of every kernel's and copy's device
-    time, from the profiler's CUDA trace) against the job's wall time,
+    time, from the profiler's CUDA trace) against the phase's wall time,
     and the ten largest device-time entries."""
     import torch
 
@@ -202,7 +368,7 @@ def _profile_line(prof, wall_s: float) -> dict:
     rows.sort(key=lambda r: -r[1])
     busy_s = sum(r[1] for r in rows) / 1e3
     return {
-        "phase": "profile", "wall_s": wall_s, "device_busy_s": busy_s,
+        "phase": "profile", "of": phase, "wall_s": wall_s, "device_busy_s": busy_s,
         "device_idle_share": 1.0 - busy_s / wall_s,
         "top_device": [{"name": k[:80], "ms": ms, "count": n} for k, ms, n in rows[:10]],
     }
@@ -215,9 +381,11 @@ def phase_main(records: dict, profile: bool = False) -> dict:
     from modegpt_tpu_torch.compress.artifact import load_compressed_model
     from modegpt_tpu_torch.compress.pipeline import run_compression
     from modegpt_tpu_torch.config import CompressionConfig
+    from modegpt_tpu_torch.evals.perplexity import resolve_exec_mode
     from modegpt_tpu_torch.kernels import flash_attention as fa_mod
     from modegpt_tpu_torch.models.forward import forward
     from modegpt_tpu_torch.models.init import init_params
+    from modegpt_tpu_torch.models.padded import forward_padded, pad_to_uniform, padding_overhead
     from modegpt_tpu_torch.models.spec import spec_from_hf_config
 
     spec = spec_from_hf_config(SimpleNamespace(**{**LLAMA3_8B, "num_hidden_layers": N_LAYERS}))
@@ -260,16 +428,23 @@ def phase_main(records: dict, profile: bool = False) -> dict:
         # plain attention path on one eval batch (unaligned head dims)
         eval_tokens = load_eval_tokens(None, "synthetic", 512, 1, vocab_size=spec.vocab_size)
         ids = torch.as_tensor(eval_tokens, device="cuda")
+        # the padded stack through K1 agrees with the unrolled forward
+        pm = pad_to_uniform(spec2, params2)
         with torch.no_grad():
             lk, _ = forward(spec2, params2, ids, attn_impl="flash")
             lp, _ = forward(spec2, params2, ids, attn_impl="xla")
+            lpad = forward_padded(pm.spec, pm.layers, pm.other, pm.q_hd_true, ids, attn_impl="flash")
         logit_err = float((lk - lp).abs().max())
         logit_ok = bool(torch.allclose(lk, lp, rtol=1e-3, atol=1e-3))
-        del params2, lk, lp
+        padded_err = float((lpad - lk).abs().max())
+        padded_ok = bool(torch.allclose(lpad, lk, rtol=1e-3, atol=1e-3))
+        del lk, lp, lpad
 
     records["flash_attention"]["launches"] = launches
     line = {
         "phase": "main", "model": "Meta-Llama-3-8B widths", "n_layers": N_LAYERS,
+        "compressed_eval_path": resolve_exec_mode(cspec, config.compressed_exec),
+        "padding_overhead": padding_overhead(cspec),
         "init_seconds": init_s,
         "step_seconds": results["step_seconds"],
         "total_seconds": results["total_seconds"],
@@ -281,6 +456,7 @@ def phase_main(records: dict, profile: bool = False) -> dict:
         },
         "launches": {"flash_attention": launches}, "expected_launches": {"flash_attention": expected},
         "compressed_logits_max_abs_err": logit_err,
+        "padded_vs_unrolled_logits_max_abs_err": padded_err,
         "peak_memory_gib": torch.cuda.max_memory_allocated() / 2**30,
     }
     emit(line)
@@ -298,6 +474,171 @@ def phase_main(records: dict, profile: bool = False) -> dict:
         problems.append("reloaded artifact's spec differs from the compressed spec")
     if not logit_ok:
         problems.append(f"compressed logits: kernel vs plain attention differ by {logit_err}")
+    if not padded_ok:
+        problems.append(f"compressed logits: forward_padded vs unrolled forward differ by {padded_err}")
+    if problems:
+        raise AssertionError("; ".join(problems))
+    return {"spec": spec2, "params": params2, "pm": pm}
+
+
+def _clone_state(state):
+    import torch
+
+    return type(state)(*(
+        None if f is None else (f.clone() if isinstance(f, torch.Tensor) else f.copy()) for f in state
+    ))
+
+
+def _serve_round(batcher, prompts, generator, on_step=None):
+    """Submit `prompts` and step the batcher until it drains; returns
+    ({rid: tokens}, [rid per prompt], wall seconds without on_step)."""
+    import torch
+
+    rids = [batcher.submit(p, max_new_tokens=SERVE["max_new_tokens"]) for p in prompts]
+    done, aside, t0 = {}, 0.0, time.perf_counter()
+    for step in range(10_000):
+        fin, drained = batcher.step(generator)
+        done.update(fin)
+        if drained:
+            break
+        if on_step is not None:
+            t1 = time.perf_counter()
+            on_step(step)
+            aside += time.perf_counter() - t1
+    torch.cuda.synchronize()
+    return done, rids, time.perf_counter() - t0 - aside
+
+
+def phase_serve(records: dict, main_out: dict, profile: bool = False) -> dict:
+    """Serve the compressed model the main phase reloaded, padded, through
+    the continuous batcher with decode_attn="auto" (K3 on the card).
+    With `profile`, the 16-request round runs under torch.profiler."""
+    import numpy as np
+    import torch
+
+    from modegpt_tpu_torch.calib.data import load_eval_tokens
+    from modegpt_tpu_torch.kernels import ragged_decode as rd_mod
+    from modegpt_tpu_torch.models import serving
+    from modegpt_tpu_torch.models.forward import forward
+    from modegpt_tpu_torch.models.padded import _model_step_padded
+
+    cspec, cparams, pm = main_out["spec"], main_out["params"], main_out["pm"]
+    n, n_int8, new = SERVE["requests"], SERVE["int8_requests"], SERVE["max_new_tokens"]
+    rng = np.random.default_rng(SERVE["seed"])
+    lens = rng.integers(SERVE["min_prompt"], SERVE["max_prompt"] + 1, size=n + n_int8)
+    windows = load_eval_tokens(None, "synthetic", 2 * SERVE["max_prompt"], 16, vocab_size=cspec.vocab_size)
+    prompts = [windows[i % 16, (i // 16) * SERVE["max_prompt"]:][: lens[i]] for i in range(n + n_int8)]
+
+    # count and time the dispatches around the port's two step functions
+    counts, seconds = {"prefill": 0, "decode": 0}, {"prefill": 0.0, "decode": 0.0}
+    originals = {"prefill": serving._prefill_chunk, "decode": serving._one_decode_step}
+
+    def counted(kind):
+        def run(*args, **kwargs):
+            counts[kind] += 1
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = originals[kind](*args, **kwargs)
+            torch.cuda.synchronize()
+            seconds[kind] += time.perf_counter() - t0
+            return out
+        return run
+
+    kw = dict(slots=SERVE["slots"], max_len=SERVE["max_len"], prefill_bucket=SERVE["prefill_bucket"],
+              temperature=0.0)
+    checks = {}
+
+    def check_decode_backends(name, batcher):
+        """Once some slot of `batcher` decodes: one decode step's logits
+        through K3 and through its plain version, on clones of the state
+        (for int8 KV, over the same codes and scales). Launches made here
+        are comparisons and do not count."""
+        def on_step(step):
+            if name in checks or not any(
+                r is not None and not c for r, c in zip(batcher.slot_req, batcher.slot_chunks)
+            ):
+                return
+            saved = rd_mod.ragged_gqa_attend.launches
+            logits = {}
+            for attn in ("ragged", "xla"):
+                st = _clone_state(batcher.state)
+                logits[attn], _ = _model_step_padded(
+                    pm.spec, pm.layers, pm.other, pm.q_hd_true, st.last_token[:, None],
+                    st.cache_k, st.cache_v, st.lengths, cache_scales=st.scales, decode_attn=attn,
+                )
+                del st
+            rd_mod.ragged_gqa_attend.launches = saved
+            checks[name] = dict(
+                step=step, err=float((logits["ragged"] - logits["xla"]).abs().max()),
+                ok=bool(torch.allclose(logits["ragged"], logits["xla"], rtol=1e-3, atol=1e-3)),
+            )
+        return on_step
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    serving._prefill_chunk, serving._one_decode_step = counted("prefill"), counted("decode")
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        rd_mod.ragged_gqa_attend.launches = 0
+        b = serving.ContinuousBatcher(pm, decode_attn="auto", **kw)
+        with _profiler() if profile else contextlib.nullcontext() as prof:
+            done, rids, wall = _serve_round(b, prompts[:n], gen, on_step=check_decode_backends("model", b))
+        b8 = serving.ContinuousBatcher(pm, decode_attn="auto", kv_dtype="int8", **kw)
+        done8, rids8, wall8 = _serve_round(b8, prompts[n:], gen, on_step=check_decode_backends("int8", b8))
+        launches = rd_mod.ragged_gqa_attend.launches
+    finally:
+        serving._prefill_chunk, serving._one_decode_step = originals["prefill"], originals["decode"]
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    if profile:
+        emit(_profile_line(prof, wall, "serve"))
+    dispatches = counts["prefill"] + counts["decode"]
+    expected = cspec.n_layers * dispatches
+
+    # teacher forcing: every request of the model-dtype round, its served
+    # tokens against the unrolled forward (K1) over prompt + output
+    exact, max_gap = 0, 0.0
+    for rid, prompt in zip(rids, prompts[:n]):
+        seq, P = done[rid], len(prompt)
+        with torch.no_grad():
+            logits, _ = forward(cspec, cparams, torch.tensor([seq], device="cuda"))
+        rows = logits[0, P - 1 : P - 1 + new]
+        served = torch.tensor(seq[P:], device="cuda")
+        gap = rows.max(dim=-1).values - rows.gather(1, served[:, None])[:, 0]
+        exact += int((rows.argmax(dim=-1) == served).sum())
+        max_gap = max(max_gap, float(gap.max()))
+        del logits
+
+    lengths_ok = all(len(done.get(r, [])) == len(p) + new for r, p in zip(rids, prompts[:n])) and all(
+        len(done8.get(r, [])) == len(p) + new for r, p in zip(rids8, prompts[n:])
+    )
+    records["ragged_gqa_attend"]["launches"] = launches
+    line = {
+        "phase": "serve", "slots": SERVE["slots"], "max_len": SERVE["max_len"],
+        "prefill_bucket": SERVE["prefill_bucket"], "decode_attn": b.decode_attn,
+        "requests": n, "int8_requests": n_int8, "prompt_lengths": lens.tolist(),
+        "max_new_tokens": new,
+        "serving_wall_seconds": wall, "generated_tokens_per_s": n * new / wall,
+        "int8_wall_seconds": wall8, "int8_generated_tokens_per_s": n_int8 * new / wall8,
+        "dispatches": counts, "mean_prefill_dispatch_ms": 1e3 * seconds["prefill"] / max(counts["prefill"], 1),
+        "mean_decode_dispatch_ms": 1e3 * seconds["decode"] / max(counts["decode"], 1),
+        "launches": {"ragged_gqa_attend": launches}, "expected_launches": {"ragged_gqa_attend": expected},
+        "decode_backends_check": checks,
+        "teacher_forcing": {"requests": n, "exact_argmax": exact, "of": n * new,
+                            "max_gap_to_row_max": max_gap},
+        "peak_memory_gib": peak,
+    }
+    emit(line)
+    problems = []
+    if launches != expected:
+        problems.append(f"ragged_gqa_attend launched {launches} times, expected {expected}")
+    if b.decode_attn != "ragged" or b8.decode_attn != "ragged":
+        problems.append(f"decode_attn auto resolved to {b.decode_attn}/{b8.decode_attn}, not ragged")
+    if not lengths_ok:
+        problems.append(f"a request did not return prompt + {new} tokens")
+    for name in ("model", "int8"):
+        if not checks.get(name, {}).get("ok"):
+            problems.append(f"decode logits K3 vs plain, {name} KV: {checks.get(name)}")
+    if max_gap > 1e-3:
+        problems.append(f"a served token is {max_gap} below its row's max logit")
     if problems:
         raise AssertionError("; ".join(problems))
     return line
@@ -316,9 +657,10 @@ def card_line() -> str:
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--phases", default="build,kernel,main")
+    ap.add_argument("--phases", default="build,kernel,main,serve")
     ap.add_argument("--profile", action="store_true",
-                    help="trace the main phase with torch.profiler; print its device busy time")
+                    help="trace the main job and the serve round with torch.profiler; "
+                    "print their device busy time")
     args = ap.parse_args(argv)
     phases = args.phases.split(",")
 
@@ -341,10 +683,12 @@ def main(argv=None) -> int:
         emit(phase_build())
     if "kernel" in phases:
         phase_kernel(records)
-    if "main" in phases:
-        if "flash_attention" not in records:
-            raise SystemExit("chip_smoke: the main phase needs the kernel phase's records")
-        phase_main(records, args.profile)
+    if "main" in phases or "serve" in phases:
+        if not {"flash_attention", "ragged_gqa_attend"} <= set(records):
+            raise SystemExit("chip_smoke: the main and serve phases need the kernel phase's records")
+        main_out = phase_main(records, args.profile)
+        if "serve" in phases:
+            phase_serve(records, main_out, args.profile)
     emit({"kernels": list(records.values())})
     print(card_line(), flush=True)
     emit({

@@ -58,7 +58,6 @@ def _check_ported(config: CompressionConfig) -> None:
         f"mesh_shape={config.mesh_shape!r} (modegpt_tpu_torch.parallel)": bool(config.mesh_shape),
         "shard_sequence": config.shard_sequence,
         "shard_stats": config.shard_stats,
-        "compressed_exec=padded": config.compressed_exec == "padded",
         f"qk_method={config.qk_method}": config.qk_method != "cr",
         f"artifact_dtype={config.artifact_dtype}": config.artifact_dtype not in ("", "float32", "bfloat16"),
         f"artifact_backend={config.artifact_backend}": config.artifact_backend != "npz",

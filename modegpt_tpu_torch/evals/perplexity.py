@@ -3,9 +3,11 @@
 Port of ``modegpt_tpu.evals.perplexity.compute_perplexity`` (reference:
 src/eval.py:134-225): shifted cross-entropy summed over every position
 of every window, and ``ppl = exp(sum_nll / (n_samples * (seq_len - 1)))``
-(eval.py:220). Heterogeneous-rank models run unrolled, layer by layer;
-the JAX package's padded execution is not ported (``auto`` means
-unrolled here; both give the same perplexity up to float reassociation).
+(eval.py:220). A heterogeneous-rank model runs either unrolled, layer by
+layer at its exact ranks, or padded (`models.padded.forward_padded`,
+every layer zero-padded to the stack's widest ranks); ``auto`` takes
+padded when the padding costs less than 1.5x the exact FLOPs, as the JAX
+package does. Both give the same perplexity up to float reassociation.
 """
 
 from __future__ import annotations
@@ -20,22 +22,34 @@ import torch
 import torch.nn.functional as F
 
 from modegpt_tpu_torch.models.forward import forward
+from modegpt_tpu_torch.models.padded import forward_padded, pad_to_uniform, padding_overhead
 from modegpt_tpu_torch.models.spec import ModelSpec
 
 logger = logging.getLogger("modegpt_tpu_torch")
 
-__all__ = ["compute_perplexity"]
+__all__ = ["compute_perplexity", "resolve_exec_mode"]
 
 
-def _batch_nll(spec: ModelSpec, params: Dict, batch: torch.Tensor, attn_impl: str) -> torch.Tensor:
+def _nll_from_logits(logits: torch.Tensor, batch: torch.Tensor) -> torch.Tensor:
     """Sum of shifted per-position NLL over the batch, in float32."""
-    logits, _ = forward(spec, params, batch, attn_impl=attn_impl)
     V = logits.shape[-1]
     return F.cross_entropy(
         logits[:, :-1, :].reshape(-1, V).to(torch.float32),
         batch[:, 1:].reshape(-1).long(),
         reduction="sum",
     )
+
+
+def resolve_exec_mode(spec: ModelSpec, exec_mode: str) -> str:
+    """"padded" or "unrolled" for ``exec_mode`` auto|padded|unrolled: auto
+    pads a non-uniform spec whose padding overhead is below 1.5x
+    (reference rule: modegpt_tpu/evals/perplexity.py:89-96; mixed
+    dense/MoE stacks never reach here, MoE is not ported)."""
+    if exec_mode not in ("auto", "unrolled", "padded"):
+        raise ValueError(f"exec_mode must be auto, unrolled or padded, got {exec_mode!r}")
+    if exec_mode == "auto":
+        return "padded" if not spec.is_uniform and padding_overhead(spec) < 1.5 else "unrolled"
+    return exec_mode
 
 
 def compute_perplexity(
@@ -49,14 +63,19 @@ def compute_perplexity(
     exec_mode: str = "auto",
 ) -> float:
     """Perplexity over pre-chunked eval windows [n, seq_len], on the
-    parameters' device."""
-    if exec_mode == "padded":
-        raise NotImplementedError(
-            "modegpt_tpu_torch.evals.perplexity: compressed_exec=padded is not ported "
-            "(auto and unrolled run unrolled)"
-        )
-    if exec_mode not in ("auto", "unrolled"):
-        raise ValueError(f"exec_mode must be auto, unrolled or padded, got {exec_mode!r}")
+    parameters' device. exec_mode: auto | unrolled | padded (see
+    `resolve_exec_mode`)."""
+    mode = resolve_exec_mode(spec, exec_mode)
+    if mode == "padded":
+        pm = pad_to_uniform(spec, params)
+        logger.info("eval: padded-uniform execution (%.1f%% FLOP overhead)", (padding_overhead(spec) - 1) * 100)
+
+        def logits_of(batch):
+            return forward_padded(pm.spec, pm.layers, pm.other, pm.q_hd_true, batch, attn_impl=attn_impl)
+    else:
+        def logits_of(batch):
+            return forward(spec, params, batch, attn_impl=attn_impl)[0]
+
     device = params["embed_tokens"].device
     n_samples, seq_len = eval_tokens.shape
     total_nll = 0.0
@@ -64,7 +83,7 @@ def compute_perplexity(
     for i in range(0, n_samples, batch_size):
         j = min(i + batch_size, n_samples)
         batch = torch.as_tensor(np.asarray(eval_tokens[i:j]), device=device)
-        total_nll += float(_batch_nll(spec, params, batch, attn_impl))
+        total_nll += float(_nll_from_logits(logits_of(batch), batch))
         if progress and i > 0:
             elapsed = time.perf_counter() - t_start
             running = math.exp(total_nll / (j * (seq_len - 1)))

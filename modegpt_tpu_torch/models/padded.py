@@ -1,0 +1,442 @@
+"""Padded-uniform execution for heterogeneous-rank compressed models.
+
+Port of ``modegpt_tpu.models.padded`` for dense llama, qwen3 and opt
+stacks, dense or compressed. Every layer's factors are zero-padded to the
+stack-wide max rank per module and stacked into ``[L, ...]`` leaves, so
+every layer has the same shapes; the layer scan is a Python loop over
+``l`` that reads ``layers[...][l]`` views.
+
+Exactness (equal to the unrolled forward up to float reassociation):
+
+* Zero-padded projection columns give zero q/k/v coordinates, which add
+  nothing to scores or outputs; zero-padded o/down rows consume them.
+  Biases are zero at pad positions.
+* For RoPE architectures q/k pads use a half-split layout per head,
+  ``[first-half | 0.. | second-half | 0..]``, so ``rotate_half`` still
+  pairs true coordinates with true coordinates.
+* The attention scale uses each layer's TRUE head dim (``q_hd_true``),
+  multiplied into q in q's dtype.
+* Qwen3's per-head q/k RMSNorm divides by the true rank
+  (`ops.rope.masked_head_rms_norm` with ``r_true``).
+
+`_model_step_padded` runs new tokens through the stack against a stacked
+KV cache ``[L, B, Hk, max_len, R]`` that it updates in place (the torch
+form of the JAX carries and donation: only the new positions are
+written, the pool is never copied). Each row sits at its own offset; a
+write at or past ``max_len`` is dropped, as JAX's ``mode="drop"`` scatter
+drops it. The offsets are host integers: the drop mask is decided on the
+host, and only the surviving (row, position) pairs are written, because
+an out-of-range index on a CUDA tensor is a device-side assert and a
+clamped write would overwrite a live position.
+
+MoE, tensor parallelism, olmo2's flat q/k norm and soft-capping raise
+NotImplementedError (`models.forward.check_supported`).
+"""
+
+from __future__ import annotations
+
+from typing import Dict, NamedTuple, Optional, Sequence, Tuple, Union
+
+import numpy as np
+import torch
+
+from modegpt_tpu_torch.kernels.ragged_decode import ragged_gqa_attend, ragged_gqa_attend_reference
+from modegpt_tpu_torch.models.forward import _act, _attention, _linear, _norm, check_supported
+from modegpt_tpu_torch.models.spec import ModelSpec
+from modegpt_tpu_torch.ops.rope import (
+    apply_rope,
+    apply_rope_ragged,
+    masked_head_rms_norm,
+    rope_cos_sin,
+)
+
+__all__ = [
+    "PaddedModel",
+    "pad_to_uniform",
+    "padding_overhead",
+    "forward_padded",
+    "init_cache_padded",
+]
+
+Length = Union[int, Sequence[int], np.ndarray]
+
+
+class PaddedModel(NamedTuple):
+    """Uniform-shape stacked model: `spec` has the PADDED ranks; `layers`
+    holds [L, ...] stacked leaves; `q_hd_true` [L] float32 the true
+    per-head q/k dim of each layer (everything else is exact through
+    zeros)."""
+
+    spec: ModelSpec
+    layers: Dict
+    other: Dict
+    q_hd_true: torch.Tensor
+
+
+def _pad_head_axis(x: torch.Tensor, n_heads: int, r_true: int, R: int, rope: bool, axis: int):
+    """Pad a head-major axis of size n_heads*r_true to n_heads*R with
+    zeros; `rope=True` uses the half-split layout."""
+    if r_true == R:
+        return x
+    x = torch.movedim(x, axis, -1)
+    shape = x.shape[:-1]
+    xh = x.reshape(*shape, n_heads, r_true)
+    out = x.new_zeros((*shape, n_heads, R))
+    if rope:
+        h, Rh = r_true // 2, R // 2
+        out[..., :h] = xh[..., :h]
+        out[..., Rh : Rh + h] = xh[..., h:]
+    else:
+        out[..., :r_true] = xh
+    return torch.movedim(out.reshape(*shape, n_heads * R), -1, axis)
+
+
+def _pad_tail(x: torch.Tensor, true: int, target: int, axis: int):
+    if true == target:
+        return x
+    shape = list(x.shape)
+    shape[axis] = target
+    out = x.new_zeros(shape)
+    out.narrow(axis, 0, true).copy_(x)
+    return out
+
+
+def _pad_linear(p: Dict, pad_in=None, pad_out=None) -> Dict:
+    """pad_in/pad_out: None or a function of (tensor, axis)."""
+    out = dict(p)
+    k = p["kernel"]
+    if pad_in is not None:
+        k = pad_in(k, 0)
+    if pad_out is not None:
+        k = pad_out(k, 1)
+    out["kernel"] = k
+    if "bias" in p and pad_out is not None:
+        out["bias"] = pad_out(p["bias"], 0)
+    return out
+
+
+def _stack(trees):
+    if isinstance(trees[0], dict):
+        return {k: _stack([t[k] for t in trees]) for k in trees[0]}
+    return torch.stack(trees)
+
+
+def pad_to_uniform(spec: ModelSpec, params: Dict) -> PaddedModel:
+    """Zero-pad every layer to the stack-wide max rank per module and
+    stack the layer params into [L, ...] leaves, on the params' device."""
+    check_supported(spec)
+    H, Hk, L = spec.n_heads, spec.n_kv_heads, spec.n_layers
+    rope = spec.uses_rope
+    device = params["embed_tokens"].device
+    Rq = max(spec.q_ranks[l] // H for l in range(L))
+    Rv = max(spec.v_ranks[l] // Hk for l in range(L))
+    Rg = max(spec.gate_ranks)
+    # every layer needs the same leaves to stack: if any layer carries a
+    # rotary mask (or a RoPE layer's q/k need padding), all get one
+    need_masks = spec.has_rotary_masks or (rope and any(spec.q_ranks[l] // H != Rq for l in range(L)))
+
+    padded_layers = []
+    for l in range(L):
+        p = params["layers"][l]
+        rq = spec.q_ranks[l] // H
+        rv = spec.v_ranks[l] // Hk
+        rg = spec.gate_ranks[l]
+        q = {k_: p[k_] for k_ in ("attn_norm", "mlp_norm") if k_ in p}
+        q["q"] = _pad_linear(p["q"], pad_out=lambda x, ax: _pad_head_axis(x, H, rq, Rq, rope, ax))
+        q["k"] = _pad_linear(p["k"], pad_out=lambda x, ax: _pad_head_axis(x, Hk, rq, Rq, rope, ax))
+        q["v"] = _pad_linear(p["v"], pad_out=lambda x, ax: _pad_head_axis(x, Hk, rv, Rv, False, ax))
+        q["o"] = _pad_linear(p["o"], pad_in=lambda x, ax: _pad_head_axis(x, H, rv, Rv, False, ax))
+        g_pad = lambda x, ax: _pad_tail(x, rg, Rg, ax)  # noqa: E731
+        q["up"] = _pad_linear(p["up"], pad_out=g_pad)
+        q["down"] = _pad_linear(p["down"], pad_in=g_pad)
+        if spec.gated_mlp:
+            q["gate"] = _pad_linear(p["gate"], pad_out=g_pad)
+        if spec.qk_norm:
+            q["q_norm"] = p["q_norm"]
+            q["k_norm"] = p["k_norm"]
+        if "rotary_mask" in p:
+            # pad positions keep index 0: the gathered cos/sin multiply a
+            # zero coordinate. Each mask row is one kv head (n_heads=1).
+            q["rotary_mask"] = _pad_head_axis(p["rotary_mask"], 1, rq, Rq, rope, 1)
+        elif need_masks:
+            # a layer without a mask inside a masked stack: the identity
+            # frequency mask, padded in the same half-split layout
+            half = rq // 2
+            ar = torch.arange(half, dtype=torch.int32, device=device)
+            ident = torch.cat([ar, ar + spec.head_dim // 2]).expand(Hk, rq)
+            q["rotary_mask"] = _pad_head_axis(ident, 1, rq, Rq, rope, 1)
+        padded_layers.append(q)
+
+    stacked = _stack(padded_layers)
+    other = {k: v for k, v in params.items() if k != "layers"}
+    pspec = spec.with_ranks(
+        q_ranks=(H * Rq,) * L,
+        k_ranks=(Hk * Rq,) * L,
+        v_ranks=(Hk * Rv,) * L,
+        o_ranks=(H * Rv,) * L,
+        gate_ranks=(Rg,) * L,
+    )
+    q_hd_true = torch.tensor([spec.q_ranks[l] / H for l in range(L)], dtype=torch.float32, device=device)
+    return PaddedModel(spec=pspec, layers=stacked, other=other, q_hd_true=q_hd_true)
+
+
+def padding_overhead(spec: ModelSpec) -> float:
+    """FLOP ratio padded/exact for the layer stack's matmuls (embeddings
+    and attention quadratic terms excluded — a conservative upper bound)."""
+    H, Hk, L, d = spec.n_heads, spec.n_kv_heads, spec.n_layers, spec.d_model
+    Rq = max(spec.q_ranks) // H * H
+    Rk = max(spec.q_ranks) // H * Hk
+    Rv = max(spec.v_ranks) // Hk * Hk
+    Ro = max(spec.v_ranks) // Hk * H
+    Rg = max(spec.gate_ranks)
+    n_g = 2 if spec.gated_mlp else 1
+    n_e = max(1, spec.n_experts)
+    padded = L * d * (Rq + Rk + Rv + Ro + n_e * (n_g + 1) * Rg)
+    exact = sum(
+        d * (spec.q_ranks[l] + spec.k_ranks[l] + spec.v_ranks[l] + spec.o_ranks[l]
+             + n_e * (n_g + 1) * spec.gate_ranks[l])
+        for l in range(L)
+    )
+    return padded / max(exact, 1)
+
+
+def _layer_window(spec: ModelSpec, l: int) -> Optional[int]:
+    """Layer l's sliding window, or None for full attention (a sliding
+    layer type without a configured window attends fully)."""
+    if spec.layer_types and spec.layer_types[l] == "sliding_attention":
+        return spec.sliding_window or None
+    return None
+
+
+def _layer_params(layers: Dict, l: int) -> Dict:
+    return {k: _layer_params(v, l) if isinstance(v, dict) else v[l] for k, v in layers.items()}
+
+
+def _quantize(x: torch.Tensor):
+    """[B, Hk, S, R] -> int8 codes and float32 per-vector scales
+    (symmetric, max-abs / 127, floored at 1e-8; round half to even)."""
+    xf = x.to(torch.float32)
+    scale = torch.clamp(torch.amax(torch.abs(xf), dim=-1) / 127.0, min=1e-8)
+    codes = torch.clamp(torch.round(xf / scale[..., None]), -127, 127).to(torch.int8)
+    return codes, scale
+
+
+def _scatter(cache: torch.Tensor, new: torch.Tensor, ix) -> None:
+    """Write new [B, Hk, S(, R)] into cache [B, Hk, T(, R)] in place at
+    the surviving (row, position) pairs ix = (b, s, t)."""
+    b, s, t = ix
+    cache[b, :, t] = new[b, :, s].to(cache.dtype)
+
+
+# attention over the cache pool: "ragged" is the CUDA kernel (its plain
+# version on a CPU tensor), "xla" the plain version over the whole pool
+_CACHE_ATTENTION = {"ragged": ragged_gqa_attend, "xla": ragged_gqa_attend_reference}
+
+
+def _layer_padded(
+    spec: ModelSpec,
+    p: Dict,
+    q_hd_true: torch.Tensor,
+    x: torch.Tensor,
+    cos,
+    sin,
+    attn_impl: str,
+    window: Optional[int],
+    cache: Optional[Tuple[torch.Tensor, ...]] = None,
+    pos: Optional[torch.Tensor] = None,
+    write_ix=None,
+) -> torch.Tensor:
+    """One padded layer. Without a cache: full causal self-attention
+    (attn_impl "flash" or "xla"). With ``cache`` = this layer's
+    (ck, cv[, k_scale, v_scale]) views [B, Hk, T(, R)]: the new K/V are
+    written in place at ``write_ix`` and the rows attend the pool from
+    ``pos`` (attn_impl "ragged", the CUDA kernel on the card, or "xla",
+    its plain version: the masked contraction over the whole pool)."""
+    B, S, _ = x.shape
+    H, Hk = spec.n_heads, spec.n_kv_heads
+    Rq = spec.q_ranks[0] // H
+    Rv = spec.v_ranks[0] // Hk
+    rotary_mask = p.get("rotary_mask")
+    pre_ln = spec.do_layer_norm_before
+
+    residual = x
+    x_ln = _norm(x, p["attn_norm"], spec.norm, spec.norm_eps) if pre_ln else x
+    q = _linear(x_ln, p["q"]).reshape(B, S, H, Rq)
+    k = _linear(x_ln, p["k"]).reshape(B, S, Hk, Rq)
+    v = _linear(x_ln, p["v"]).reshape(B, S, Hk, Rv)
+    if spec.qk_norm:
+        q = masked_head_rms_norm(q, p["q_norm"]["scale"], rotary_mask, spec.group_size, spec.norm_eps, q_hd_true)
+        k = masked_head_rms_norm(k, p["k_norm"]["scale"], rotary_mask, 1, spec.norm_eps, q_hd_true)
+    q = q.transpose(1, 2)
+    k = k.transpose(1, 2)
+    v = v.transpose(1, 2)
+    q_scale = torch.rsqrt(q_hd_true).to(q.dtype)
+    if cache is None:
+        if spec.uses_rope:
+            q, k = apply_rope(q, k, cos, sin, rotary_mask)
+        attn = _attention(q * q_scale, k, v, 1.0, window, attn_impl)
+    else:
+        if spec.uses_rope:
+            q, k = apply_rope_ragged(q, k, cos, sin, rotary_mask, spec.group_size)
+        q = (q * q_scale).contiguous()
+        if attn_impl not in _CACHE_ATTENTION:
+            raise ValueError(f"decode attention must be xla or ragged, got {attn_impl!r}")
+        if len(cache) == 4:  # int8 KV: codes + per-(row, head, position) scales
+            ck, cv, ks, vs = cache
+            k_codes, k_sc = _quantize(k)
+            v_codes, v_sc = _quantize(v)
+            for c, new in ((ck, k_codes), (cv, v_codes), (ks, k_sc), (vs, v_sc)):
+                _scatter(c, new, write_ix)
+            scales = (ks, vs)
+        else:
+            ck, cv = cache
+            _scatter(ck, k, write_ix)
+            _scatter(cv, v, write_ix)
+            scales = (None, None)
+        attn = _CACHE_ATTENTION[attn_impl](q, ck, cv, pos, k_scale=scales[0], v_scale=scales[1], window=window)
+    attn = attn.transpose(1, 2).reshape(B, S, H * Rv)
+    x = residual + _linear(attn, p["o"])
+    if not pre_ln:
+        x = _norm(x, p["attn_norm"], spec.norm, spec.norm_eps)
+
+    residual = x
+    x_ln2 = _norm(x, p["mlp_norm"], spec.norm, spec.norm_eps) if pre_ln else x
+    if spec.gated_mlp:
+        h = _act(_linear(x_ln2, p["gate"]), spec.act) * _linear(x_ln2, p["up"])
+    else:
+        h = _act(_linear(x_ln2, p["up"]), spec.act)
+    x = residual + _linear(h, p["down"])
+    if not pre_ln:
+        x = _norm(x, p["mlp_norm"], spec.norm, spec.norm_eps)
+    return x
+
+
+def _embed(spec: ModelSpec, other: Dict, tokens: torch.Tensor, pos0: Optional[torch.Tensor] = None):
+    """pos0: None, or a per-row [B] offset tensor on the tokens' device.
+    Learned positions past the table (a padded chunk's tail near the
+    end) read its last row, as JAX's clamping gather does; on a CUDA
+    tensor an out-of-range index would be a device-side assert."""
+    x = other["embed_tokens"][tokens.long()]
+    if spec.arch == "opt":
+        if "project_in" in other:
+            x = _linear(x, other["project_in"])
+        S = tokens.shape[1]
+        table = other["embed_positions"]
+        pos = torch.arange(S, device=tokens.device) + spec.position_offset
+        if pos0 is None:
+            return x + table[pos][None]
+        return x + table[(pos0.long()[:, None] + pos[None, :]).clamp_(max=table.shape[0] - 1)]
+    return x
+
+
+def _unembed(spec: ModelSpec, other: Dict, x: torch.Tensor) -> torch.Tensor:
+    if other.get("final_norm") is not None:
+        x = _norm(x, other["final_norm"], spec.norm, spec.norm_eps)
+    if "project_out" in other:
+        x = _linear(x, other["project_out"])
+    if other.get("lm_head") is not None:
+        return _linear(x, other["lm_head"])
+    return x @ other["embed_tokens"].T
+
+
+@torch.no_grad()
+def forward_padded(
+    spec: ModelSpec,
+    layers: Dict,
+    other: Dict,
+    q_hd_true: torch.Tensor,
+    input_ids: torch.Tensor,
+    attn_impl: str = "auto",
+) -> torch.Tensor:
+    """Full causal forward over the padded stack; returns logits. Same
+    numerics as `forward(orig_spec, orig_params, ...)`. attn_impl "auto"
+    takes the CUDA flash-attention kernel on the card (T >= 128) and the
+    plain version elsewhere, as `forward` does."""
+    check_supported(spec)
+    T = input_ids.shape[1]
+    x = _embed(spec, other, input_ids)
+    if attn_impl == "auto":
+        attn_impl = "flash" if x.is_cuda else "xla"
+    cos = sin = None
+    if spec.uses_rope:
+        cos, sin = rope_cos_sin(
+            torch.arange(T, device=x.device, dtype=torch.int32), spec.head_dim, spec.rope_theta,
+            dtype=x.dtype, scaling=spec.rope_scaling,
+        )
+    for l in range(spec.n_layers):
+        x = _layer_padded(
+            spec, _layer_params(layers, l), q_hd_true[l], x, cos, sin, attn_impl, _layer_window(spec, l)
+        )
+    return _unembed(spec, other, x)
+
+
+def init_cache_padded(pm: PaddedModel, batch: int, max_len: int, dtype=torch.float32):
+    """Stacked KV cache [L, B, Hk, max_len, R] on the model's device;
+    returns (k, v, length 0)."""
+    spec = pm.spec
+    Rq = spec.q_ranks[0] // spec.n_heads
+    Rv = spec.v_ranks[0] // spec.n_kv_heads
+    L, Hk = spec.n_layers, spec.n_kv_heads
+    dev = pm.other["embed_tokens"].device
+    k = torch.zeros((L, batch, Hk, max_len, Rq), dtype=dtype, device=dev)
+    v = torch.zeros((L, batch, Hk, max_len, Rv), dtype=dtype, device=dev)
+    return k, v, 0
+
+
+@torch.no_grad()
+def _model_step_padded(
+    spec: ModelSpec,
+    layers: Dict,
+    other: Dict,
+    q_hd_true: torch.Tensor,
+    tokens: torch.Tensor,
+    cache_k: torch.Tensor,
+    cache_v: torch.Tensor,
+    length: Length,
+    cache_scales: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+    decode_attn: str = "xla",
+    logits_at: Optional[int] = None,
+):
+    """New tokens [B, S] through the padded stack with a stacked cache.
+
+    cache_k/cache_v: [L, B, Hk, max_len, R] (int8 codes with
+    ``cache_scales`` = (k_scale, v_scale), each [L, B, Hk, max_len]),
+    updated in place; a per-row slice of a larger pool (``pool[:, s:s+1]``)
+    works too. ``length``: each row's current length, a host int (every
+    row) or a host sequence of B ints. decode_attn: "xla" (masked
+    contraction over the whole pool) or "ragged" (the CUDA kernel, whose
+    reads cover each row's live keys only). ``logits_at``: None for every
+    position's logits, or one position s whose logits alone are computed
+    (a prefill chunk needs its last real position only).
+
+    Returns (logits [B, S or 1, V], length + S as a host value)."""
+    check_supported(spec)
+    B, S = tokens.shape
+    T = cache_k.shape[3]
+    dev = tokens.device
+    pos_host = np.broadcast_to(np.asarray(length, dtype=np.int64).reshape(-1), (B,))
+    t_host = pos_host[:, None] + np.arange(S)[None, :]
+    b_ok, s_ok = np.nonzero(t_host < T)  # writes past the pool are dropped
+    write_ix = tuple(
+        torch.from_numpy(np.ascontiguousarray(a)).to(dev) for a in (b_ok, s_ok, t_host[b_ok, s_ok])
+    )
+    pos = torch.from_numpy(pos_host.astype(np.int32)).to(dev)
+    x = _embed(spec, other, tokens, pos0=pos)
+    cos = sin = None
+    if spec.uses_rope:
+        positions = torch.from_numpy(t_host.reshape(-1).astype(np.int32)).to(dev)
+        cos, sin = rope_cos_sin(positions, spec.head_dim, spec.rope_theta, dtype=x.dtype, scaling=spec.rope_scaling)
+        cos = cos.reshape(B, S, -1)
+        sin = sin.reshape(B, S, -1)
+    pools = (cache_k, cache_v) + (tuple(cache_scales) if cache_scales is not None else ())
+    for l in range(spec.n_layers):
+        x = _layer_padded(
+            spec, _layer_params(layers, l), q_hd_true[l], x, cos, sin, decode_attn,
+            _layer_window(spec, l), cache=tuple(c[l] for c in pools), pos=pos, write_ix=write_ix,
+        )
+    if logits_at is not None:
+        x = x[:, logits_at : logits_at + 1]
+    logits = _unembed(spec, other, x)
+    if np.ndim(length) == 0:
+        return logits, int(length) + S
+    return logits, np.asarray(length) + S

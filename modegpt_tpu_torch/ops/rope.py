@@ -12,16 +12,24 @@ Port of ``modegpt_tpu.ops.rope``:
   src/patchers/DenseQwenRebuild.py:262-286): Qwen3 normalises q/k per
   head with a weight at the original head_dim; the compressed model
   gathers the matching weight coordinates through the rotary mask.
+* RoPE with per-row phase tables (`apply_rope_ragged`: every serving
+  slot at its own position), and the padded stack's form of the per-head
+  norm, whose variance divides by the layer's true rank (``r_true``).
 """
 
 from __future__ import annotations
 
 import math
-from typing import Optional, Tuple
+from typing import Optional, Tuple, Union
 
 import torch
 
-__all__ = ["rope_cos_sin", "apply_rope", "masked_head_rms_norm"]
+__all__ = [
+    "rope_cos_sin",
+    "apply_rope",
+    "apply_rope_ragged",
+    "masked_head_rms_norm",
+]
 
 
 def rope_cos_sin(
@@ -95,12 +103,38 @@ def apply_rope(
     return q * cos_q + _rotate_half(q) * sin_q, k * cos_k + _rotate_half(k) * sin_k
 
 
+def apply_rope_ragged(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    cos: torch.Tensor,
+    sin: torch.Tensor,
+    rotary_mask: Optional[torch.Tensor],
+    group: int,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """RoPE with per-row phase tables (each sequence at its own position).
+
+    q: [B, H, S, R], k: [B, Hk, S, R], cos/sin: [B, S, head_dim],
+    rotary_mask: [Hk, R] kept-frequency indices or None (dense).
+    """
+    if rotary_mask is None:
+        ck, sk = cos[:, None], sin[:, None]  # [B, 1, S, head_dim]; R == head_dim
+        cq, sq = ck, sk
+    else:
+        idx = rotary_mask.long()
+        ck = cos[:, :, idx].permute(0, 2, 1, 3)  # [B, S, Hk, R] -> [B, Hk, S, R]
+        sk = sin[:, :, idx].permute(0, 2, 1, 3)
+        cq = torch.repeat_interleave(ck, group, dim=1)
+        sq = torch.repeat_interleave(sk, group, dim=1)
+    return q * cq + _rotate_half(q) * sq, k * ck + _rotate_half(k) * sk
+
+
 def masked_head_rms_norm(
     x: torch.Tensor,
     weight: torch.Tensor,
     rotary_mask: Optional[torch.Tensor],
     group: int,
     eps: float,
+    r_true: Union[None, float, torch.Tensor] = None,
 ) -> torch.Tensor:
     """Per-head RMSNorm with the weight gathered through the rotary mask.
 
@@ -110,9 +144,16 @@ def masked_head_rms_norm(
          ``group = 1``).
       weight: [head_dim] learned weight at the ORIGINAL head dim.
       rotary_mask: [Hk, r] kept indices, or None (dense: plain RMSNorm).
+      r_true: None, or the layer's TRUE rank when x is a zero-padded head
+        of the padded stack: the variance is then ``sum(x^2) / r_true``
+        (the pads are zero, so the sum is unaffected; reference:
+        DenseQwenRebuild.py:262-286). A float or a 0-d float32 tensor.
     """
     xf = x.to(torch.float32)
-    var = torch.mean(xf * xf, dim=-1, keepdim=True)
+    if r_true is None:
+        var = torch.mean(xf * xf, dim=-1, keepdim=True)
+    else:
+        var = torch.sum(xf * xf, dim=-1, keepdim=True) / r_true
     normed = xf * torch.rsqrt(var + eps)
     w = weight.to(torch.float32)
     if rotary_mask is not None:

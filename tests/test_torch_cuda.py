@@ -97,3 +97,102 @@ def test_forward_goes_through_the_kernel(cuda_device):
     assert flash_attention.launches == before + spec.n_layers
     want, _ = forward(spec, params, ids, attn_impl="xla")
     torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+
+
+# ---- K3: ragged GQA attention over a slot-table pool ----
+
+RAGGED_CASES = {
+    "decode_gqa_rq40_rv24": dict(B=3, H=4, Hk=2, T=300, S=1, Rq=40, Rv=24),
+    "chunk_S16": dict(B=1, H=4, Hk=2, T=200, S=16, Rq=32, Rv=32),
+    "S4_window8": dict(B=3, H=4, Hk=2, T=300, S=4, Rq=32, Rv=32, window=8),
+    "S4_softcap": dict(B=3, H=4, Hk=2, T=300, S=4, Rq=32, Rv=32, softcap=5.0),
+    "int8": dict(B=3, H=4, Hk=2, T=300, S=4, Rq=32, Rv=48, int8=True),
+    "mha_r256": dict(B=2, H=4, Hk=4, T=130, S=1, Rq=256, Rv=256),
+    "edge_row": dict(B=3, H=4, Hk=2, T=100, S=1, Rq=32, Rv=32, edge=True),
+}
+
+
+def _ragged_inputs(case, device, dtype, seed=0):
+    rng = np.random.default_rng(seed)
+    B, H, Hk, T, S, Rq, Rv = (case[k] for k in ("B", "H", "Hk", "T", "S", "Rq", "Rv"))
+
+    def t(a, dt=None):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(device, dt)
+
+    pos = rng.integers(0, T - S + 1, B).astype(np.int32)
+    if case.get("edge"):
+        pos[0] = T + 3  # a masked serving row past the pool's end
+    q = t((rng.standard_normal((B, H, S, Rq)) * Rq**-0.5).astype(np.float32), dtype)
+    if case.get("int8"):
+        k, v = (t(rng.integers(-127, 128, (B, Hk, T, r), dtype=np.int8)) for r in (Rq, Rv))
+        ks, vs = (t((rng.uniform(0.5, 1.5, (B, Hk, T)) / 127).astype(np.float32)) for _ in range(2))
+    else:
+        k, v = (t(rng.standard_normal((B, Hk, T, r)).astype(np.float32), dtype) for r in (Rq, Rv))
+        ks = vs = None
+    return q, k, v, t(pos), dict(k_scale=ks, v_scale=vs, window=case.get("window"), softcap=case.get("softcap"))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("name", sorted(RAGGED_CASES))
+def test_ragged_kernel_matches_plain(cuda_device, name, dtype):
+    from modegpt_tpu_torch.kernels.ragged_decode import ragged_gqa_attend, ragged_gqa_attend_reference
+
+    q, k, v, pos, kw = _ragged_inputs(RAGGED_CASES[name], cuda_device, getattr(torch, dtype))
+    before = ragged_gqa_attend.launches
+    got = ragged_gqa_attend(q, k, v, pos, **kw)
+    torch.cuda.synchronize()
+    assert ragged_gqa_attend.launches == before + 1
+    want = ragged_gqa_attend_reference(q, k, v, pos, **kw)
+    assert got.shape == want.shape and got.dtype == q.dtype
+    torch.testing.assert_close(got.float(), want.float(), **TOLERANCE[dtype])
+
+
+def test_ragged_kernel_rejects_what_it_does_not_take(cuda_device):
+    from modegpt_tpu_torch.kernels.ragged_decode import ragged_gqa_attend
+
+    q, k, v, pos, _ = _ragged_inputs(RAGGED_CASES["chunk_S16"], cuda_device, torch.float32)
+    with pytest.raises(ValueError, match="contiguous"):
+        ragged_gqa_attend(q.transpose(2, 3).contiguous().transpose(2, 3), k, v, pos)
+    with pytest.raises(ValueError, match="int32"):
+        ragged_gqa_attend(q, k, v, pos.long())
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        ragged_gqa_attend(q, k.cpu(), v, pos)
+    with pytest.raises(ValueError, match="ranks"):
+        ragged_gqa_attend(*_ragged_inputs(dict(RAGGED_CASES["chunk_S16"], Rq=264), cuda_device, torch.float32)[:4])
+
+
+@pytest.mark.parametrize("kv_dtype", ["model", "int8"])
+def test_padded_serving_steps_go_through_the_ragged_kernel(cuda_device, kv_dtype):
+    """A tiny Llama served on the card: a prefill chunk and a decode step
+    through K3 match its plain version, one launch per layer each."""
+    from modegpt_tpu_torch.kernels.ragged_decode import ragged_gqa_attend
+    from modegpt_tpu_torch.models.padded import pad_to_uniform
+    from modegpt_tpu_torch.models.serving import _one_decode_step, _prefill_chunk, init_serve_state
+
+    cfg = SimpleNamespace(
+        model_type="llama", vocab_size=256, hidden_size=64, intermediate_size=176,
+        num_hidden_layers=2, num_attention_heads=4, num_key_value_heads=2, head_dim=16,
+        max_position_embeddings=512, rms_norm_eps=1e-5, rope_theta=10000.0, hidden_act="silu",
+        tie_word_embeddings=False, attention_bias=False, mlp_bias=False, rope_scaling=None,
+    )
+    spec = spec_from_hf_config(cfg)
+    pm = pad_to_uniform(spec, init_params(spec, torch.Generator(device="cuda").manual_seed(0), device=cuda_device))
+    states = {a: init_serve_state(pm, 3, 64, kv_dtype=kv_dtype) for a in ("ragged", "xla")}
+    toks = {}
+    for attn, state in states.items():
+        before = ragged_gqa_attend.launches
+        for slot, n in ((0, 13), (2, 5)):
+            piece = np.random.default_rng(slot).integers(0, 256, n)
+            toks[attn, slot] = _prefill_chunk(pm, state, slot, piece, 0, 16, True, 0.0, None, decode_attn=attn)
+        toks[attn, "decode"] = _one_decode_step(
+            pm, state, np.array([True, False, True]), 0.0, None, None, decode_attn=attn
+        ).tolist()
+        torch.cuda.synchronize()
+        launched = ragged_gqa_attend.launches - before
+        assert launched == (3 * spec.n_layers if attn == "ragged" else 0)
+    assert toks["ragged", 0] == toks["xla", 0] and toks["ragged", 2] == toks["xla", 2]
+    assert toks["ragged", "decode"][0::2] == toks["xla", "decode"][0::2]
+    a, b = states["ragged"], states["xla"]
+    np.testing.assert_array_equal(a.lengths, b.lengths)
+    # int8 codes may sit one rounding step apart
+    torch.testing.assert_close(a.cache_k.float(), b.cache_k.float(), rtol=1e-4, atol=1e-4 if kv_dtype == "model" else 1.0)
