@@ -3,15 +3,16 @@
 
     python3 chip_smoke.py                      # every phase, as the check runs it
     python3 chip_smoke.py --phases build,kernel
+    python3 chip_smoke.py --phases build,kernel,long
 
 Phases, each printing one JSON line:
 
 1. build  — compile every CUDA source in modegpt_tpu_torch/csrc with nvcc
    for sm_90a (modegpt_tpu_torch/_build/), all at once.
-2. kernel — hold each kernel (K1 flash_attention, K3 ragged_gqa_attend)
-   against its plain PyTorch version on the card at the main path's
-   shapes and a few edge shapes, and time the kernel, the plain version
-   and the nearest single PyTorch call (library_ms).
+2. kernel — hold each kernel (K1 flash_attention, K2 flash_attention_hbm,
+   K3 ragged_gqa_attend) against its plain PyTorch version on the card at
+   the main path's shapes and a few edge shapes, and time the kernel, the
+   plain version and the nearest single PyTorch call (library_ms).
 3. main   — one full compression job through
    `modegpt_tpu_torch.compress.pipeline.run_compression` at the published
    Meta-Llama-3-8B widths (hidden 4096, intermediate 14336, 32 heads,
@@ -31,6 +32,17 @@ Phases, each printing one JSON line:
    round one decode step's logits through K3 are held against its plain
    version, and every served token of the 16 requests against the
    unrolled forward over prompt + output (teacher forcing).
+
+5. long   — one compression job at the published Meta-Llama-3.1-8B
+   widths (the main phase's, plus llama3 rope scaling to 131072
+   positions), 4 layers, at seq_len=16384, so that every forward (both
+   evals and calibration) takes the long-context kernel K2; then the
+   port's eval CLI (`modegpt_tpu_torch.evals.cli.main`) on the artifact at
+   the same length. K1's and K2's counters are zeroed just before the job
+   and before the CLI and read just after each; K2's logits on the second
+   half of one 16384-token window are held against the row-chunked plain
+   attention and against the padded stack, and the CLI's perplexity
+   against the job's compressed perplexity.
 
 Then a `{"kernels": [...]}` line, the card's name and power limit as
 nvidia-smi reports them, and last `{"ok": true, "device": {...}}`. Any
@@ -65,6 +77,27 @@ KERNEL_CASES = [
     dict(name="ragged_T300", B=2, H=32, Hk=8, T=300, hd=128, hd_v=128, dtype="float32", window=None),
     dict(name="window100", B=2, H=32, Hk=8, T=2048, hd=128, hd_v=128, dtype="float32", window=100),
     dict(name="mha", B=2, H=32, Hk=32, T=2048, hd=128, hd_v=128, dtype="float32", window=None),
+]
+# K2 (flash_attention_hbm) cases. The first is the long phase's shape: one
+# 16384-token window (eval and calibration batches of 1) at 32 heads over
+# 8 kv heads, head dim 128. long_padded_f32 is the compressed eval's (the
+# long phase and the eval CLI run the compressed model padded, at
+# hd = hd_v = 126). The rest cover unaligned head dims of 88 / 90, the
+# ragged last tile at the route's threshold, the windowed tile range,
+# twice the length, the JAX test's small GQA shape, and K1's main-path
+# shape (K2 takes any T), which sets the two kernels side by side.
+_LONG = dict(B=1, H=32, Hk=8, T=16384, hd=128, hd_v=128, dtype="float32", window=None)
+HBM_CASES = [
+    dict(_LONG, name="long_f32"),
+    dict(_LONG, name="long_padded_f32", hd=126, hd_v=126),
+    dict(_LONG, name="long_bf16", dtype="bfloat16"),
+    dict(_LONG, name="long_compressed_f32", hd=88, hd_v=90),
+    dict(_LONG, name="long_compressed_bf16", hd=88, hd_v=90, dtype="bfloat16"),
+    dict(_LONG, name="route_edge_T8193", B=2, T=8193),
+    dict(_LONG, name="window4096", window=4096),
+    dict(_LONG, name="T32768", T=32768),
+    dict(_LONG, name="small_T640_gqa", H=4, Hk=2, T=640, hd=32, hd_v=32),
+    dict(_LONG, name="k1_dense_T2048", B=2, T=2048),
 ]
 # The JAX package's own kernel tolerances (tests/test_models.py,
 # tests/test_ragged_decode.py).
@@ -102,13 +135,22 @@ RAGGED_CASES = [
 SERVE = dict(slots=8, max_len=1024, prefill_bucket=128, requests=16, int8_requests=4,
              min_prompt=16, max_prompt=640, max_new_tokens=32, seed=0)
 
-N_LAYERS = 4  # Meta-Llama-3-8B's 32 layers cut to 4: about 7.7 GB of f32 weights
+N_LAYERS = 4  # Meta-Llama-3(.1)-8B's 32 layers cut to 4: about 7.7 GB of f32 weights
 LLAMA3_8B = dict(  # Meta-Llama-3-8B config.json
     model_type="llama", vocab_size=128256, hidden_size=4096, intermediate_size=14336,
     num_hidden_layers=32, num_attention_heads=32, num_key_value_heads=8, head_dim=128,
     max_position_embeddings=8192, rms_norm_eps=1e-5, rope_theta=500000.0, hidden_act="silu",
     tie_word_embeddings=False, attention_bias=False, mlp_bias=False, rope_scaling=None,
 )
+
+LLAMA31_8B = dict(  # meta-llama/Llama-3.1-8B config.json
+    LLAMA3_8B, max_position_embeddings=131072,
+    rope_scaling={"rope_type": "llama3", "factor": 8.0, "low_freq_factor": 1.0,
+                  "high_freq_factor": 4.0, "original_max_position_embeddings": 8192},
+)
+# The long phase's job: one calibration and eval window per batch at
+# 16384 tokens, so every forward runs K2 (T > 8192) and none runs K1.
+LONG = dict(seq_len=16384, calib_size=4, calibs_batch_size=1, eval_batch_size=1, eval_max_samples=2)
 
 
 def emit(obj) -> None:
@@ -148,7 +190,7 @@ def phase_build() -> dict:
 
 
 def phase_kernel(records: dict) -> list:
-    lines = _flash_cases(records) + _ragged_cases(records)
+    lines = _flash_cases(records) + _hbm_cases(records) + _ragged_cases(records)
     bad = [f"{ln['kernel']}:{ln['case']}" for ln in lines if not ln["ok"]]
     if bad:
         raise AssertionError(f"kernels disagree with their plain versions at {bad}")
@@ -161,57 +203,57 @@ def _bound(flops: float, nbytes: float, dtype: str):
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
 
 
-def _library_ms(name: str, fn):
+def _library_ms(name: str, fn, iters: int = 10, warmup: int = 2):
     """One PyTorch call computing the same function, timed as a yardstick
     (the port never calls it); None where no backend takes the case."""
+    import torch
+
     try:
         fn()
-        return cuda_ms(fn, iters=10)
+        return cuda_ms(fn, iters=iters, warmup=warmup)
     except (TypeError, RuntimeError) as e:
         print(f"[kernel {name}] SDPA not timed: {e}", file=sys.stderr)
+        torch.cuda.empty_cache()
         return None
 
 
-def _flash_cases(records: dict) -> list:
+def _attention_cases(kernel_name: str, kernel, plain, cases, library) -> list:
+    """Each case of a flash-attention kernel against its plain version on
+    seeded random inputs, with the kernel's, the plain version's and the
+    library call's times (fewer iterations from T > 8192 on: one launch
+    there takes 0.1-1 s). ``library(q, k, v, scale, window, T)`` returns
+    the yardstick's callable."""
     import torch
-    import torch.nn.functional as F
-
-    from modegpt_tpu_torch.kernels.flash_attention import flash_attention, flash_attention_reference
 
     lines = []
     gen = torch.Generator(device="cuda").manual_seed(0)
-    for case in KERNEL_CASES:
+    for case in cases:
         B, H, Hk, T, hd, hd_v, w = (case[k] for k in ("B", "H", "Hk", "T", "hd", "hd_v", "window"))
         dt = getattr(torch, case["dtype"])
         q = torch.randn((B, H, T, hd), generator=gen, device="cuda").to(dt)
         k = torch.randn((B, Hk, T, hd), generator=gen, device="cuda").to(dt)
         v = torch.randn((B, Hk, T, hd_v), generator=gen, device="cuda").to(dt)
         scale = hd**-0.5
-        got = flash_attention(q, k, v, scale=scale, window=w)
+        got = kernel(q, k, v, scale=scale, window=w)
         torch.cuda.synchronize()
-        want = flash_attention_reference(q, k, v, scale=scale, window=w)
+        want = plain(q, k, v, scale=scale, window=w)
         err = float((got.float() - want.float()).abs().max())
         tol = TOLERANCE[case["dtype"]]
         ok = bool(torch.allclose(got.float(), want.float(), **tol)) and bool(torch.isfinite(got).all())
-
-        kernel_ms = cuda_ms(lambda: flash_attention(q, k, v, scale=scale, window=w), iters=10)
-        plain_ms = cuda_ms(lambda: flash_attention_reference(q, k, v, scale=scale, window=w), iters=5)
-        # One PyTorch call computing the same function (a yardstick only:
-        # the port never calls it).
-        mask = None
-        if w is not None:
-            i = torch.arange(T, device="cuda")
-            mask = (i[None, :] <= i[:, None]) & (i[None, :] > i[:, None] - w)
-        kw = dict(attn_mask=mask, is_causal=mask is None, scale=scale)
-        library_ms = _library_ms(
-            case["name"], lambda: F.scaled_dot_product_attention(q, k, v, enable_gqa=True, **kw)
-        )
+        del want
+        if T > 8192:
+            iters, plain_iters = dict(iters=2, warmup=1), dict(iters=1, warmup=1)
+        else:
+            iters, plain_iters = dict(iters=10), dict(iters=5)
+        kernel_ms = cuda_ms(lambda: kernel(q, k, v, scale=scale, window=w), **iters)
+        plain_ms = cuda_ms(lambda: plain(q, k, v, scale=scale, window=w), **plain_iters)
+        library_ms = _library_ms(case["name"], library(q, k, v, scale, w, T), **iters)
 
         flops = 2.0 * B * H * visible_pairs(T, w) * (hd + hd_v)
         nbytes = sum(t.numel() * t.element_size() for t in (q, k, v, got))
         bound_ms, bound_by = _bound(flops, nbytes, case["dtype"])
         line = {
-            "phase": "kernel", "kernel": "flash_attention", "case": case["name"],
+            "phase": "kernel", "kernel": kernel_name, "case": case["name"],
             "shape": {k_: case[k_] for k_ in ("B", "H", "Hk", "T", "hd", "hd_v", "window")},
             "dtype": case["dtype"], "max_abs_err": err, "tolerance": tol, "ok": ok,
             "kernel_ms": kernel_ms, "plain_ms": plain_ms, "library_ms": library_ms,
@@ -219,11 +261,64 @@ def _flash_cases(records: dict) -> list:
         }
         emit(line)
         lines.append(line)
-        del q, k, v, got, want
+        del q, k, v, got
         torch.cuda.empty_cache()
+    return lines
+
+
+def _window_mask(T: int, w):
+    import torch
+
+    if w is None:
+        return None
+    i = torch.arange(T, device="cuda")
+    return (i[None, :] <= i[:, None]) & (i[None, :] > i[:, None] - w)
+
+
+def _flash_cases(records: dict) -> list:
+    import torch.nn.functional as F
+
+    from modegpt_tpu_torch.kernels.flash_attention import flash_attention, flash_attention_reference
+
+    def library(q, k, v, scale, w, T):
+        mask = _window_mask(T, w)
+        kw = dict(attn_mask=mask, is_causal=mask is None, scale=scale)
+        return lambda: F.scaled_dot_product_attention(q, k, v, enable_gqa=True, **kw)
+
+    lines = _attention_cases("flash_attention", flash_attention, flash_attention_reference, KERNEL_CASES, library)
     records["flash_attention"] = _record(
         "flash_attention", "modegpt_tpu_torch/csrc/flash_attention.cu",
         "modegpt_tpu/kernels/flash_attention.py:156", lines[0],
+    )
+    return lines
+
+
+def _hbm_cases(records: dict) -> list:
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    from modegpt_tpu_torch.kernels.flash_attention import flash_attention_hbm, flash_attention_hbm_reference
+
+    def library(q, k, v, scale, w, T):
+        # at long T the math backend would build the [T, T] scores, so the
+        # memory-efficient backend is pinned, on K/V repeated to H heads
+        # outside the timed call
+        G = q.shape[1] // k.shape[1]
+        kr, vr = k.repeat_interleave(G, dim=1), v.repeat_interleave(G, dim=1)
+        mask = _window_mask(T, w)
+        kw = dict(attn_mask=mask, is_causal=mask is None, scale=scale)
+
+        def run():
+            with sdpa_kernel(SDPBackend.EFFICIENT_ATTENTION):
+                return F.scaled_dot_product_attention(q, kr, vr, **kw)
+        return run
+
+    lines = _attention_cases(
+        "flash_attention_hbm", flash_attention_hbm, flash_attention_hbm_reference, HBM_CASES, library
+    )
+    records["flash_attention_hbm"] = _record(
+        "flash_attention_hbm", "modegpt_tpu_torch/csrc/flash_attention_hbm.cu",
+        "modegpt_tpu/kernels/flash_attention.py:318", lines[0],
     )
     return lines
 
@@ -644,6 +739,147 @@ def phase_serve(records: dict, main_out: dict, profile: bool = False) -> dict:
     return line
 
 
+def phase_long(records: dict, profile: bool = False) -> dict:
+    """A compression job and the eval CLI at 16384 tokens (Llama-3.1-8B
+    widths, 4 layers): every forward takes K2, none K1."""
+    import torch
+
+    from modegpt_tpu_torch.calib.data import load_eval_tokens
+    from modegpt_tpu_torch.compress.artifact import load_compressed_model
+    from modegpt_tpu_torch.compress.pipeline import run_compression
+    from modegpt_tpu_torch.config import CompressionConfig
+    from modegpt_tpu_torch.evals.cli import main as eval_main
+    from modegpt_tpu_torch.evals.perplexity import resolve_exec_mode
+    from modegpt_tpu_torch.kernels import flash_attention as fa_mod
+    from modegpt_tpu_torch.models.forward import FLASH_MAX_T, forward
+    from modegpt_tpu_torch.models.init import init_params
+    from modegpt_tpu_torch.models.padded import forward_padded, pad_to_uniform, padding_overhead
+    from modegpt_tpu_torch.models.spec import spec_from_hf_config
+
+    def zero_counts():
+        fa_mod.flash_attention.launches = fa_mod.flash_attention_hbm.launches = 0
+
+    def counts():
+        return {"flash_attention": fa_mod.flash_attention.launches,
+                "flash_attention_hbm": fa_mod.flash_attention_hbm.launches}
+
+    spec = spec_from_hf_config(SimpleNamespace(**{**LLAMA31_8B, "num_hidden_layers": N_LAYERS}))
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = init_params(spec, torch.Generator(device="cuda").manual_seed(0), device="cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+
+    with tempfile.TemporaryDirectory(prefix="modegpt_smoke_long_") as tmp:
+        config = CompressionConfig(
+            model="random-llama3.1-8b-widths", device="cuda", **LONG,
+            compression_ratio=0.3, dataset="synthetic", solver_precision="f32_device",
+            output_dir=os.path.join(tmp, "out"),
+            temp_storage_dir=os.path.join(tmp, "layers"),
+            metrics_dir=os.path.join(tmp, "metrics"),
+        ).validate()
+        prof = _profiler() if profile else contextlib.nullcontext()
+        t_run = time.perf_counter()
+        zero_counts()
+        with prof:
+            results = run_compression(config, spec=spec, params=params)
+        job_launches = counts()
+        t_run = time.perf_counter() - t_run
+        del params, results["compressed_params"]
+        if profile:
+            emit(_profile_line(prof, t_run, "long"))
+        n_eval = min(config.eval_max_samples, 16)  # the synthetic eval set
+        n_batches = 2 * math.ceil(n_eval / config.eval_batch_size) + math.ceil(
+            config.calib_size / config.calibs_batch_size
+        )
+        expected_job = {"flash_attention": 0, "flash_attention_hbm": N_LAYERS * n_batches}
+        cspec = results["compressed_spec"]
+
+        # logits of the positions only the long route reaches, on the first
+        # eval window: K2 against the row-chunked plain attention, and the
+        # padded stack against the unrolled forward (each tensor freed
+        # before the next: one window's f32 logits are 8.4 GB)
+        spec2, params2, _ = load_compressed_model(results["artifact_dir"], device="cuda")
+        window = load_eval_tokens(None, "synthetic", config.seq_len, 1, vocab_size=spec.vocab_size)
+        ids = torch.as_tensor(window, device="cuda")
+
+        def tail(logits):
+            return logits[:, FLASH_MAX_T:].clone()
+
+        with torch.no_grad():
+            lk = tail(forward(spec2, params2, ids, attn_impl="flash")[0])
+            lp = tail(forward(spec2, params2, ids, attn_impl="xla")[0])
+            plain_err = float((lk - lp).abs().max())
+            plain_ok = bool(torch.allclose(lk, lp, rtol=1e-3, atol=1e-3))
+            del lp
+            pm = pad_to_uniform(spec2, params2)
+            del params2
+            lpad = tail(forward_padded(pm.spec, pm.layers, pm.other, pm.q_hd_true, ids, attn_impl="flash"))
+            del pm
+            padded_err = float((lpad - lk).abs().max())
+            padded_ok = bool(torch.allclose(lpad, lk, rtol=1e-3, atol=1e-3))
+            del lk, lpad
+        torch.cuda.empty_cache()
+
+        # the standalone eval CLI on the artifact, at the same length
+        t_cli = time.perf_counter()
+        zero_counts()
+        cli = eval_main([
+            "--model", results["artifact_dir"], "--dataset", "synthetic",
+            "--seq_len", str(config.seq_len), "--eval_max_samples", str(config.eval_max_samples),
+            "--eval_batch_size", str(config.eval_batch_size), "--device", "cuda",
+        ])
+        cli_launches = counts()
+        t_cli = time.perf_counter() - t_cli
+    expected_cli = {"flash_attention": 0, "flash_attention_hbm": N_LAYERS * n_eval}
+    cli_ppl = cli["ppl-synthetic"]
+
+    records["flash_attention_hbm"]["launches"] = job_launches["flash_attention_hbm"]
+    line = {
+        "phase": "long", "model": "Meta-Llama-3.1-8B widths", "n_layers": N_LAYERS, **LONG,
+        "compressed_eval_path": resolve_exec_mode(cspec, config.compressed_exec),
+        "padding_overhead": padding_overhead(cspec),
+        "init_seconds": init_s,
+        "step_seconds": results["step_seconds"],
+        "total_seconds": results["total_seconds"],
+        "cli_seconds": t_cli,
+        "baseline_ppl": results["baseline_ppl"], "compressed_ppl": results["compressed_ppl"],
+        "cli_ppl": cli_ppl,
+        "params_before": results["params_before"], "params_after": results["params_after"],
+        "ranks": {
+            "q": list(cspec.q_ranks), "k": list(cspec.k_ranks), "v": list(cspec.v_ranks),
+            "o": list(cspec.o_ranks), "gate": list(cspec.gate_ranks),
+        },
+        "launches": {"job": job_launches, "cli": cli_launches},
+        "expected_launches": {"job": expected_job, "cli": expected_cli},
+        "k2_vs_plain_logits_max_abs_err": plain_err,
+        "padded_vs_unrolled_logits_max_abs_err": padded_err,
+        "peak_memory_gib": torch.cuda.max_memory_allocated() / 2**30,
+    }
+    emit(line)
+    problems = []
+    if job_launches != expected_job:
+        problems.append(f"the job launched {job_launches}, expected {expected_job}")
+    if cli_launches != expected_cli:
+        problems.append(f"the eval CLI launched {cli_launches}, expected {expected_cli}")
+    for key in ("baseline_ppl", "compressed_ppl"):
+        if not math.isfinite(results[key]):
+            problems.append(f"{key} is not finite")
+    if not (0 < sum(cspec.gate_ranks) < sum(spec.gate_ranks) and 0 < sum(cspec.q_ranks) < sum(spec.q_ranks)):
+        problems.append("rank lists did not shrink")
+    if spec2 != cspec:
+        problems.append("reloaded artifact's spec differs from the compressed spec")
+    if not plain_ok:
+        problems.append(f"long-context logits: K2 vs the plain attention differ by {plain_err}")
+    if not padded_ok:
+        problems.append(f"long-context logits: forward_padded vs unrolled forward differ by {padded_err}")
+    if not abs(cli_ppl - results["compressed_ppl"]) <= 1e-5 * abs(results["compressed_ppl"]):
+        problems.append(f"eval CLI perplexity {cli_ppl} != the job's {results['compressed_ppl']}")
+    if problems:
+        raise AssertionError("; ".join(problems))
+    return line
+
+
 def card_line() -> str:
     try:
         out = subprocess.run(
@@ -657,10 +893,10 @@ def card_line() -> str:
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--phases", default="build,kernel,main,serve")
+    ap.add_argument("--phases", default="build,kernel,main,serve,long")
     ap.add_argument("--profile", action="store_true",
-                    help="trace the main job and the serve round with torch.profiler; "
-                    "print their device busy time")
+                    help="trace the main job, the serve round and the long job with "
+                    "torch.profiler; print their device busy time")
     args = ap.parse_args(argv)
     phases = args.phases.split(",")
 
@@ -683,12 +919,15 @@ def main(argv=None) -> int:
         emit(phase_build())
     if "kernel" in phases:
         phase_kernel(records)
+    if {"main", "serve", "long"} & set(phases) and "kernel" not in phases:
+        raise SystemExit("chip_smoke: the main, serve and long phases need the kernel phase's records")
     if "main" in phases or "serve" in phases:
-        if not {"flash_attention", "ragged_gqa_attend"} <= set(records):
-            raise SystemExit("chip_smoke: the main and serve phases need the kernel phase's records")
         main_out = phase_main(records, args.profile)
         if "serve" in phases:
             phase_serve(records, main_out, args.profile)
+        del main_out
+    if "long" in phases:
+        phase_long(records, args.profile)
     emit({"kernels": list(records.values())})
     print(card_line(), flush=True)
     emit({

@@ -1,9 +1,12 @@
-"""Perplexity over sequential eval windows.
+"""Perplexity over sequential eval windows, and per-sample alpaca perplexity.
 
-Port of ``modegpt_tpu.evals.perplexity.compute_perplexity`` (reference:
-src/eval.py:134-225): shifted cross-entropy summed over every position
-of every window, and ``ppl = exp(sum_nll / (n_samples * (seq_len - 1)))``
-(eval.py:220). A heterogeneous-rank model runs either unrolled, layer by
+Port of ``modegpt_tpu.evals.perplexity``. `compute_perplexity`
+(reference: src/eval.py:134-225): shifted cross-entropy summed over every
+position of every window, and
+``ppl = exp(sum_nll / (n_samples * (seq_len - 1)))`` (eval.py:220).
+`compute_perplexity_alpaca` (reference: eval.py:257-295): each text
+truncated on its own, mean NLL per text, texts weighted by their full
+length. A heterogeneous-rank model runs either unrolled, layer by
 layer at its exact ranks, or padded (`models.padded.forward_padded`,
 every layer zero-padded to the stack's widest ranks); ``auto`` takes
 padded when the padding costs less than 1.5x the exact FLOPs, as the JAX
@@ -27,7 +30,7 @@ from modegpt_tpu_torch.models.spec import ModelSpec
 
 logger = logging.getLogger("modegpt_tpu_torch")
 
-__all__ = ["compute_perplexity", "resolve_exec_mode"]
+__all__ = ["compute_perplexity", "compute_perplexity_alpaca", "resolve_exec_mode"]
 
 
 def _nll_from_logits(logits: torch.Tensor, batch: torch.Tensor) -> torch.Tensor:
@@ -101,3 +104,81 @@ def compute_perplexity(
         metrics["throughput_tok/s"] = tps
         metrics["throughput_ktok/s"] = tps / 1000
     return math.exp(total_nll / (n_samples * (seq_len - 1)))
+
+
+@torch.no_grad()
+def _per_sample_nll(spec: ModelSpec, params: Dict, batch: torch.Tensor, lens: torch.Tensor, attn_impl: str = "auto"):
+    """Per-row (sum of shifted NLL, valid position count) of right-padded
+    rows: causal attention keeps the pad tokens out of the valid
+    positions, so only the loss is masked."""
+    logits, _ = forward(spec, params, batch, attn_impl=attn_impl)
+    logp = torch.log_softmax(logits[:, :-1, :].to(torch.float32), dim=-1)
+    del logits
+    nll = -torch.gather(logp, -1, batch[:, 1:, None].long())[..., 0]  # [B, T-1]
+    counts = torch.clamp(lens - 1, min=0)
+    mask = torch.arange(nll.shape[1], device=nll.device)[None, :] < counts[:, None]
+    return torch.sum(nll * mask, dim=1), counts
+
+
+def compute_perplexity_alpaca(
+    spec: ModelSpec,
+    params: Dict,
+    tokenizer,
+    texts=None,
+    max_length: int = 2048,
+    batch_size: int = 8,
+    progress: bool = True,
+) -> float:
+    """Per-sample truncated-window alpaca perplexity (the reference's
+    ``evaluate_perplexity_alpaca``, eval.py:257-295): each held-out text
+    is tokenized on its own WITH special tokens and truncated to
+    ``max_length``; its loss is the mean shifted cross-entropy over its
+    own window; texts combine weighted by their full length
+    (``exp(sum loss_i * L_i / sum L_i)``), and non-finite losses are
+    skipped. Texts are sorted by length and right-padded to power-of-two
+    widths, a batch of ``batch_size`` per forward, on the parameters'
+    device. ``texts`` defaults to the alpaca holdout
+    (`calib.data._alpaca_texts`)."""
+    if texts is None:
+        from modegpt_tpu_torch.calib import data
+
+        texts = data._alpaca_texts(tokenizer, calib=False)
+
+    seqs = [
+        np.asarray(tokenizer(t, truncation=True, max_length=max_length)["input_ids"], dtype=np.int32)
+        for t in texts
+    ]
+    # per-text losses are independent, so the length order changes
+    # nothing but the padding
+    order = sorted(range(len(seqs)), key=lambda i: len(seqs[i]))
+    device = params["embed_tokens"].device
+    total_loss = 0.0
+    total_tokens = 0
+    for start in range(0, len(order), batch_size):
+        chunk = [seqs[i] for i in order[start : start + batch_size]]
+        lens = np.asarray([len(s) for s in chunk], dtype=np.int32)
+        width = 1 << max(int(np.ceil(np.log2(max(int(lens.max()), 2)))), 1)
+        width = min(width, max_length)
+        batch = np.zeros((len(chunk), width), dtype=np.int32)
+        for r, s in enumerate(chunk):
+            batch[r, : len(s)] = s
+        sums, counts = _per_sample_nll(
+            spec, params, torch.as_tensor(batch, device=device), torch.as_tensor(lens, device=device)
+        )
+        sums, counts = sums.cpu().numpy(), counts.cpu().numpy()
+        for r in range(len(chunk)):
+            if counts[r] == 0:
+                continue  # a one-token text: loss undefined (reference: isfinite skip)
+            loss = sums[r] / counts[r]
+            if not np.isfinite(loss):
+                logger.warning("non-finite loss on a sample; skipping (reference: eval.py:279)")
+                continue
+            total_loss += float(loss) * int(lens[r])
+            total_tokens += int(lens[r])
+        if progress:
+            print(f"\ralpaca sample {start + len(chunk)}/{len(order)}   ", end="", flush=True)
+    if progress:
+        print()
+    if total_tokens == 0:
+        return float("inf")
+    return math.exp(total_loss / total_tokens)

@@ -26,7 +26,7 @@ __all__ = ["SOURCES", "build_all", "load_library", "BUILD_DIR", "CSRC_DIR"]
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(_PKG_DIR, "_build")
-SOURCES = ("flash_attention", "ragged_decode")
+SOURCES = ("flash_attention", "flash_attention_hbm", "ragged_decode")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",

@@ -13,10 +13,11 @@ intermediate (``cov_mlp``), of the raw per-head q/k projections
 (``cov_x``), plus the per-layer Block-Influence accumulators
 (``bi_acc``, reference: calibration.py:118-124).
 
-Attention at ``T >= 128`` goes through the hand-written CUDA kernel
+Attention at ``128 <= T <= 8192`` goes through the hand-written CUDA
+kernel K1 and at ``T > 8192`` through the long-context kernel K2
 (``kernels/flash_attention.py``) on the card, the route the JAX forward
-takes to its Pallas kernel; shorter sequences and the CPU take the
-plain masked-softmax version.
+takes to its two Pallas kernels; shorter sequences and the CPU take the
+plain masked-softmax version, computed over blocks of query rows.
 
 Precision: "highest" means true float32, so TF32 is switched off for
 matmuls and convolutions when this module is imported
@@ -33,7 +34,11 @@ from typing import Dict, NamedTuple, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-from modegpt_tpu_torch.kernels.flash_attention import flash_attention, flash_attention_reference
+from modegpt_tpu_torch.kernels.flash_attention import (
+    flash_attention,
+    flash_attention_hbm,
+    flash_attention_reference,
+)
 from modegpt_tpu_torch.models.spec import ModelSpec
 from modegpt_tpu_torch.ops.rope import apply_rope, masked_head_rms_norm, rope_cos_sin
 
@@ -45,7 +50,7 @@ torch.backends.cudnn.allow_tf32 = False
 
 SUPPORTED_ARCHS = ("llama", "qwen3", "opt")
 FLASH_MIN_T = 128  # the JAX forward's flash-route threshold
-FLASH_MAX_T = 8192  # beyond: the streamed kernel (K2), not ported yet
+FLASH_MAX_T = 8192  # beyond: the long-context kernel (K2)
 
 
 class CalibStats(NamedTuple):
@@ -160,19 +165,14 @@ def _attention(
     impl: str = "xla",
 ) -> torch.Tensor:
     """Causal (optionally sliding-window) attention; q [B,H,T,r],
-    k/v [B,Hk,T,r_k]. impl="flash" takes the CUDA kernel for
-    ``128 <= T <= 8192``; "xla" (the JAX name of the plain path) takes
-    the masked float32-softmax version."""
+    k/v [B,Hk,T,r_k]. impl="flash" takes the CUDA kernel K1 for
+    ``128 <= T <= 8192`` and K2 beyond (the JAX rule, forward.py:454-462);
+    "xla" (the JAX name of the plain path) takes the masked float32-softmax
+    version, which runs over blocks of query rows at any T."""
     T = q.shape[2]
     if impl == "flash" and T >= FLASH_MIN_T:
-        if T > FLASH_MAX_T:
-            raise NotImplementedError(
-                "modegpt_tpu_torch.kernels.flash_attention: T > 8192 needs the "
-                "streamed kernel (K2, flash_attention_hbm), not ported yet"
-            )
-        return flash_attention(
-            q.contiguous(), k.contiguous(), v.contiguous(), scale=scaling, window=window
-        )
+        kernel = flash_attention_hbm if T > FLASH_MAX_T else flash_attention
+        return kernel(q.contiguous(), k.contiguous(), v.contiguous(), scale=scaling, window=window)
     return flash_attention_reference(q, k, v, scale=scaling, window=window)
 
 
@@ -225,19 +225,27 @@ def _layer(
     if not pre_ln:
         x = _norm(x, p["attn_norm"], spec.norm, spec.norm_eps)
 
-    # ---- MLP ----
+    x, h = _mlp_block(spec, p, x)
+    if collect:
+        taps["cov_mlp"] = _gram(h.reshape(-1, h.shape[-1]), gram_precision)
+    return x, (taps if collect else None)
+
+
+def _mlp_block(spec: ModelSpec, p: Dict, x: torch.Tensor):
+    """A layer's MLP half with its residual (and norm: before for pre-LN,
+    after for post-LN OPT). Returns (x_out, h), h the post-activation
+    intermediate the calibration taps."""
+    pre_ln = spec.do_layer_norm_before
     residual = x
     x_ln2 = _norm(x, p["mlp_norm"], spec.norm, spec.norm_eps) if pre_ln else x
     if spec.gated_mlp:
         h = _act(_linear(x_ln2, p["gate"]), spec.act) * _linear(x_ln2, p["up"])
     else:
         h = _act(_linear(x_ln2, p["up"]), spec.act)
-    if collect:
-        taps["cov_mlp"] = _gram(h.reshape(-1, h.shape[-1]), gram_precision)
     x = residual + _linear(h, p["down"])
     if not pre_ln:
         x = _norm(x, p["mlp_norm"], spec.norm, spec.norm_eps)
-    return x, (taps if collect else None)
+    return x, h
 
 
 def _bi_piece(h_in: torch.Tensor, h_out: torch.Tensor) -> torch.Tensor:

@@ -1,9 +1,24 @@
-"""Next-token sampling.
+"""Autoregressive generation with a KV cache, and next-token sampling.
 
-Port of ``modegpt_tpu.models.generate._sample``: greedy argmax, or
-temperature sampling with HF's filter order temperature -> top-k ->
-top-p (nucleus) -> min-p. The knobs are plain Python values fixed per
-call, as the JAX function's static arguments are.
+Port of ``modegpt_tpu.models.generate`` (the reference generates through
+HF `generate` over its compressed attention, LlamaRebuild.py:343-348):
+
+* `init_cache`, `prefill`, `decode_step` and `generate`: a preallocated
+  per-layer cache ``[B, Hk, max_len, r]`` at each layer's compressed
+  ranks, written in place at the filled length (the torch form of the
+  JAX package's ``dynamic_update_slice`` with a donated cache); the new
+  tokens attend the filled prefix through the grouped contraction of the
+  JAX ``_layer_step`` (a plain masked softmax, no kernel), with masked
+  RoPE at each new position through the layer's rotary mask;
+* `apply_repetition_penalty`: HF's CTRL-style penalty;
+* `_sample`: greedy argmax, or temperature sampling with HF's filter
+  order temperature -> top-k -> top-p (nucleus) -> min-p. The knobs are
+  plain Python values fixed per call, as the JAX function's static
+  arguments are.
+
+The JAX ``generate_scan`` (the whole decode as one ``lax.scan``) has no
+counterpart: the Python loop of `generate` is its torch form.
+``sample_rows`` (per-request sampling in serving) is not ported yet.
 
 Random draws come from an explicit ``torch.Generator`` where the JAX
 function takes a PRNG key. The two generators give different numbers
@@ -14,11 +29,198 @@ identical in both.
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Dict, List, NamedTuple, Optional
 
 import torch
 
-__all__ = ["_sample"]
+from modegpt_tpu_torch.models.forward import _linear, _mlp_block, _norm, check_supported
+from modegpt_tpu_torch.models.spec import ModelSpec
+from modegpt_tpu_torch.ops.rope import apply_rope, masked_head_rms_norm, rope_cos_sin
+
+__all__ = [
+    "KVCache",
+    "init_cache",
+    "prefill",
+    "decode_step",
+    "apply_repetition_penalty",
+    "generate",
+    "_sample",
+]
+
+
+class KVCache(NamedTuple):
+    """Per-layer key/value caches, lists of [B, Hk, max_len, r], written
+    in place; ``length`` is the filled length, a host int."""
+
+    k: List[torch.Tensor]
+    v: List[torch.Tensor]
+    length: int
+
+
+def init_cache(spec: ModelSpec, batch: int, max_len: int, dtype=torch.float32, device="cpu") -> KVCache:
+    ks, vs = [], []
+    for l in range(spec.n_layers):
+        r_k = spec.k_ranks[l] // spec.n_kv_heads
+        r_v = spec.v_ranks[l] // spec.n_kv_heads
+        ks.append(torch.zeros((batch, spec.n_kv_heads, max_len, r_k), dtype=dtype, device=device))
+        vs.append(torch.zeros((batch, spec.n_kv_heads, max_len, r_v), dtype=dtype, device=device))
+    return KVCache(k=ks, v=vs, length=0)
+
+
+def _layer_step(spec: ModelSpec, layer_idx: int, p: Dict, x, cos, sin, cache_k, cache_v, pos: int):
+    """One decoder layer over new tokens x [B, S, d]: writes their K/V
+    into the cache at ``pos`` (in place) and attends the cache's filled
+    prefix. Returns x_out."""
+    B, S, _ = x.shape
+    H, Hk = spec.n_heads, spec.n_kv_heads
+    q_hd = spec.q_ranks[layer_idx] // H
+    v_hd = spec.v_ranks[layer_idx] // Hk
+    rotary_mask = p.get("rotary_mask")
+    pre_ln = spec.do_layer_norm_before
+
+    residual = x
+    x_ln = _norm(x, p["attn_norm"], spec.norm, spec.norm_eps) if pre_ln else x
+    q = _linear(x_ln, p["q"]).reshape(B, S, H, q_hd)
+    k = _linear(x_ln, p["k"]).reshape(B, S, Hk, q_hd)
+    v = _linear(x_ln, p["v"]).reshape(B, S, Hk, v_hd)
+    if spec.qk_norm:
+        q = masked_head_rms_norm(q, p["q_norm"]["scale"], rotary_mask, spec.group_size, spec.norm_eps)
+        k = masked_head_rms_norm(k, p["k_norm"]["scale"], rotary_mask, 1, spec.norm_eps)
+    q = q.transpose(1, 2)
+    k = k.transpose(1, 2)
+    v = v.transpose(1, 2)
+    if spec.uses_rope:
+        q, k = apply_rope(q, k, cos, sin, rotary_mask)
+    cache_k[:, :, pos : pos + S] = k.to(cache_k.dtype)
+    cache_v[:, :, pos : pos + S] = v.to(cache_v.dtype)
+
+    # attend the whole pool, masked to the filled prefix: K/V stay at Hk
+    # heads, the query heads grouped [Hk, G] (the JAX gqa_scores)
+    max_len = cache_k.shape[2]
+    G = H // Hk
+    qg = q.reshape(B, Hk, G, S, q_hd)
+    scores = torch.einsum("bkgsd,bktd->bkgst", qg, cache_k) * q_hd**-0.5
+    t_ids = torch.arange(max_len, device=x.device)[None, :]
+    s_ids = pos + torch.arange(S, device=x.device)[:, None]
+    mask = t_ids <= s_ids
+    if spec.layer_types and spec.layer_types[layer_idx] == "sliding_attention":
+        mask = mask & (t_ids > s_ids - spec.sliding_window)
+    scores = scores.to(torch.float32).masked_fill(~mask, float("-inf"))
+    probs = torch.softmax(scores, dim=-1).to(q.dtype)
+    attn = torch.einsum("bkgst,bktd->bkgsd", probs, cache_v).reshape(B, H, S, v_hd)
+    attn = attn.transpose(1, 2).reshape(B, S, H * v_hd)
+    x = residual + _linear(attn, p["o"])
+    if not pre_ln:
+        x = _norm(x, p["attn_norm"], spec.norm, spec.norm_eps)
+    return _mlp_block(spec, p, x)[0]
+
+
+@torch.no_grad()
+def _model_step(spec: ModelSpec, params: Dict, tokens: torch.Tensor, cache: KVCache):
+    """Run new tokens [B, S] through the model, writing the cache in
+    place. Returns (logits [B, S, V], the cache at its new length)."""
+    B, S = tokens.shape
+    pos = cache.length
+    max_len = cache.k[0].shape[2]
+    if pos + S > max_len:
+        raise ValueError(f"generate: {pos} + {S} tokens exceed the cache's max_len {max_len}")
+    dev = tokens.device
+    x = params["embed_tokens"][tokens.long()]
+    if spec.arch == "opt":
+        if "project_in" in params:
+            x = _linear(x, params["project_in"])
+        positions = pos + torch.arange(S, device=dev) + spec.position_offset
+        x = x + params["embed_positions"][positions][None]
+    cos = sin = None
+    if spec.uses_rope:
+        positions = pos + torch.arange(S, device=dev, dtype=torch.int32)
+        cos, sin = rope_cos_sin(positions, spec.head_dim, spec.rope_theta, dtype=x.dtype, scaling=spec.rope_scaling)
+    for l in range(spec.n_layers):
+        x = _layer_step(spec, l, params["layers"][l], x, cos, sin, cache.k[l], cache.v[l], pos)
+    if params.get("final_norm") is not None:
+        x = _norm(x, params["final_norm"], spec.norm, spec.norm_eps)
+    if "project_out" in params:
+        x = _linear(x, params["project_out"])
+    if params.get("lm_head") is not None:
+        logits = _linear(x, params["lm_head"])
+    else:
+        logits = x @ params["embed_tokens"].T
+    return logits, cache._replace(length=pos + S)
+
+
+def prefill(spec: ModelSpec, params: Dict, prompt_ids: torch.Tensor, cache: KVCache):
+    """Process the prompt; returns (last-position logits, cache)."""
+    logits, cache = _model_step(spec, params, prompt_ids, cache)
+    return logits[:, -1, :], cache
+
+
+def decode_step(spec: ModelSpec, params: Dict, token: torch.Tensor, cache: KVCache):
+    """One-token decode. token: [B, 1]."""
+    logits, cache = _model_step(spec, params, token, cache)
+    return logits[:, -1, :], cache
+
+
+def apply_repetition_penalty(logits: torch.Tensor, presence: torch.Tensor, penalty: float) -> torch.Tensor:
+    """CTRL-style repetition penalty (HF RepetitionPenaltyLogitsProcessor):
+    for tokens marked in ``presence`` [..., V], positive logits divide by
+    the penalty and negative ones multiply. Applied before temperature,
+    like HF."""
+    penalised = torch.where(logits > 0, logits / penalty, logits * penalty)
+    return torch.where(presence, penalised, logits)
+
+
+@torch.no_grad()
+def generate(
+    spec: ModelSpec,
+    params: Dict,
+    prompt_ids,
+    max_new_tokens: int = 32,
+    temperature: float = 0.0,
+    top_k: Optional[int] = None,
+    eos_token_id: Optional[int] = None,
+    generator: Optional[torch.Generator] = None,
+    max_len: Optional[int] = None,
+    top_p: Optional[float] = None,
+    min_p: Optional[float] = None,
+    repetition_penalty: Optional[float] = None,
+) -> torch.Tensor:
+    """Batched autoregressive generation on the parameters' device.
+    Returns [B, prompt + new] int64 tokens; after every row has emitted
+    ``eos_token_id`` the loop stops, and a finished row repeats it.
+    ``generator`` (on the parameters' device) takes the JAX ``key``'s
+    place for sampled decoding."""
+    check_supported(spec)
+    device = params["embed_tokens"].device
+    prompt_ids = torch.as_tensor(prompt_ids, device=device).long()
+    B, P = prompt_ids.shape
+    if max_len is None:
+        max_len = P + max_new_tokens
+    cache = init_cache(spec, B, max_len, dtype=params["embed_tokens"].dtype, device=device)
+    logits, cache = prefill(spec, params, prompt_ids, cache)
+
+    presence = None
+    if repetition_penalty is not None and repetition_penalty != 1.0:
+        presence = torch.zeros((B, spec.vocab_size), dtype=torch.bool, device=device)
+        presence[torch.arange(B, device=device)[:, None], prompt_ids] = True
+
+    out = [prompt_ids]
+    done = torch.zeros((B,), dtype=torch.bool, device=device)
+    rows = torch.arange(B, device=device)
+    for _ in range(max_new_tokens):
+        step_logits = logits
+        if presence is not None:
+            step_logits = apply_repetition_penalty(logits, presence, repetition_penalty)
+        token = _sample(step_logits, generator, temperature, top_k, top_p, min_p)
+        if eos_token_id is not None:
+            token = torch.where(done, torch.full_like(token, eos_token_id), token)
+            done = done | (token == eos_token_id)
+        if presence is not None:
+            presence[rows, token] = True
+        out.append(token[:, None])
+        if eos_token_id is not None and bool(done.all()):
+            break
+        logits, cache = decode_step(spec, params, token[:, None], cache)
+    return torch.cat(out, dim=1)
 
 
 def _sample(

@@ -350,8 +350,9 @@ def forward_padded(
 ) -> torch.Tensor:
     """Full causal forward over the padded stack; returns logits. Same
     numerics as `forward(orig_spec, orig_params, ...)`. attn_impl "auto"
-    takes the CUDA flash-attention kernel on the card (T >= 128) and the
-    plain version elsewhere, as `forward` does."""
+    takes the CUDA flash-attention kernels on the card (K1 for
+    128 <= T <= 8192, K2 beyond) and the plain version elsewhere, through
+    `forward`'s attention route."""
     check_supported(spec)
     T = input_ids.shape[1]
     x = _embed(spec, other, input_ids)

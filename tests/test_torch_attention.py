@@ -20,7 +20,6 @@ import jax.numpy as jnp  # noqa: E402
 from modegpt_tpu.kernels.flash_attention import flash_attention as j_flash  # noqa: E402
 from modegpt_tpu.models.forward import _attention as j_attention  # noqa: E402
 from modegpt_tpu_torch.kernels.flash_attention import flash_attention  # noqa: E402
-from modegpt_tpu_torch.models.forward import _attention as t_attention  # noqa: E402
 
 CASES = {
     "gqa_T160_hd24": dict(B=2, H=4, Hk=2, T=160, hd=24, hd_v=24, window=None),
@@ -68,12 +67,6 @@ def test_bf16_matches_jax_kernel():
     np.testing.assert_allclose(
         got.float().numpy(), np.asarray(want.astype(jnp.float32)), rtol=2e-2, atol=2e-2
     )
-
-
-def test_forward_route_raises_beyond_8192():
-    q = torch.zeros(1, 1, 8193, 2)
-    with pytest.raises(NotImplementedError, match="K2"):
-        t_attention(q, q, q, 1.0, None, impl="flash")
 
 
 def test_window_must_be_positive():

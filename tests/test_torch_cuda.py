@@ -19,6 +19,8 @@ torch = pytest.importorskip("torch")
 
 from modegpt_tpu_torch.kernels.flash_attention import (  # noqa: E402
     flash_attention,
+    flash_attention_hbm,
+    flash_attention_hbm_reference,
     flash_attention_reference,
 )
 from modegpt_tpu_torch.models.forward import forward  # noqa: E402
@@ -95,6 +97,107 @@ def test_forward_goes_through_the_kernel(cuda_device):
     got, _ = forward(spec, params, ids)
     torch.cuda.synchronize()
     assert flash_attention.launches == before + spec.n_layers
+    want, _ = forward(spec, params, ids, attn_impl="xla")
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+
+
+# ---- K2: the long-context kernel ----
+
+HBM_CASES = {
+    "gqa_T640_hd32": dict(B=1, H=4, Hk=2, T=640, hd=32, hd_v=32, window=None),
+    "ragged_T300": dict(B=2, H=4, Hk=2, T=300, hd=64, hd_v=64, window=None),
+    "window64": dict(B=1, H=4, Hk=2, T=640, hd=32, hd_v=32, window=64),
+    "hd44_hdv40": dict(B=1, H=4, Hk=2, T=384, hd=44, hd_v=40, window=None),
+    "hd88_hdv90": dict(B=1, H=4, Hk=2, T=384, hd=88, hd_v=90, window=None),  # 8- and 4-byte copies
+    "hd126": dict(B=1, H=4, Hk=2, T=384, hd=126, hd_v=126, window=None),  # a compressed model's padded rank
+    "odd_hd45_hdv33": dict(B=1, H=2, Hk=1, T=200, hd=45, hd_v=33, window=None),  # 2-byte bf16 copies
+    "hd256": dict(B=1, H=2, Hk=1, T=130, hd=256, hd_v=256, window=None),  # 32-key tiles in f32
+    "mha_T8193": dict(B=1, H=2, Hk=2, T=8193, hd=64, hd_v=64, window=None),
+}
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("name", sorted(HBM_CASES))
+def test_hbm_kernel_matches_plain(cuda_device, name, dtype):
+    case = HBM_CASES[name]
+    q, k, v = _inputs(case, cuda_device, getattr(torch, dtype))
+    scale = case["hd"] ** -0.5
+    before = (flash_attention.launches, flash_attention_hbm.launches)
+    got = flash_attention_hbm(q, k, v, scale=scale, window=case["window"])
+    torch.cuda.synchronize()
+    assert (flash_attention.launches, flash_attention_hbm.launches) == (before[0], before[1] + 1)
+    assert got.shape == (case["B"], case["H"], case["T"], case["hd_v"]) and got.dtype == q.dtype
+    want = flash_attention_hbm_reference(q, k, v, scale=scale, window=case["window"])
+    torch.testing.assert_close(got.float(), want.float(), **TOLERANCE[dtype])
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("name", ["hd44_hdv40", "window64", "ragged_T300"])
+def test_hbm_kernel_equals_k1(cuda_device, name, dtype):
+    """With 64-key tiles K2 does K1's arithmetic in K1's order: the two
+    kernels agree bit for bit where both take the input."""
+    case = HBM_CASES[name]
+    q, k, v = _inputs(case, cuda_device, getattr(torch, dtype), seed=2)
+    got = flash_attention_hbm(q, k, v, window=case["window"])
+    want = flash_attention(q, k, v, window=case["window"])
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+def test_hbm_kernel_on_views_with_an_offset(cuda_device):
+    """K/V whose data pointers are 8- but not 16-byte aligned (contiguous
+    views at an offset of two floats) take narrower copies."""
+    case = HBM_CASES["hd44_hdv40"]
+    q, k, v = _inputs(case, cuda_device, torch.float32)
+
+    def shifted(t):
+        buf = torch.empty(t.numel() + 2, device=cuda_device)
+        view = buf[2:].view(t.shape)
+        view.copy_(t)
+        return view
+
+    ks, vs = shifted(k), shifted(v)
+    assert ks.data_ptr() % 16 == 8 and ks.is_contiguous()
+    got = flash_attention_hbm(q, ks, vs)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, flash_attention_hbm_reference(q, k, v), **TOLERANCE["float32"])
+
+
+def test_hbm_kernel_rejects_what_it_does_not_take(cuda_device):
+    q, k, v = _inputs(HBM_CASES["ragged_T300"], cuda_device, torch.float32)
+    with pytest.raises(ValueError, match="contiguous"):
+        flash_attention_hbm(q.transpose(2, 3).contiguous().transpose(2, 3), k, v)
+    with pytest.raises(ValueError, match="dtypes"):
+        flash_attention_hbm(q.half(), k.half(), v.half())
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        flash_attention_hbm(q, k.cpu(), v)
+    with pytest.raises(ValueError, match="head dims"):
+        flash_attention_hbm(*_inputs(dict(HBM_CASES["ragged_T300"], hd=264, hd_v=8), cuda_device, torch.float32))
+    with pytest.raises(ValueError, match="n_kv_heads"):
+        flash_attention_hbm(*_inputs(dict(HBM_CASES["ragged_T300"], H=3), cuda_device, torch.float32))
+    with pytest.raises(ValueError, match="window"):
+        flash_attention_hbm(q, k, v, window=0)
+
+
+def test_long_forward_goes_through_k2(cuda_device):
+    """A tiny Llama with llama3 RoPE scaling at T = 8200: every layer
+    launches K2 once and K1 never, and the logits match the row-chunked
+    plain attention."""
+    cfg = SimpleNamespace(
+        model_type="llama", vocab_size=256, hidden_size=64, intermediate_size=176,
+        num_hidden_layers=2, num_attention_heads=4, num_key_value_heads=2, head_dim=16,
+        max_position_embeddings=16384, rms_norm_eps=1e-5, rope_theta=500000.0, hidden_act="silu",
+        tie_word_embeddings=False, attention_bias=False, mlp_bias=False,
+        rope_scaling={"rope_type": "llama3", "factor": 8.0, "low_freq_factor": 1.0,
+                      "high_freq_factor": 4.0, "original_max_position_embeddings": 8192},
+    )
+    spec = spec_from_hf_config(cfg)
+    params = init_params(spec, torch.Generator(device="cuda").manual_seed(0), device=cuda_device)
+    ids = torch.from_numpy(np.random.default_rng(1).integers(0, 256, (1, 8200))).to(cuda_device)
+    before = (flash_attention.launches, flash_attention_hbm.launches)
+    got, _ = forward(spec, params, ids)
+    torch.cuda.synchronize()
+    assert (flash_attention.launches, flash_attention_hbm.launches) == (before[0], before[1] + spec.n_layers)
     want, _ = forward(spec, params, ids, attn_impl="xla")
     torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
 
