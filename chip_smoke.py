@@ -64,9 +64,14 @@ import time
 from types import SimpleNamespace
 
 # H100 SXM published peaks (NVIDIA data sheet): HBM bytes/s, and dense
-# FLOP/s by input type (float32 on the CUDA cores, bf16 on tensor cores).
+# FLOP/s by input type on the tensor cores. float32 work at float32
+# accuracy is three TF32 products (3xTF32: big.big + big.small +
+# small.big), so its least time is three passes at the 494.7 TFLOP/s TF32
+# rate; a single TF32 pass is outside the f32 tolerance, and the CUDA
+# cores' 67 TFLOP/s is slower than the tensor cores' 3xTF32.
 HBM_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}
+PEAK_FLOPS = {"float32": 494.7e12 / 3, "bfloat16": 989e12}
+OPS_ROUTE = {"float32": "3xtf32", "bfloat16": "bf16_tc"}
 
 # K1 edge cases beside the main path's dense shape (B=2, H=32, Hk=8,
 # T=2048, hd=hd_v=128, the eval and calibration batches of the job).
@@ -190,7 +195,9 @@ def phase_build() -> dict:
 
 
 def phase_kernel(records: dict) -> list:
+    clocks_line("before the first case")
     lines = _flash_cases(records) + _hbm_cases(records) + _ragged_cases(records)
+    clocks_line("after the last case")
     bad = [f"{ln['kernel']}:{ln['case']}" for ln in lines if not ln["ok"]]
     if bad:
         raise AssertionError(f"kernels disagree with their plain versions at {bad}")
@@ -198,9 +205,26 @@ def phase_kernel(records: dict) -> list:
 
 
 def _bound(flops: float, nbytes: float, dtype: str):
+    """(bound ms, "operations" or "bytes", the route that sets it:
+    "3xtf32", "bf16_tc" or "bytes")."""
     t_ops = flops / PEAK_FLOPS[dtype]
     t_bytes = nbytes / HBM_BYTES_PER_S
-    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
+    if t_ops >= t_bytes:
+        return t_ops * 1e3, "operations", OPS_ROUTE[dtype]
+    return t_bytes * 1e3, "bytes", "bytes"
+
+
+def clocks_line(at: str) -> None:
+    """The SM clock against its maximum, to tell a slow kernel from a
+    throttled card."""
+    try:
+        out = subprocess.run(
+            ["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm", "--format=csv,noheader"],
+            capture_output=True, text=True, timeout=30,
+        ).stdout.strip()
+    except (OSError, subprocess.SubprocessError) as e:
+        out = f"nvidia-smi unavailable: {e}"
+    emit({"phase": "kernel", "clocks_sm_and_max": out, "at": at})
 
 
 def _library_ms(name: str, fn, iters: int = 10, warmup: int = 2):
@@ -242,7 +266,7 @@ def _attention_cases(kernel_name: str, kernel, plain, cases, library) -> list:
         ok = bool(torch.allclose(got.float(), want.float(), **tol)) and bool(torch.isfinite(got).all())
         del want
         if T > 8192:
-            iters, plain_iters = dict(iters=2, warmup=1), dict(iters=1, warmup=1)
+            iters, plain_iters = dict(iters=5, warmup=1), dict(iters=1, warmup=1)
         else:
             iters, plain_iters = dict(iters=10), dict(iters=5)
         kernel_ms = cuda_ms(lambda: kernel(q, k, v, scale=scale, window=w), **iters)
@@ -251,13 +275,13 @@ def _attention_cases(kernel_name: str, kernel, plain, cases, library) -> list:
 
         flops = 2.0 * B * H * visible_pairs(T, w) * (hd + hd_v)
         nbytes = sum(t.numel() * t.element_size() for t in (q, k, v, got))
-        bound_ms, bound_by = _bound(flops, nbytes, case["dtype"])
+        bound_ms, bound_by, bound_route = _bound(flops, nbytes, case["dtype"])
         line = {
             "phase": "kernel", "kernel": kernel_name, "case": case["name"],
             "shape": {k_: case[k_] for k_ in ("B", "H", "Hk", "T", "hd", "hd_v", "window")},
             "dtype": case["dtype"], "max_abs_err": err, "tolerance": tol, "ok": ok,
             "kernel_ms": kernel_ms, "plain_ms": plain_ms, "library_ms": library_ms,
-            "bound_ms": bound_ms, "bound_by": bound_by,
+            "bound_ms": bound_ms, "bound_by": bound_by, "bound_route": bound_route,
         }
         emit(line)
         lines.append(line)
@@ -275,15 +299,31 @@ def _window_mask(T: int, w):
     return (i[None, :] <= i[:, None]) & (i[None, :] > i[:, None] - w)
 
 
+def _pad8(q, k, v):
+    """q, k, v with their head dims zero-padded to a multiple of 8, as
+    SDPA's fused backends need. Zero columns leave every score unchanged
+    (the caller passes the unpadded scale) and give zero output columns,
+    which the yardstick slices off."""
+    import torch.nn.functional as F
+
+    def pad(t):
+        extra = -t.shape[-1] % 8
+        return F.pad(t, (0, extra)) if extra else t
+
+    return pad(q), pad(k), pad(v)
+
+
 def _flash_cases(records: dict) -> list:
     import torch.nn.functional as F
 
     from modegpt_tpu_torch.kernels.flash_attention import flash_attention, flash_attention_reference
 
     def library(q, k, v, scale, w, T):
+        hd_v = v.shape[-1]
+        q, k, v = _pad8(q, k, v)
         mask = _window_mask(T, w)
         kw = dict(attn_mask=mask, is_causal=mask is None, scale=scale)
-        return lambda: F.scaled_dot_product_attention(q, k, v, enable_gqa=True, **kw)
+        return lambda: F.scaled_dot_product_attention(q, k, v, enable_gqa=True, **kw)[..., :hd_v]
 
     lines = _attention_cases("flash_attention", flash_attention, flash_attention_reference, KERNEL_CASES, library)
     records["flash_attention"] = _record(
@@ -301,16 +341,18 @@ def _hbm_cases(records: dict) -> list:
 
     def library(q, k, v, scale, w, T):
         # at long T the math backend would build the [T, T] scores, so the
-        # memory-efficient backend is pinned, on K/V repeated to H heads
-        # outside the timed call
+        # memory-efficient backend is pinned, on K/V repeated to H heads and
+        # head dims padded to a multiple of 8 outside the timed call
         G = q.shape[1] // k.shape[1]
+        hd_v = v.shape[-1]
+        q, k, v = _pad8(q, k, v)
         kr, vr = k.repeat_interleave(G, dim=1), v.repeat_interleave(G, dim=1)
         mask = _window_mask(T, w)
         kw = dict(attn_mask=mask, is_causal=mask is None, scale=scale)
 
         def run():
             with sdpa_kernel(SDPBackend.EFFICIENT_ATTENTION):
-                return F.scaled_dot_product_attention(q, kr, vr, **kw)
+                return F.scaled_dot_product_attention(q, kr, vr, **kw)[..., :hd_v]
         return run
 
     lines = _attention_cases(
@@ -329,7 +371,7 @@ def _record(name: str, source: str, replaces: str, main: dict) -> dict:
         "name": name, "route": "cuda", "source": source, "replaces": replaces,
         "launches": None,
         "max_abs_err": main["max_abs_err"], "ms": main["kernel_ms"], "plain_ms": main["plain_ms"],
-        "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
+        "bound_ms": main["bound_ms"], "bound_by": main["bound_by"], "bound_route": main["bound_route"],
         "library_ms": main["library_ms"],
     }
 
@@ -418,14 +460,14 @@ def _ragged_cases(records: dict) -> list:
         nbytes = sum(union) * kv_row_bytes + sum(
             t.numel() * t.element_size() for t in (q, got, pos)
         )
-        bound_ms, bound_by = _bound(flops, nbytes, case["dtype"])
+        bound_ms, bound_by, bound_route = _bound(flops, nbytes, case["dtype"])
         line = {
             "phase": "kernel", "kernel": "ragged_gqa_attend", "case": case["name"],
             "shape": {k_: case[k_] for k_ in ("B", "H", "Hk", "T", "S", "Rq", "Rv", "window", "softcap", "int8")},
             "pos": pos_host if B <= 8 else None,
             "dtype": case["dtype"], "max_abs_err": err, "tolerance": tol, "ok": ok,
             "kernel_ms": kernel_ms, "plain_ms": plain_ms, "library_ms": library_ms,
-            "bound_ms": bound_ms, "bound_by": bound_by,
+            "bound_ms": bound_ms, "bound_by": bound_by, "bound_route": bound_route,
         }
         emit(line)
         lines.append(line)

@@ -6,9 +6,10 @@ Port of the two Pallas TPU kernels of
 * `flash_attention` (K1, ``csrc/flash_attention.cu``), which the forward
   takes for ``128 <= T <= 8192``;
 * `flash_attention_hbm` (K2, ``csrc/flash_attention_hbm.cu``), the
-  long-context kernel, which streams K/V tiles through a two-stage
-  cp.async ring and runs the heaviest query tiles first; the forward
-  takes it for ``T > 8192``.
+  long-context kernel, on the tensor cores (float32 as three TF32
+  products, bfloat16 through wgmma) with K/V tiles fed by a producer
+  warpgroup through a TMA or cp.async ring, heaviest query tiles first;
+  the forward takes it for ``T > 8192``.
 
 Each CUDA source's header says what bounds it on an H100 and how it is
 laid out. Both keep the JAX signature and the ``[B, H, T, hd]`` layout.

@@ -36,6 +36,7 @@ import torch
 from modegpt_tpu_torch.models.forward import _linear, _mlp_block, _norm, check_supported
 from modegpt_tpu_torch.models.spec import ModelSpec
 from modegpt_tpu_torch.ops.rope import apply_rope, masked_head_rms_norm, rope_cos_sin
+from modegpt_tpu_torch.utils.device import resolve_device
 
 __all__ = [
     "KVCache",
@@ -57,7 +58,10 @@ class KVCache(NamedTuple):
     length: int
 
 
-def init_cache(spec: ModelSpec, batch: int, max_len: int, dtype=torch.float32, device="cpu") -> KVCache:
+def init_cache(spec: ModelSpec, batch: int, max_len: int, dtype=torch.float32, device="cuda") -> KVCache:
+    """Zeroed per-layer caches [batch, Hk, max_len, r] on `device` (CUDA
+    unless the caller asks for the CPU; raises without a card)."""
+    device = resolve_device(device)
     ks, vs = [], []
     for l in range(spec.n_layers):
         r_k = spec.k_ranks[l] // spec.n_kv_heads

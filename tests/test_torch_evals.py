@@ -205,3 +205,25 @@ def test_greedy_generate_matches_jax(dense_pair, artifact, penalty):
         got = t_generate(ts, tp, prompts, eos_token_id=eos, **kw)
         want = np.asarray(j_generate(js, jp, jnp.asarray(prompts), eos_token_id=eos, **kw))
         np.testing.assert_array_equal(got.numpy(), want)
+
+
+def test_init_cache_defaults_to_the_card(dense_pair, artifact, monkeypatch):
+    """`init_cache` runs on CUDA unless asked for the CPU, as the port's
+    other entry points do; on the CPU its caches have the JAX cache's
+    shapes (dense and per-layer compressed ranks)."""
+    from modegpt_tpu.models.generate import init_cache as j_init_cache
+    from modegpt_tpu_torch.models.generate import init_cache as t_init_cache
+
+    j_spec, _, t_spec, _ = dense_pair
+    c_spec, _, _ = t_artifact.load_compressed_model(artifact, device="cpu")
+    jc_spec, _, _ = j_artifact.load_compressed_model(artifact)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        t_init_cache(t_spec, 2, 16)
+    for js, ts in ((j_spec, t_spec), (jc_spec, c_spec)):
+        got = t_init_cache(ts, 2, 16, device="cpu")
+        want = j_init_cache(js, 2, 16)
+        assert got.length == 0
+        for g, w in zip(got.k + got.v, want.k + want.v):
+            assert g.device.type == "cpu" and g.dtype == torch.float32
+            assert tuple(g.shape) == tuple(w.shape) and not g.any()
