@@ -9,8 +9,9 @@ Phases, each printing one JSON line:
 
 1. build  — compile every CUDA source in modegpt_tpu_torch/csrc with nvcc
    for sm_90a (modegpt_tpu_torch/_build/), all at once.
-2. kernel — hold each kernel (K1 flash_attention, K2 flash_attention_hbm,
-   K3 ragged_gqa_attend) against its plain PyTorch version on the card at
+2. kernel — hold each kernel (K1 flash_attention and K2
+   flash_attention_hbm, two entries of one tile loop, and K3
+   ragged_gqa_attend) against its plain PyTorch version on the card at
    the main path's shapes and a few edge shapes, and time the kernel, the
    plain version and the nearest single PyTorch call (library_ms).
 3. main   — one full compression job through
@@ -113,9 +114,11 @@ TOLERANCE = {"float32": dict(rtol=2e-4, atol=2e-5), "bfloat16": dict(rtol=2e-2, 
 # heads, at the padded ranks of the compressed model it serves (the
 # widest layer keeps 126 of 128 q/k and v dims per head, so Rq = Rv = 126
 # after padding). "chunk" is one per-slot prefill dispatch (bucket 128),
-# in the pool's dtype and with int8 codes. pos is drawn over the pool
-# from a seeded generator; "edge" puts one row past the pool's end, as a
-# masked serving row can be.
+# in the pool's dtype and with int8 codes, at a slot's fourth chunk
+# (pos 384) and its first (pos 0). pos is drawn over the pool from a
+# seeded generator; "edge" puts one row past the pool's end, as a masked
+# serving row can be. decode_T4096 walks a pool four times as long (many
+# key splits), decode_pos0 has one live key a slot.
 _DECODE = dict(B=8, H=32, Hk=8, T=1024, S=1, Rq=126, Rv=126, dtype="float32",
                window=None, softcap=None, int8=False, pos=None)
 RAGGED_CASES = [
@@ -131,6 +134,10 @@ RAGGED_CASES = [
     dict(_DECODE, name="int8_bf16", dtype="bfloat16", int8=True),
     dict(_DECODE, name="mha", Hk=32),
     dict(_DECODE, name="edge_row", pos="edge"),
+    dict(_DECODE, name="decode_T4096", T=4096),
+    dict(_DECODE, name="decode_pos0", pos=[0] * 8),
+    dict(_DECODE, name="chunk_S128_bf16", B=1, S=128, pos=[384], dtype="bfloat16"),
+    dict(_DECODE, name="chunk_S128_pos0", B=1, S=128, pos=[0]),
 ]
 
 # The serve phase's traffic: prompts of token ids from the synthetic eval
@@ -214,7 +221,7 @@ def _bound(flops: float, nbytes: float, dtype: str):
     return t_bytes * 1e3, "bytes", "bytes"
 
 
-def clocks_line(at: str) -> None:
+def clocks_line(at: str, phase: str = "kernel") -> None:
     """The SM clock against its maximum, to tell a slow kernel from a
     throttled card."""
     try:
@@ -224,7 +231,7 @@ def clocks_line(at: str) -> None:
         ).stdout.strip()
     except (OSError, subprocess.SubprocessError) as e:
         out = f"nvidia-smi unavailable: {e}"
-    emit({"phase": "kernel", "clocks_sm_and_max": out, "at": at})
+    emit({"phase": phase, "clocks_sm_and_max": out, "at": at})
 
 
 def _library_ms(name: str, fn, iters: int = 10, warmup: int = 2):
@@ -327,7 +334,7 @@ def _flash_cases(records: dict) -> list:
 
     lines = _attention_cases("flash_attention", flash_attention, flash_attention_reference, KERNEL_CASES, library)
     records["flash_attention"] = _record(
-        "flash_attention", "modegpt_tpu_torch/csrc/flash_attention.cu",
+        "flash_attention", "modegpt_tpu_torch/csrc/flash_attention_hbm.cu",
         "modegpt_tpu/kernels/flash_attention.py:156", lines[0],
     )
     return lines
@@ -717,8 +724,10 @@ def phase_serve(records: dict, main_out: dict, profile: bool = False) -> dict:
         torch.cuda.reset_peak_memory_stats()
         rd_mod.ragged_gqa_attend.launches = 0
         b = serving.ContinuousBatcher(pm, decode_attn="auto", **kw)
+        clocks_line("before the 16-request round", "serve")
         with _profiler() if profile else contextlib.nullcontext() as prof:
             done, rids, wall = _serve_round(b, prompts[:n], gen, on_step=check_decode_backends("model", b))
+        clocks_line("after the 16-request round", "serve")
         b8 = serving.ContinuousBatcher(pm, decode_attn="auto", kv_dtype="int8", **kw)
         done8, rids8, wall8 = _serve_round(b8, prompts[n:], gen, on_step=check_decode_backends("int8", b8))
         launches = rd_mod.ragged_gqa_attend.launches

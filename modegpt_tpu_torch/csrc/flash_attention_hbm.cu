@@ -95,8 +95,19 @@
 // one kv head, and fp8.
 //
 // The tile loop is a template over the dtype, the key tile, the consumer
-// warps and the output width, so that a second C entry (the short-context
-// kernel's) can instantiate it.
+// warps and the output width. Two C entries instantiate it through the
+// same host-side selection: `modegpt_flash_attention_hbm` (this kernel,
+// T > 8192) and `modegpt_flash_attention`, the port of the Pallas
+// `flash_attention` (body `_attn_kernel`) that the forward takes for
+// 128 <= T <= 8192. The two Pallas kernels compute the same function and
+// differ only in how they stream K/V on the TPU; here one loop serves
+// both. At the main path's dense shape (B=2, H=32, Hk=8, T=2048, hd=128,
+// f32) the short-context entry does 2*B*H*(T(T+1)/2)*(hd+hd_v) = 68.8
+// GFLOP over 100 MB, bound by the 3xTF32 rate (0.417 ms), as here.
+//
+// The PTX helpers (mbarriers, cp.async, ldmatrix, the TF32 split, the
+// mma.sync forms) are in ptx.cuh, shared with ragged_decode.cu; TMA and
+// wgmma, which only this kernel issues, are below.
 
 #include <cuda.h>  // CUtensorMap and its enums (types only; the encoder is looked up at run time)
 #include <cuda_bf16.h>
@@ -106,6 +117,8 @@
 #include <algorithm>
 #include <cstring>
 #include <type_traits>
+
+#include "ptx.cuh"
 
 namespace {
 
@@ -130,41 +143,7 @@ struct Params {
   int stages;
 };
 
-// ---- PTX wrappers ----
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
-               : "memory");
-}
-
-// Wait for the completion of the barrier's phase of parity `parity`. A
-// barrier that never completes is a fault in the kernel: after ~2^26
-// polls (seconds) the block traps, so a launch fails instead of hanging.
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  for (uint32_t i = 0;; ++i) {
-    uint32_t done;
-    asm volatile(
-        "{\n .reg .pred p;\n mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        " selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-    if (done) return;
-    if (i == (1u << 26)) __trap();
-  }
-}
+// ---- TMA (the other PTX helpers are in ptx.cuh) ----
 
 __device__ __forceinline__ void tma_load_3d(uint32_t dst, const CUtensorMap* map, uint32_t bar, int c0,
                                             int c1, int c2) {
@@ -173,42 +152,6 @@ __device__ __forceinline__ void tma_load_3d(uint32_t dst, const CUtensorMap* map
       " [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(dst),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2)
       : "memory");
-}
-
-__device__ __forceinline__ void cp_async(uint32_t dst, const void* src, int bytes) {
-  if (bytes == 16) {
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst), "l"(src) : "memory");
-  } else if (bytes == 8) {
-    asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(dst), "l"(src) : "memory");
-  } else {
-    asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(dst), "l"(src) : "memory");
-  }
-}
-
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t addr) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr));
-}
-
-__device__ __forceinline__ uint32_t lds32(uint32_t addr) {
-  uint32_t x;
-  asm volatile("ld.shared.b32 %0, [%1];\n" : "=r"(x) : "r"(addr));
-  return x;
-}
-
-// x = big + small, big = tf32(x) (round to nearest), small = x - big
-// (exact in f32; the tensor core reads its top 19 bits).
-__device__ __forceinline__ void split_tf32(float x, uint32_t& big, uint32_t& small) {
-  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(big) : "f"(x));
-  small = __float_as_uint(x - __uint_as_float(big));
-}
-
-__device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4], uint32_t b0, uint32_t b1) {
-  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, {%4, %5, %6, %7},"
-      " {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
 // ---- wgmma (bf16): one warpgroup's 64 query rows ----
@@ -355,20 +298,6 @@ template <> __device__ __forceinline__ void wgmma_rs<256>(float* d, const uint32
         "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
         "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&h);
-}
-
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
-
-template <typename T> __device__ __forceinline__ T from_f(float x);
-template <> __device__ __forceinline__ float from_f<float>(float x) { return x; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
 }
 
 // Byte offset of (row, column byte cb) in a stack of 128-byte panels of
@@ -843,18 +772,30 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o, int B, 
   return launch_cfg<T, 32, 4, 32>(q, k, v, o, B, H, Hk, seq, hd, hd_v, scale, window, stream);
 }
 
-}  // namespace
-
-// C interface, loaded with ctypes. dtype: 0 = float32, 1 = bfloat16.
-// q [B,H,T,hd], k [B,Hk,T,hd], v [B,Hk,T,hd_v], o [B,H,T,hd_v], all
-// contiguous on the current device. Returns cudaGetLastError() after the
-// launch (0 = launched).
-extern "C" int modegpt_flash_attention_hbm(const void* q, const void* k, const void* v, void* o,
-                                           int B, int H, int Hk, int seq, int hd, int hd_v,
-                                           float scale, int window, int dtype, void* stream) {
+int launch_dtype(const void* q, const void* k, const void* v, void* o, int B, int H, int Hk, int seq, int hd,
+                 int hd_v, float scale, int window, int dtype, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) return (int)launch<float>(q, k, v, o, B, H, Hk, seq, hd, hd_v, scale, window, s);
   if (dtype == 1)
     return (int)launch<__nv_bfloat16>(q, k, v, o, B, H, Hk, seq, hd, hd_v, scale, window, s);
   return (int)cudaErrorInvalidValue;
+}
+
+}  // namespace
+
+// C interface, loaded with ctypes; both entries share one signature.
+// dtype: 0 = float32, 1 = bfloat16. q [B,H,T,hd], k [B,Hk,T,hd], v
+// [B,Hk,T,hd_v], o [B,H,T,hd_v], all contiguous on the current device.
+// Returns cudaGetLastError() after the launch (0 = launched).
+extern "C" int modegpt_flash_attention_hbm(const void* q, const void* k, const void* v, void* o,
+                                           int B, int H, int Hk, int seq, int hd, int hd_v,
+                                           float scale, int window, int dtype, void* stream) {
+  return launch_dtype(q, k, v, o, B, H, Hk, seq, hd, hd_v, scale, window, dtype, stream);
+}
+
+// K1, the short-context kernel: the same tile loop.
+extern "C" int modegpt_flash_attention(const void* q, const void* k, const void* v, void* o,
+                                       int B, int H, int Hk, int seq, int hd, int hd_v,
+                                       float scale, int window, int dtype, void* stream) {
+  return launch_dtype(q, k, v, o, B, H, Hk, seq, hd, hd_v, scale, window, dtype, stream);
 }

@@ -2,8 +2,9 @@
 
 Each ``csrc/<name>.cu`` becomes ``_build/lib<name>-<hash>.so`` (a plain C
 interface, no PyTorch headers, so one file builds in seconds), compiled
-for ``sm_90a``. The hash covers the source and the flags, so an edited
-source rebuilds and an unchanged one is reused. All sources compile at
+for ``sm_90a``. The hash covers the source, every shared header
+``csrc/*.cuh`` and the flags, so an edited source or header rebuilds and
+an unchanged one is reused. All sources compile at
 once, one nvcc process each. Nothing builds at import time: the first
 kernel call (or an explicit `build_all`) does it.
 
@@ -26,7 +27,7 @@ __all__ = ["SOURCES", "build_all", "load_library", "BUILD_DIR", "CSRC_DIR"]
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(_PKG_DIR, "_build")
-SOURCES = ("flash_attention", "flash_attention_hbm", "ragged_decode")
+SOURCES = ("flash_attention_hbm", "ragged_decode")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -47,10 +48,13 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found (set CUDA_HOME or put nvcc on PATH)")
 
 
-def _lib_path(name: str) -> str:
-    with open(os.path.join(CSRC_DIR, f"{name}.cu"), "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return os.path.join(BUILD_DIR, f"lib{name}-{digest}.so")
+def _lib_path(name: str, csrc_dir: str = CSRC_DIR, build_dir: str = BUILD_DIR) -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    headers = sorted(f for f in os.listdir(csrc_dir) if f.endswith(".cuh"))
+    for fname in [f"{name}.cu", *headers]:
+        with open(os.path.join(csrc_dir, fname), "rb") as f:
+            h.update(fname.encode() + b"\0" + f.read())
+    return os.path.join(build_dir, f"lib{name}-{h.hexdigest()[:16]}.so")
 
 
 def build_all(names: Optional[List[str]] = None) -> Dict[str, float]:
@@ -68,7 +72,7 @@ def build_all(names: Optional[List[str]] = None) -> Dict[str, float]:
             seconds[name] = 0.0
             continue
         tmp = f"{out}.{os.getpid()}.tmp"
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, os.path.join(CSRC_DIR, f"{name}.cu")]
+        cmd = [_nvcc(), *NVCC_FLAGS, "-I", CSRC_DIR, "-o", tmp, os.path.join(CSRC_DIR, f"{name}.cu")]
         procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT), tmp, out)
     for name, (proc, tmp, out) in procs.items():
         log = proc.communicate()[0].decode(errors="replace")

@@ -1,15 +1,25 @@
-"""Time variants of the long-context attention source against each other.
+"""Time variants of an attention source against each other on the card.
 
     python -m modegpt_tpu_torch.kernels.compare a.cu b.cu [...]
 
-Each file is a variant of ``csrc/flash_attention_hbm.cu`` exporting its C
-entry ``modegpt_flash_attention_hbm``. All variants build at once with
-the package's nvcc flags (into the directory of the first file). Then
-the T = 16384 cases of ``chip_smoke.py``'s K2 table run on every
+Each file is a variant of one of the package's CUDA sources, told apart
+by the C entry it exports:
+
+* ``modegpt_flash_attention_hbm`` (``csrc/flash_attention_hbm.cu``): the
+  T = 16384 cases of ``chip_smoke.py``'s K2 table run on every variant;
+* ``modegpt_ragged_gqa_attend`` (``csrc/ragged_decode.cu``, with its
+  ``modegpt_ragged_gqa_workspace``): ``chip_smoke.py``'s K3 decode and
+  chunk cases.
+
+All variants build at once with the package's nvcc flags (into the
+directory of the first file; ``csrc/`` is on the include path, so a copy
+kept elsewhere still finds ``ptx.cuh``). Every case runs on every
 variant in turn, on the same seeded inputs, and each line gives the ms
-per launch and the largest difference from the first variant's output.
-The card's name, power limit and clocks close the output. It needs one
-NVIDIA card.
+per launch, the largest difference from the first variant's output and,
+for K3, from the plain version's. K3's launches go into preallocated
+output and scratch, so that its few-microsecond grids are timed rather
+than the host's enqueue. The card's name, power limit and
+clocks close the output. It needs one NVIDIA card.
 """
 
 from __future__ import annotations
@@ -19,11 +29,12 @@ import os
 import subprocess
 import sys
 
+import numpy as np
 import torch
 
-from modegpt_tpu_torch.kernels.build import NVCC_FLAGS, _nvcc
+from modegpt_tpu_torch.kernels.build import CSRC_DIR, NVCC_FLAGS, _nvcc
 
-# name, H, Hk, T, hd, hd_v, dtype (B = 1, causal)
+# K2: name, H, Hk, T, hd, hd_v, dtype (B = 1, causal)
 CASES = [
     ("long_f32", 32, 8, 16384, 128, 128, torch.float32),
     ("long_padded_f32", 32, 8, 16384, 126, 126, torch.float32),
@@ -31,29 +42,55 @@ CASES = [
     ("long_compressed_f32", 32, 8, 16384, 88, 90, torch.float32),
     ("long_compressed_bf16", 32, 8, 16384, 88, 90, torch.bfloat16),
 ]
+# K3: chip_smoke.py's decode and chunk cases; pos None draws B positions
+# over the pool, "edge" puts slot 1 past its end
+_DECODE = dict(B=8, H=32, Hk=8, T=1024, S=1, Rq=126, Rv=126, dtype=torch.float32, window=None, int8=False, pos=None)
+RAGGED_CASES = [
+    dict(_DECODE, name="decode_f32"),
+    dict(_DECODE, name="decode_bf16", dtype=torch.bfloat16),
+    dict(_DECODE, name="int8_f32", int8=True),
+    dict(_DECODE, name="mha", Hk=32),
+    dict(_DECODE, name="edge_row", pos="edge"),
+    dict(_DECODE, name="window100", window=100),
+    dict(_DECODE, name="decode_T4096", T=4096),
+    dict(_DECODE, name="chunk_S128_pos384", B=1, S=128, pos=[384]),
+    dict(_DECODE, name="chunk_S128_bf16", B=1, S=128, pos=[384], dtype=torch.bfloat16),
+    dict(_DECODE, name="chunk_S128_pos384_int8", B=1, S=128, pos=[384], int8=True),
+    dict(_DECODE, name="chunk_S128_pos0", B=1, S=128, pos=[0]),
+]
+_ENTRIES = ("modegpt_flash_attention_hbm", "modegpt_ragged_gqa_attend")
 
 
 def build(sources):
-    """One ctypes function per source, built in parallel; raises with
-    nvcc's output on a failed build."""
+    """(entry name, [library per source]) built in parallel; raises with
+    nvcc's output on a failed build or on variants of different sources."""
     out_dir = os.path.dirname(os.path.abspath(sources[0]))
     procs = []
     for src in sources:
         lib = os.path.join(out_dir, os.path.basename(src) + ".so")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", lib, src]
+        cmd = [_nvcc(), *NVCC_FLAGS, "-I", CSRC_DIR, "-o", lib, src]
         procs.append((src, lib, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT)))
-    fns = []
+    libs, entries = [], set()
     for src, lib, proc in procs:
         log = proc.communicate()[0].decode(errors="replace")
         if proc.returncode:
             raise RuntimeError(f"nvcc failed for {src}:\n{log}")
-        fn = ctypes.CDLL(lib).modegpt_flash_attention_hbm
-        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [
-            ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
-        ]
-        fn.restype = ctypes.c_int
-        fns.append(fn)
-    return fns
+        cdll = ctypes.CDLL(lib)
+        found = [e for e in _ENTRIES if hasattr(cdll, e)]
+        if len(found) != 1:
+            raise RuntimeError(f"{src} exports {found or 'none'} of {_ENTRIES}")
+        entries.add(found[0])
+        libs.append(cdll)
+    if len(entries) != 1:
+        raise RuntimeError(f"the variants are of different sources: {sorted(entries)}")
+    return entries.pop(), libs
+
+
+def _hbm_fn(lib):
+    fn = lib.modegpt_flash_attention_hbm
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
 
 
 def launch(fn, q, k, v):
@@ -69,6 +106,37 @@ def launch(fn, q, k, v):
     return o
 
 
+def _ragged_launcher(lib):
+    """prepare(q, k, v, pos, k_scale, v_scale, window) -> a callable that
+    launches one variant's kernels into preallocated output and scratch
+    and returns the output, so that the timed loop is the launches."""
+    fn, ws_fn = lib.modegpt_ragged_gqa_attend, lib.modegpt_ragged_gqa_workspace
+    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 8 + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    ws_fn.argtypes = [ctypes.c_int] * 7
+    ws_fn.restype = ctypes.c_longlong
+
+    def prepare(q, k, v, pos, ks, vs, window):
+        B, H, S, Rq = q.shape
+        Hk, T, Rv = k.shape[1], k.shape[2], v.shape[-1]
+        o = torch.empty((B, H, S, Rv), dtype=q.dtype, device=q.device)
+        ws = torch.empty(ws_fn(B, H, Hk, S, T, Rq, Rv), dtype=torch.float32, device=q.device)
+        args = (
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), 0 if ks is None else ks.data_ptr(),
+            0 if vs is None else vs.data_ptr(), pos.data_ptr(), o.data_ptr(), ws.data_ptr(),
+            B, H, Hk, S, T, Rq, Rv, window or 0, 0.0, 0 if q.dtype == torch.float32 else 1,
+            torch.cuda.current_stream().cuda_stream,
+        )
+
+        def run():
+            err = fn(*args)
+            if err:
+                raise RuntimeError(f"launch failed: CUDA error {err}")
+            return o
+        return run
+    return prepare
+
+
 def ms_per_launch(fn, iters: int = 5) -> float:
     fn()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
@@ -81,17 +149,8 @@ def ms_per_launch(fn, iters: int = 5) -> float:
     return start.elapsed_time(end) / iters
 
 
-def main(sources) -> int:
-    if not sources or not torch.cuda.is_available():
-        print(__doc__, file=sys.stderr)
-        return 2
-    fns = build(sources)
-    names = [os.path.basename(s) for s in sources]
-    gen = torch.Generator(device="cuda").manual_seed(0)
-    x = torch.randn(8192, 8192, device="cuda", generator=gen)
-    for _ in range(50):  # bring the clocks up before the first case
-        x @ x
-    del x
+def _compare_hbm(names, libs, gen) -> None:
+    fns = [_hbm_fn(lib) for lib in libs]
     for name, H, Hk, T, hd, hd_v, dt in CASES:
         q = torch.randn((1, H, T, hd), generator=gen, device="cuda").to(dt)
         k = torch.randn((1, Hk, T, hd), generator=gen, device="cuda").to(dt)
@@ -105,6 +164,63 @@ def main(sources) -> int:
             t = ms_per_launch(lambda: launch(fn, q, k, v))
             cells.append(f"{label} {t:.3f} ms (diff {diff:.1e})")
         print(f"{name}: " + "; ".join(cells), flush=True)
+
+
+def _compare_ragged(names, libs) -> None:
+    from modegpt_tpu_torch.kernels.ragged_decode import ragged_gqa_attend_reference
+
+    runs = [_ragged_launcher(lib) for lib in libs]
+    rng = np.random.default_rng(0)
+    for case in RAGGED_CASES:
+        B, H, Hk, T, S, Rq, Rv = (case[k] for k in ("B", "H", "Hk", "T", "S", "Rq", "Rv"))
+        if case["pos"] is None or case["pos"] == "edge":
+            pos_host = rng.integers(0, T, size=B).tolist()
+            if case["pos"] == "edge":
+                pos_host[1] = T + 5
+        else:
+            pos_host = list(case["pos"])
+
+        def t(a):
+            return torch.from_numpy(np.ascontiguousarray(a)).cuda()
+
+        q = t((rng.standard_normal((B, H, S, Rq)) * Rq**-0.5).astype(np.float32)).to(case["dtype"])
+        if case["int8"]:
+            k, v = (t(rng.integers(-127, 128, (B, Hk, T, r), dtype=np.int8)) for r in (Rq, Rv))
+            ks, vs = (t((rng.uniform(0.5, 1.5, (B, Hk, T)) / 127).astype(np.float32)) for _ in range(2))
+        else:
+            k, v = (t(rng.standard_normal((B, Hk, T, r)).astype(np.float32)).to(case["dtype"]) for r in (Rq, Rv))
+            ks = vs = None
+        pos = torch.tensor(pos_host, dtype=torch.int32, device="cuda")
+        w = case["window"]
+        plain = ragged_gqa_attend_reference(q, k, v, pos, ks, vs, window=w).float()
+        first = None
+        cells = []
+        for label, prepare in zip(names, runs):
+            run = prepare(q, k, v, pos, ks, vs, w)
+            out = run().float()
+            first = out if first is None else first
+            diff = float((out - first).abs().max())
+            err = float((out - plain).abs().max())
+            ms = ms_per_launch(run, iters=200)
+            cells.append(f"{label} {ms:.4f} ms (diff {diff:.1e}, vs plain {err:.1e})")
+        print(f"{case['name']}: " + "; ".join(cells), flush=True)
+
+
+def main(sources) -> int:
+    if not sources or not torch.cuda.is_available():
+        print(__doc__, file=sys.stderr)
+        return 2
+    entry, libs = build(sources)
+    names = [os.path.basename(s) for s in sources]
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    x = torch.randn(8192, 8192, device="cuda", generator=gen)
+    for _ in range(50):  # bring the clocks up before the first case
+        x @ x
+    del x
+    if entry == "modegpt_flash_attention_hbm":
+        _compare_hbm(names, libs, gen)
+    else:
+        _compare_ragged(names, libs)
     smi = ["nvidia-smi", "--query-gpu=name,power.limit,clocks.sm,clocks.max.sm", "--format=csv,noheader"]
     print(subprocess.run(smi, capture_output=True, text=True).stdout.strip())
     return 0

@@ -3,16 +3,19 @@
 Port of the two Pallas TPU kernels of
 ``modegpt_tpu/kernels/flash_attention.py``:
 
-* `flash_attention` (K1, ``csrc/flash_attention.cu``), which the forward
-  takes for ``128 <= T <= 8192``;
-* `flash_attention_hbm` (K2, ``csrc/flash_attention_hbm.cu``), the
-  long-context kernel, on the tensor cores (float32 as three TF32
-  products, bfloat16 through wgmma) with K/V tiles fed by a producer
-  warpgroup through a TMA or cp.async ring, heaviest query tiles first;
-  the forward takes it for ``T > 8192``.
+* `flash_attention` (K1), which the forward takes for ``128 <= T <= 8192``;
+* `flash_attention_hbm` (K2), the long-context kernel, which the forward
+  takes for ``T > 8192``.
 
-Each CUDA source's header says what bounds it on an H100 and how it is
-laid out. Both keep the JAX signature and the ``[B, H, T, hd]`` layout.
+Both are C entries of one CUDA source, ``csrc/flash_attention_hbm.cu``
+(``modegpt_flash_attention`` and ``modegpt_flash_attention_hbm``), whose
+one tile loop runs on the tensor cores (float32 as three TF32 products,
+bfloat16 through wgmma) with K/V tiles fed by a producer warpgroup through
+a TMA or cp.async ring, heaviest query tiles first; the two Pallas kernels
+compute the same function.
+
+The source's header says what bounds it on an H100 and how it is laid
+out. Both keep the JAX signature and the ``[B, H, T, hd]`` layout.
 On a CUDA tensor they launch their kernel (building it on first use) or
 raise; on a CPU tensor they compute their plain PyTorch version, which
 the CPU tests and the card's comparisons use: `flash_attention_reference`
@@ -119,12 +122,13 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, name: str) -> None
 
 
 def _launch(name: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale, window) -> torch.Tensor:
-    """Launch ``modegpt_<name>`` of ``csrc/<name>.cu`` (both kernels share
-    one C signature) on the current stream; raise if it was refused."""
+    """Launch the C entry ``modegpt_<name>`` of ``csrc/flash_attention_hbm.cu``
+    (both entries share one signature) on the current stream; raise if it
+    was refused."""
     _check(q, k, v, name)
     from modegpt_tpu_torch.kernels.build import load_library
 
-    fn = getattr(load_library(name), f"modegpt_{name}")
+    fn = getattr(load_library("flash_attention_hbm"), f"modegpt_{name}")
     if fn.argtypes is None:
         fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [
             ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,

@@ -18,13 +18,17 @@ discards both.
 On a CUDA tensor `ragged_gqa_attend` launches the kernel (building it on
 first use) or raises; on a CPU tensor it computes
 `ragged_gqa_attend_reference`, which the CPU tests and the card's
-comparisons use. ``ragged_gqa_attend.launches`` counts kernel launches.
+comparisons use. The kernel splits each slot's keys and writes one
+partial softmax per split to float32 scratch, which a second grid
+combines; the wrapper allocates that scratch (its size comes from the
+library, which owns the split rule). ``ragged_gqa_attend.launches``
+counts calls that launched the kernel, one per call.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -37,6 +41,10 @@ __all__ = [
 
 MAX_RANK = 256
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+# the library's C entries, typed once; scratch floats by shape (a decode
+# call is ~50 us of device work, so the host's per-call work matters)
+_ENTRIES: list = []
+_WORKSPACE: Dict[Tuple[int, ...], int] = {}
 
 
 def _full(window) -> bool:
@@ -91,11 +99,35 @@ def ragged_gqa_attend_reference(
     return out.reshape(B, H, S, v.shape[-1]).to(q.dtype)
 
 
+def _entries():
+    """(attend, workspace) C functions of ``csrc/ragged_decode.cu``, built
+    and typed on first use."""
+    if not _ENTRIES:
+        from modegpt_tpu_torch.kernels.build import load_library
+
+        lib = load_library("ragged_decode")
+        fn, ws_fn = lib.modegpt_ragged_gqa_attend, lib.modegpt_ragged_gqa_workspace
+        fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 8 + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        ws_fn.argtypes = [ctypes.c_int] * 7
+        ws_fn.restype = ctypes.c_longlong
+        _ENTRIES[:] = [fn, ws_fn]
+    return _ENTRIES
+
+
+def _raw_stream(device: int) -> int:
+    """The current CUDA stream of `device` as a pointer (the private
+    accessor PyTorch's own compiled kernels use: ~10 us cheaper a call
+    than the public one)."""
+    get = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+    return get(device) if get is not None else torch.cuda.current_stream(device).cuda_stream
+
+
 def _check(q, k, v, pos, k_scale, v_scale) -> None:
     tensors = [q, k, v, pos] + ([k_scale, v_scale] if k_scale is not None else [])
     if not all(t.is_cuda for t in tensors):
         raise ValueError("ragged_gqa_attend: every tensor must be a CUDA tensor")
-    if len({t.device for t in tensors}) != 1:
+    if any(t.get_device() != q.get_device() for t in tensors):
         raise ValueError("ragged_gqa_attend: tensors on different devices")
     if q.dim() != 4 or k.dim() != 4 or v.dim() != 4 or pos.dim() != 1:
         raise ValueError("ragged_gqa_attend: q, k, v must be 4-d and pos 1-d")
@@ -165,28 +197,29 @@ def ragged_gqa_attend(
     _check(q, k, v, pos, k_scale, v_scale)
     if softcap is not None and not softcap > 0:
         raise ValueError(f"ragged_gqa_attend: softcap must be > 0 or None, got {softcap}")
-    from modegpt_tpu_torch.kernels.build import load_library
-
-    lib = load_library("ragged_decode")
-    fn = lib.modegpt_ragged_gqa_attend
-    if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 8 + [
-            ctypes.c_float, ctypes.c_int, ctypes.c_void_p,
-        ]
-        fn.restype = ctypes.c_int
+    fn, ws_fn = _entries()
     B, H, S, Rq = q.shape
     Hk, T, Rv = k.shape[1], k.shape[2], v.shape[-1]
+    shape = (B, H, Hk, S, T, Rq, Rv)
+    n_ws = _WORKSPACE.get(shape)
+    if n_ws is None:
+        n_ws = _WORKSPACE[shape] = ws_fn(*shape)
     out = torch.empty((B, H, S, Rv), dtype=q.dtype, device=q.device)
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = fn(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(),
-            0 if k_scale is None else k_scale.data_ptr(),
-            0 if v_scale is None else v_scale.data_ptr(),
-            pos.data_ptr(), out.data_ptr(),
-            B, H, Hk, S, T, Rq, Rv, 0 if _full(window) else int(window),
-            0.0 if softcap is None else float(softcap), _DTYPE_CODE[q.dtype], stream,
-        )
+    workspace = torch.empty(n_ws, dtype=torch.float32, device=q.device)
+    args = (
+        q.data_ptr(), k.data_ptr(), v.data_ptr(),
+        0 if k_scale is None else k_scale.data_ptr(),
+        0 if v_scale is None else v_scale.data_ptr(),
+        pos.data_ptr(), out.data_ptr(), workspace.data_ptr(),
+        B, H, Hk, S, T, Rq, Rv, 0 if _full(window) else int(window),
+        0.0 if softcap is None else float(softcap), _DTYPE_CODE[q.dtype],
+    )
+    dev = q.get_device()
+    if dev == torch.cuda.current_device():
+        err = fn(*args, _raw_stream(dev))
+    else:
+        with torch.cuda.device(dev):
+            err = fn(*args, _raw_stream(dev))
     if err != 0:
         raise RuntimeError(f"ragged_gqa_attend kernel launch failed: CUDA error {err}")
     ragged_gqa_attend.launches += 1

@@ -225,6 +225,13 @@ RAGGED_CASES = {
     "int8": dict(B=3, H=4, Hk=2, T=300, S=4, Rq=32, Rv=48, int8=True),
     "mha_r256": dict(B=2, H=4, Hk=4, T=130, S=1, Rq=256, Rv=256),
     "edge_row": dict(B=3, H=4, Hk=2, T=100, S=1, Rq=32, Rv=32, edge=True),
+    # the split-K decode and the tensor-core chunk form
+    "decode_T4096": dict(B=2, H=8, Hk=2, T=4096, S=1, Rq=64, Rv=64),  # many splits
+    "decode_pos0": dict(B=3, H=4, Hk=2, T=300, S=1, Rq=32, Rv=32, pos=0),  # one live key
+    "decode_rank126": dict(B=3, H=8, Hk=2, T=500, S=1, Rq=126, Rv=126),  # 504-byte f32 rows, 8-byte copies
+    "chunk_S64_int8": dict(B=2, H=4, Hk=2, T=400, S=64, Rq=32, Rv=48, int8=True),
+    "chunk_rq88_rv90": dict(B=2, H=4, Hk=2, T=300, S=32, Rq=88, Rv=90),
+    "window5": dict(B=3, H=4, Hk=2, T=300, S=4, Rq=32, Rv=32, window=5),  # a window shorter than a split
 }
 
 
@@ -236,6 +243,8 @@ def _ragged_inputs(case, device, dtype, seed=0):
         return torch.from_numpy(np.ascontiguousarray(a)).to(device, dt)
 
     pos = rng.integers(0, T - S + 1, B).astype(np.int32)
+    if "pos" in case:
+        pos[:] = case["pos"]
     if case.get("edge"):
         pos[0] = T + 3  # a masked serving row past the pool's end
     q = t((rng.standard_normal((B, H, S, Rq)) * Rq**-0.5).astype(np.float32), dtype)

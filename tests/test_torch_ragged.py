@@ -122,3 +122,82 @@ def test_scales_come_in_pairs():
     q, k, v, pos, ks, vs = _inputs(1, 32, 32, True)
     with pytest.raises(ValueError, match="both"):
         t_ragged.ragged_gqa_attend(*(torch.from_numpy(a) for a in (q, k, v, pos)), k_scale=torch.from_numpy(ks))
+
+
+# ---- the CUDA kernel's split-K arithmetic, emulated in plain PyTorch ----
+
+def _split_k(q, k, v, pos, ks, vs, window, softcap, split):
+    """The kernel's flash-decoding on the CPU: for every split of `split`
+    keys, each row's partial (m, l, acc) over the live keys in it (m =
+    -1e30, l = 0, acc = 0 for a row with none), with l summing the
+    unscaled p and acc the product of p * v_scale (rounded to bf16 for
+    bf16 inputs) with v; then the combine, acc_i and l_i rescaled by
+    exp(m_i - M) and summed, and acc / max(l, 1e-30)."""
+    B, H, S, Rq = q.shape
+    Hk, T = k.shape[1], k.shape[2]
+    G = H // Hk
+    s = torch.einsum("bkrd,bktd->bkrt", q.float().reshape(B, Hk, G * S, Rq), k.float())
+    if ks is not None:
+        s = s * ks[:, :, None, :]
+    if softcap is not None:
+        s = torch.tanh(s / softcap) * softcap
+    limit = pos.long()[:, None] + torch.arange(G * S)[None, :] % S  # [B, rows]: row g*S + s at pos + s
+    t_ids = torch.arange(T)
+    live = t_ids[None, None, :] <= limit[:, :, None]
+    if window:
+        live = live & (t_ids[None, None, :] > limit[:, :, None] - window)
+    live = live[:, None]  # [B, 1, rows, T]
+    parts = []
+    for t0 in range(0, T, split):
+        cut = slice(t0, min(T, t0 + split))
+        sc = s[..., cut].masked_fill(~live[..., cut], float("-inf"))
+        m = torch.amax(sc, dim=-1, keepdim=True)
+        m = torch.where(torch.isfinite(m), m, torch.full_like(m, -1e30))
+        p = torch.exp(sc - m)
+        l = p.sum(dim=-1, keepdim=True)
+        if vs is not None:
+            p = p * vs[:, :, None, cut]
+        if q.dtype != torch.float32:
+            p = p.to(q.dtype).float()
+        parts.append((m, l, p @ v[:, :, cut].float()))
+    M = torch.amax(torch.stack([m for m, _, _ in parts]), dim=0)
+    L = sum(torch.exp(m - M) * l for m, l, _ in parts)
+    A = sum(torch.exp(m - M) * acc for m, _, acc in parts)
+    return (A / torch.clamp(L, min=1e-30)).reshape(B, H, S, v.shape[-1]).to(q.dtype)
+
+
+SPLIT_T = 40
+SPLIT_CASES = {
+    "edge_row": dict(pos=[5, SPLIT_T + 3, 21]),  # slot 1 past the pool's end
+    "window_shorter_than_split": dict(pos=[9, 30, 36], window=3),
+    "split_with_no_live_key": dict(pos=[30, 2, 36], window=6),  # early splits dead, and late ones for slot 1
+    "int8_scales": dict(pos=[0, 17, 36], int8=True, softcap=5.0),
+    "bf16_p_rounding": dict(pos=[0, 17, 36], dtype=torch.bfloat16),
+}
+
+
+@pytest.mark.parametrize("split", [1, 7, 64, SPLIT_T], ids=["split1", "split7", "split64", "splitT"])
+@pytest.mark.parametrize("name", sorted(SPLIT_CASES))
+def test_split_k_combine_matches_plain(name, split):
+    """Splitting the keys and combining the partials gives the plain
+    version's output: float32 within rtol 2e-4 / atol 2e-5. bfloat16 is
+    held to 2e-2, since each split rounds its p to bf16 relative to its
+    own max (the plain version: to the row's max)."""
+    case = dict(dict(window=None, softcap=None, int8=False, dtype=torch.float32), **SPLIT_CASES[name])
+    rng = np.random.default_rng(7)
+    S, Rq, Rv = 4, 24, 20
+    q = torch.from_numpy((rng.standard_normal((B, H, S, Rq)) * Rq**-0.5).astype(np.float32)).to(case["dtype"])
+    if case["int8"]:
+        k, v = (torch.from_numpy(rng.integers(-127, 128, (B, HK, SPLIT_T, r), dtype=np.int8)) for r in (Rq, Rv))
+        ks, vs = (torch.from_numpy((rng.uniform(0.5, 1.5, (B, HK, SPLIT_T)) / 127).astype(np.float32)) for _ in range(2))
+    else:
+        k, v = (torch.from_numpy(rng.standard_normal((B, HK, SPLIT_T, r)).astype(np.float32)).to(case["dtype"])
+                for r in (Rq, Rv))
+        ks = vs = None
+    pos = torch.tensor(case["pos"], dtype=torch.int32)
+    kw = dict(window=case["window"], softcap=case["softcap"])
+    got = _split_k(q, k, v, pos, ks, vs, split=split, **kw)
+    want = t_ragged.ragged_gqa_attend_reference(q, k, v, pos, k_scale=ks, v_scale=vs, **kw)
+    assert got.dtype == want.dtype and torch.isfinite(got.float()).all()
+    tol = dict(rtol=2e-4, atol=2e-5) if case["dtype"] == torch.float32 else dict(rtol=2e-2, atol=2e-2)
+    torch.testing.assert_close(got.float(), want.float(), **tol)
