@@ -4,6 +4,7 @@
     python3 chip_smoke.py                      # every phase, as the check runs it
     python3 chip_smoke.py --phases build,kernel
     python3 chip_smoke.py --phases build,kernel,long
+    python3 chip_smoke.py --phases build,kernel,moe
 
 Phases, each printing one JSON line:
 
@@ -12,8 +13,9 @@ Phases, each printing one JSON line:
 2. kernel — hold each kernel (K1 flash_attention and K2
    flash_attention_hbm, two entries of one tile loop, and K3
    ragged_gqa_attend) against its plain PyTorch version on the card at
-   the main path's shapes and a few edge shapes, and time the kernel, the
-   plain version and the nearest single PyTorch call (library_ms).
+   the paths' shapes and a few edge shapes, and time the kernel, the
+   plain version and the nearest single PyTorch call (library_ms). K3's
+   row sweep covers every decode form in use (G*S = 1 to 16 rows).
 3. main   — one full compression job through
    `modegpt_tpu_torch.compress.pipeline.run_compression` at the published
    Meta-Llama-3-8B widths (hidden 4096, intermediate 14336, 32 heads,
@@ -34,7 +36,21 @@ Phases, each printing one JSON line:
    version, and every served token of the 16 requests against the
    unrolled forward over prompt + output (teacher forcing).
 
-5. long   — one compression job at the published Meta-Llama-3.1-8B
+5. moe    — one compression job at the published Qwen3-30B-A3B widths
+   (hidden 2048, 32 heads over 4 kv heads, head_dim 128, 128 experts of
+   width 768, top 8 renormalised, every layer MoE, vocab 151936, qk norm,
+   untied head), 48 -> 2 layers, random f32 weights from a seed, with the
+   main phase's settings: K1 runs in every forward. Then the reloaded
+   artifact, padded, serves the serve phase's 16 requests twice: with
+   every expert on every token (moe="dense") and by capacity dispatch
+   at E / k = 16 (moe="dispatch"), where nothing is dropped. K1's counter
+   is zeroed before the job and K3's before each round; K3 must equal
+   the layers times the round's dispatches. One decode step through K3 is
+   held against the plain version, dispatch's decode logits against
+   dense's, every dense-round token against the unrolled forward
+   (teacher forcing), and dispatch's tokens are counted against dense's.
+
+6. long   — one compression job at the published Meta-Llama-3.1-8B
    widths (the main phase's, plus llama3 rope scaling to 131072
    positions), 4 layers, at seq_len=16384, so that every forward (both
    evals and calibration) takes the long-context kernel K2; then the
@@ -45,7 +61,8 @@ Phases, each printing one JSON line:
    attention and against the padded stack, and the CLI's perplexity
    against the job's compressed perplexity.
 
-Then a `{"kernels": [...]}` line, the card's name and power limit as
+Then a `{"kernels": [...]}` line (each kernel's launches summed over the
+paths that ran it, and by path), the card's name and power limit as
 nvidia-smi reports them, and last `{"ok": true, "device": {...}}`. Any
 failed phase exits non-zero without that last line. Without CUDA, or
 without the package beside it, the script exits non-zero at once.
@@ -83,6 +100,8 @@ KERNEL_CASES = [
     dict(name="ragged_T300", B=2, H=32, Hk=8, T=300, hd=128, hd_v=128, dtype="float32", window=None),
     dict(name="window100", B=2, H=32, Hk=8, T=2048, hd=128, hd_v=128, dtype="float32", window=100),
     dict(name="mha", B=2, H=32, Hk=32, T=2048, hd=128, hd_v=128, dtype="float32", window=None),
+    # the moe phase's job (Qwen3-30B-A3B: 32 heads over 4 kv heads)
+    dict(name="moe_f32", B=2, H=32, Hk=4, T=2048, hd=128, hd_v=128, dtype="float32", window=None),
 ]
 # K2 (flash_attention_hbm) cases. The first is the long phase's shape: one
 # 16384-token window (eval and calibration batches of 1) at 32 heads over
@@ -138,7 +157,16 @@ RAGGED_CASES = [
     dict(_DECODE, name="decode_pos0", pos=[0] * 8),
     dict(_DECODE, name="chunk_S128_bf16", B=1, S=128, pos=[384], dtype="bfloat16"),
     dict(_DECODE, name="chunk_S128_pos0", B=1, S=128, pos=[0]),
+    # the moe phase's serve round: 32 heads over 4 kv heads, so a decode
+    # step is G*S = 8 rows a kv head, and a prefill chunk 1024
+    dict(_DECODE, name="decode_moe_G8", Hk=4),
+    dict(_DECODE, name="chunk_moe_G8_S128", Hk=4, B=1, S=128, pos=[384]),
 ]
+# the row sweep: every decode form in use (G*S = 1, 2, 3, 4, 5, 8, 12,
+# 16 query rows a kv head; 32 heads over 32 / G kv heads), so a form that
+# sums wrongly at one row count shows here
+ROW_SWEEP = [(1, 1), (2, 1), (1, 3), (4, 1), (1, 5), (8, 1), (4, 3), (8, 2)]
+RAGGED_CASES += [dict(_DECODE, name=f"rows{G * S}_G{G}_S{S}", Hk=32 // G, S=S) for G, S in ROW_SWEEP]
 
 # The serve phase's traffic: prompts of token ids from the synthetic eval
 # set, lengths uniform over [min_prompt, max_prompt] from a seeded numpy
@@ -163,6 +191,16 @@ LLAMA31_8B = dict(  # meta-llama/Llama-3.1-8B config.json
 # The long phase's job: one calibration and eval window per batch at
 # 16384 tokens, so every forward runs K2 (T > 8192) and none runs K1.
 LONG = dict(seq_len=16384, calib_size=4, calibs_batch_size=1, eval_batch_size=1, eval_max_samples=2)
+
+MOE_LAYERS = 2  # Qwen3-30B-A3B's 48 layers cut to 2: 2.49 GB of f32 weights a layer
+QWEN3_30B_A3B = dict(  # Qwen/Qwen3-30B-A3B config.json
+    model_type="qwen3_moe", vocab_size=151936, hidden_size=2048, intermediate_size=6144,
+    moe_intermediate_size=768, num_hidden_layers=48, num_attention_heads=32, num_key_value_heads=4,
+    head_dim=128, max_position_embeddings=40960, rms_norm_eps=1e-6, rope_theta=1000000.0,
+    hidden_act="silu", tie_word_embeddings=False, attention_bias=False, rope_scaling=None,
+    num_experts=128, num_experts_per_tok=8, norm_topk_prob=True, decoder_sparse_step=1,
+    mlp_only_layers=[], use_sliding_window=False, sliding_window=None, max_window_layers=48,
+)
 
 
 def emit(obj) -> None:
@@ -376,7 +414,7 @@ def _record(name: str, source: str, replaces: str, main: dict) -> dict:
     """The kernels-line entry of one kernel, from its main-path case."""
     return {
         "name": name, "route": "cuda", "source": source, "replaces": replaces,
-        "launches": None,
+        "launches": None, "launches_by_phase": {},
         "max_abs_err": main["max_abs_err"], "ms": main["kernel_ms"], "plain_ms": main["plain_ms"],
         "bound_ms": main["bound_ms"], "bound_by": main["bound_by"], "bound_route": main["bound_route"],
         "library_ms": main["library_ms"],
@@ -494,14 +532,20 @@ def _profiler():
     return torch.profiler.profile(activities=acts)
 
 
-def _profile_line(prof, wall_s: float, phase: str = "main") -> dict:
+def _profile_line(prof, wall_s: float, phase: str = "main", ranges=()) -> dict:
     """Device busy time (the sum of every kernel's and copy's device
     time, from the profiler's CUDA trace) against the phase's wall time,
-    and the ten largest device-time entries."""
+    the ten largest device-time entries, and the device time of the
+    kernels launched inside each named `record_function` range."""
     import torch
 
-    rows = []
+    rows, in_range = [], {}
     for e in prof.key_averages():
+        if e.key in ranges:  # an annotation: its kernels are counted in their own rows
+            if e.device_type != torch.autograd.DeviceType.CUDA:
+                dev_us = getattr(e, "device_time_total", None)
+                in_range[e.key] = (e.cuda_time_total if dev_us is None else dev_us) / 1e6
+            continue
         if e.device_type != torch.autograd.DeviceType.CUDA:
             continue  # host-side op rows would count their kernels twice
         dev_us = getattr(e, "self_device_time_total", None)
@@ -511,11 +555,39 @@ def _profile_line(prof, wall_s: float, phase: str = "main") -> dict:
             rows.append((e.key, dev_us / 1e3, e.count))
     rows.sort(key=lambda r: -r[1])
     busy_s = sum(r[1] for r in rows) / 1e3
-    return {
+    line = {
         "phase": "profile", "of": phase, "wall_s": wall_s, "device_busy_s": busy_s,
         "device_idle_share": 1.0 - busy_s / wall_s,
         "top_device": [{"name": k[:80], "ms": ms, "count": n} for k, ms, n in rows[:10]],
     }
+    if ranges:
+        line["range_device_s"] = in_range
+    return line
+
+
+MOE_RANGE = "moe_mlp (every expert on every token)"
+
+
+@contextlib.contextmanager
+def _moe_range():
+    """Wrap the port's dense MoE MLP (as the unrolled and the padded
+    forward call it) in a profiler range named MOE_RANGE."""
+    import torch
+
+    from modegpt_tpu_torch.models import forward as forward_mod
+    from modegpt_tpu_torch.models import padded as padded_mod
+
+    original = forward_mod._moe_mlp
+
+    def annotated(*args, **kwargs):
+        with torch.profiler.record_function(MOE_RANGE):
+            return original(*args, **kwargs)
+
+    forward_mod._moe_mlp = padded_mod._moe_mlp = annotated
+    try:
+        yield
+    finally:
+        forward_mod._moe_mlp = padded_mod._moe_mlp = original
 
 
 def phase_main(records: dict, profile: bool = False) -> dict:
@@ -584,7 +656,7 @@ def phase_main(records: dict, profile: bool = False) -> dict:
         padded_ok = bool(torch.allclose(lpad, lk, rtol=1e-3, atol=1e-3))
         del lk, lp, lpad
 
-    records["flash_attention"]["launches"] = launches
+    records["flash_attention"]["launches_by_phase"]["main"] = launches
     line = {
         "phase": "main", "model": "Meta-Llama-3-8B widths", "n_layers": N_LAYERS,
         "compressed_eval_path": resolve_exec_mode(cspec, config.compressed_exec),
@@ -653,27 +725,14 @@ def _serve_round(batcher, prompts, generator, on_step=None):
     return done, rids, time.perf_counter() - t0 - aside
 
 
-def phase_serve(records: dict, main_out: dict, profile: bool = False) -> dict:
-    """Serve the compressed model the main phase reloaded, padded, through
-    the continuous batcher with decode_attn="auto" (K3 on the card).
-    With `profile`, the 16-request round runs under torch.profiler."""
-    import numpy as np
+@contextlib.contextmanager
+def _counted_dispatches():
+    """Count and time the dispatches around the port's two step functions
+    (prefill chunk, decode step); yields ({kind: count}, {kind: seconds})."""
     import torch
 
-    from modegpt_tpu_torch.calib.data import load_eval_tokens
-    from modegpt_tpu_torch.kernels import ragged_decode as rd_mod
     from modegpt_tpu_torch.models import serving
-    from modegpt_tpu_torch.models.forward import forward
-    from modegpt_tpu_torch.models.padded import _model_step_padded
 
-    cspec, cparams, pm = main_out["spec"], main_out["params"], main_out["pm"]
-    n, n_int8, new = SERVE["requests"], SERVE["int8_requests"], SERVE["max_new_tokens"]
-    rng = np.random.default_rng(SERVE["seed"])
-    lens = rng.integers(SERVE["min_prompt"], SERVE["max_prompt"] + 1, size=n + n_int8)
-    windows = load_eval_tokens(None, "synthetic", 2 * SERVE["max_prompt"], 16, vocab_size=cspec.vocab_size)
-    prompts = [windows[i % 16, (i // 16) * SERVE["max_prompt"]:][: lens[i]] for i in range(n + n_int8)]
-
-    # count and time the dispatches around the port's two step functions
     counts, seconds = {"prefill": 0, "decode": 0}, {"prefill": 0.0, "decode": 0.0}
     originals = {"prefill": serving._prefill_chunk, "decode": serving._one_decode_step}
 
@@ -688,39 +747,104 @@ def phase_serve(records: dict, main_out: dict, profile: bool = False) -> dict:
             return out
         return run
 
+    serving._prefill_chunk, serving._one_decode_step = counted("prefill"), counted("decode")
+    try:
+        yield counts, seconds
+    finally:
+        serving._prefill_chunk, serving._one_decode_step = originals["prefill"], originals["decode"]
+
+
+def _decode_logits(pm, state, decode_attn: str, moe: str = "dense", moe_capacity: float = 2.0, active=None):
+    """One decode step's logits from a clone of `state` (the batcher's
+    own state is untouched). K3 launches made here are comparisons and
+    are taken back off its counter."""
+    import torch
+
+    from modegpt_tpu_torch.kernels import ragged_decode as rd_mod
+    from modegpt_tpu_torch.models.padded import _model_step_padded
+
+    saved = rd_mod.ragged_gqa_attend.launches
+    st = _clone_state(state)
+    valid = None if active is None else torch.tensor(active, device="cuda")[:, None]
+    logits, _ = _model_step_padded(
+        pm.spec, pm.layers, pm.other, pm.q_hd_true, st.last_token[:, None], st.cache_k, st.cache_v,
+        st.lengths, cache_scales=st.scales, decode_attn=decode_attn, moe=moe, moe_capacity=moe_capacity,
+        token_valid=valid,
+    )
+    rd_mod.ragged_gqa_attend.launches = saved
+    return logits
+
+
+def _decoding(batcher) -> list:
+    """Which slots of `batcher` are decode-active (prefilled, unfinished)."""
+    return [r is not None and not c for r, c in zip(batcher.slot_req, batcher.slot_chunks)]
+
+
+def _teacher_forcing(cspec, cparams, done: dict, rids, prompts, new: int):
+    """Every served token against the unrolled forward (K1) over prompt +
+    output: (exact argmax count, the largest gap of a served token's logit
+    below its row's max)."""
+    import torch
+
+    from modegpt_tpu_torch.models.forward import forward
+
+    exact, max_gap = 0, 0.0
+    for rid, prompt in zip(rids, prompts):
+        seq, P = done[rid], len(prompt)
+        with torch.no_grad():
+            logits, _ = forward(cspec, cparams, torch.tensor([seq], device="cuda"))
+        rows = logits[0, P - 1 : P - 1 + new]
+        served = torch.tensor(seq[P:], device="cuda")
+        gap = rows.max(dim=-1).values - rows.gather(1, served[:, None])[:, 0]
+        exact += int((rows.argmax(dim=-1) == served).sum())
+        max_gap = max(max_gap, float(gap.max()))
+        del logits
+    return exact, max_gap
+
+
+def _serve_prompts(vocab_size: int, count: int):
+    """`count` prompts of token ids from the synthetic eval set, lengths
+    uniform over [min_prompt, max_prompt] from the serve phase's seed."""
+    import numpy as np
+
+    from modegpt_tpu_torch.calib.data import load_eval_tokens
+
+    rng = np.random.default_rng(SERVE["seed"])
+    lens = rng.integers(SERVE["min_prompt"], SERVE["max_prompt"] + 1, size=count)
+    windows = load_eval_tokens(None, "synthetic", 2 * SERVE["max_prompt"], 16, vocab_size=vocab_size)
+    return [windows[i % 16, (i // 16) * SERVE["max_prompt"]:][: lens[i]] for i in range(count)], lens
+
+
+def phase_serve(records: dict, main_out: dict, profile: bool = False) -> dict:
+    """Serve the compressed model the main phase reloaded, padded, through
+    the continuous batcher with decode_attn="auto" (K3 on the card).
+    With `profile`, the 16-request round runs under torch.profiler."""
+    import torch
+
+    from modegpt_tpu_torch.kernels import ragged_decode as rd_mod
+    from modegpt_tpu_torch.models import serving
+
+    cspec, cparams, pm = main_out["spec"], main_out["params"], main_out["pm"]
+    n, n_int8, new = SERVE["requests"], SERVE["int8_requests"], SERVE["max_new_tokens"]
+    prompts, lens = _serve_prompts(cspec.vocab_size, n + n_int8)
     kw = dict(slots=SERVE["slots"], max_len=SERVE["max_len"], prefill_bucket=SERVE["prefill_bucket"],
               temperature=0.0)
     checks = {}
 
     def check_decode_backends(name, batcher):
         """Once some slot of `batcher` decodes: one decode step's logits
-        through K3 and through its plain version, on clones of the state
-        (for int8 KV, over the same codes and scales). Launches made here
-        are comparisons and do not count."""
+        through K3 and through its plain version (for int8 KV, over the
+        same codes and scales)."""
         def on_step(step):
-            if name in checks or not any(
-                r is not None and not c for r, c in zip(batcher.slot_req, batcher.slot_chunks)
-            ):
+            if name in checks or not any(_decoding(batcher)):
                 return
-            saved = rd_mod.ragged_gqa_attend.launches
-            logits = {}
-            for attn in ("ragged", "xla"):
-                st = _clone_state(batcher.state)
-                logits[attn], _ = _model_step_padded(
-                    pm.spec, pm.layers, pm.other, pm.q_hd_true, st.last_token[:, None],
-                    st.cache_k, st.cache_v, st.lengths, cache_scales=st.scales, decode_attn=attn,
-                )
-                del st
-            rd_mod.ragged_gqa_attend.launches = saved
-            checks[name] = dict(
-                step=step, err=float((logits["ragged"] - logits["xla"]).abs().max()),
-                ok=bool(torch.allclose(logits["ragged"], logits["xla"], rtol=1e-3, atol=1e-3)),
-            )
+            lk, lp = (_decode_logits(pm, batcher.state, attn) for attn in ("ragged", "xla"))
+            checks[name] = dict(step=step, err=float((lk - lp).abs().max()),
+                                ok=bool(torch.allclose(lk, lp, rtol=1e-3, atol=1e-3)))
         return on_step
 
     gen = torch.Generator(device="cuda").manual_seed(0)
-    serving._prefill_chunk, serving._one_decode_step = counted("prefill"), counted("decode")
-    try:
+    with _counted_dispatches() as (counts, seconds):
         torch.cuda.reset_peak_memory_stats()
         rd_mod.ragged_gqa_attend.launches = 0
         b = serving.ContinuousBatcher(pm, decode_attn="auto", **kw)
@@ -731,32 +855,18 @@ def phase_serve(records: dict, main_out: dict, profile: bool = False) -> dict:
         b8 = serving.ContinuousBatcher(pm, decode_attn="auto", kv_dtype="int8", **kw)
         done8, rids8, wall8 = _serve_round(b8, prompts[n:], gen, on_step=check_decode_backends("int8", b8))
         launches = rd_mod.ragged_gqa_attend.launches
-    finally:
-        serving._prefill_chunk, serving._one_decode_step = originals["prefill"], originals["decode"]
     peak = torch.cuda.max_memory_allocated() / 2**30
     if profile:
         emit(_profile_line(prof, wall, "serve"))
     dispatches = counts["prefill"] + counts["decode"]
     expected = cspec.n_layers * dispatches
 
-    # teacher forcing: every request of the model-dtype round, its served
-    # tokens against the unrolled forward (K1) over prompt + output
-    exact, max_gap = 0, 0.0
-    for rid, prompt in zip(rids, prompts[:n]):
-        seq, P = done[rid], len(prompt)
-        with torch.no_grad():
-            logits, _ = forward(cspec, cparams, torch.tensor([seq], device="cuda"))
-        rows = logits[0, P - 1 : P - 1 + new]
-        served = torch.tensor(seq[P:], device="cuda")
-        gap = rows.max(dim=-1).values - rows.gather(1, served[:, None])[:, 0]
-        exact += int((rows.argmax(dim=-1) == served).sum())
-        max_gap = max(max_gap, float(gap.max()))
-        del logits
-
+    # teacher forcing: every request of the model-dtype round
+    exact, max_gap = _teacher_forcing(cspec, cparams, done, rids, prompts[:n], new)
     lengths_ok = all(len(done.get(r, [])) == len(p) + new for r, p in zip(rids, prompts[:n])) and all(
         len(done8.get(r, [])) == len(p) + new for r, p in zip(rids8, prompts[n:])
     )
-    records["ragged_gqa_attend"]["launches"] = launches
+    records["ragged_gqa_attend"]["launches_by_phase"]["serve"] = launches
     line = {
         "phase": "serve", "slots": SERVE["slots"], "max_len": SERVE["max_len"],
         "prefill_bucket": SERVE["prefill_bucket"], "decode_attn": b.decode_attn,
@@ -885,7 +995,7 @@ def phase_long(records: dict, profile: bool = False) -> dict:
     expected_cli = {"flash_attention": 0, "flash_attention_hbm": N_LAYERS * n_eval}
     cli_ppl = cli["ppl-synthetic"]
 
-    records["flash_attention_hbm"]["launches"] = job_launches["flash_attention_hbm"]
+    records["flash_attention_hbm"]["launches_by_phase"]["long"] = job_launches["flash_attention_hbm"]
     line = {
         "phase": "long", "model": "Meta-Llama-3.1-8B widths", "n_layers": N_LAYERS, **LONG,
         "compressed_eval_path": resolve_exec_mode(cspec, config.compressed_exec),
@@ -931,6 +1041,181 @@ def phase_long(records: dict, profile: bool = False) -> dict:
     return line
 
 
+def phase_moe(records: dict, profile: bool = False) -> dict:
+    """A compression job and two serve rounds at Qwen3-30B-A3B widths
+    (2 layers): K1 in every forward of the job, K3 in every dispatch."""
+    import torch
+
+    from modegpt_tpu_torch.calib.data import load_eval_tokens
+    from modegpt_tpu_torch.compress.artifact import load_compressed_model
+    from modegpt_tpu_torch.compress.pipeline import run_compression
+    from modegpt_tpu_torch.config import CompressionConfig
+    from modegpt_tpu_torch.evals.perplexity import resolve_exec_mode
+    from modegpt_tpu_torch.kernels import flash_attention as fa_mod
+    from modegpt_tpu_torch.kernels import ragged_decode as rd_mod
+    from modegpt_tpu_torch.models import serving
+    from modegpt_tpu_torch.models.forward import forward
+    from modegpt_tpu_torch.models.init import init_params
+    from modegpt_tpu_torch.models.padded import forward_padded, pad_to_uniform, padding_overhead
+    from modegpt_tpu_torch.models.spec import spec_from_hf_config
+
+    spec = spec_from_hf_config(SimpleNamespace(**{**QWEN3_30B_A3B, "num_hidden_layers": MOE_LAYERS}))
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = init_params(spec, torch.Generator(device="cuda").manual_seed(0), device="cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+
+    with tempfile.TemporaryDirectory(prefix="modegpt_smoke_moe_") as tmp:
+        config = CompressionConfig(
+            model="random-qwen3-30b-a3b-widths", device="cuda",
+            seq_len=2048, calib_size=8, calibs_batch_size=2, eval_batch_size=2,
+            eval_max_samples=4, compression_ratio=0.3, dataset="synthetic",
+            solver_precision="f32_device",
+            output_dir=os.path.join(tmp, "out"),
+            temp_storage_dir=os.path.join(tmp, "layers"),
+            metrics_dir=os.path.join(tmp, "metrics"),
+        ).validate()
+        prof = _profiler() if profile else contextlib.nullcontext()
+        t_run = time.perf_counter()
+        fa_mod.flash_attention.launches = 0
+        with prof, _moe_range() if profile else contextlib.nullcontext():
+            results = run_compression(config, spec=spec, params=params)
+        k1_launches = fa_mod.flash_attention.launches
+        t_run = time.perf_counter() - t_run
+        job_peak = torch.cuda.max_memory_allocated() / 2**30
+        del params, results["compressed_params"]
+        if profile:
+            emit(_profile_line(prof, t_run, "moe", ranges=(MOE_RANGE,)))
+        n_eval = min(config.eval_max_samples, 16)  # the synthetic eval set
+        k1_expected = MOE_LAYERS * (2 * math.ceil(n_eval / config.eval_batch_size)
+                                    + math.ceil(config.calib_size / config.calibs_batch_size))
+        cspec = results["compressed_spec"]
+        spec2, params2, _ = load_compressed_model(results["artifact_dir"], device="cuda")
+
+    # the reloaded artifact's logits through K1 against the plain
+    # attention, and the padded stack against the unrolled forward
+    ids = torch.as_tensor(load_eval_tokens(None, "synthetic", 512, 1, vocab_size=spec.vocab_size), device="cuda")
+    pm = pad_to_uniform(spec2, params2)
+    with torch.no_grad():
+        lk, _ = forward(spec2, params2, ids, attn_impl="flash")
+        lp, _ = forward(spec2, params2, ids, attn_impl="xla")
+        lpad = forward_padded(pm.spec, pm.layers, pm.other, pm.q_hd_true, ids, attn_impl="flash")
+    logit_err, padded_err = float((lk - lp).abs().max()), float((lpad - lk).abs().max())
+    logit_ok = bool(torch.allclose(lk, lp, rtol=1e-3, atol=1e-3))
+    padded_ok = bool(torch.allclose(lpad, lk, rtol=1e-3, atol=1e-3))
+    del lk, lp, lpad
+    torch.cuda.empty_cache()
+
+    # two serve rounds of the same requests: every expert on every token,
+    # then capacity dispatch at E / k, where no assignment is dropped
+    n, new = SERVE["requests"], SERVE["max_new_tokens"]
+    prompts, lens = _serve_prompts(cspec.vocab_size, n)
+    capacity = spec.n_experts / spec.experts_per_tok
+    kw = dict(slots=SERVE["slots"], max_len=SERVE["max_len"], prefill_bucket=SERVE["prefill_bucket"],
+              temperature=0.0, decode_attn="auto")
+    rounds, checks = {}, {}
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    for moe in ("dense", "dispatch"):
+        b = serving.ContinuousBatcher(pm, moe=moe, moe_capacity=capacity, **kw)
+
+        def on_step(step, b=b, moe=moe):
+            """Once slots decode: K3 against its plain version (dense round),
+            dispatch against dense on the decoding rows (dispatch round)."""
+            active = _decoding(b)
+            if moe in checks or not any(active):
+                return
+            if moe == "dense":
+                a, c = (_decode_logits(pm, b.state, attn) for attn in ("ragged", "xla"))
+            else:
+                a = _decode_logits(pm, b.state, "ragged", "dispatch", capacity, active)[active]
+                c = _decode_logits(pm, b.state, "ragged", "dense", capacity, active)[active]
+            checks[moe] = dict(step=step, err=float((a - c).abs().max()),
+                               ok=bool(torch.allclose(a, c, rtol=1e-3, atol=1e-3)))
+
+        torch.cuda.reset_peak_memory_stats()
+        rd_mod.ragged_gqa_attend.launches = 0
+        with _counted_dispatches() as (counts, seconds):
+            done, rids, wall = _serve_round(b, prompts, gen, on_step=on_step)
+        launches = rd_mod.ragged_gqa_attend.launches
+        rounds[moe] = dict(
+            done=done, rids=rids, wall_seconds=wall, generated_tokens_per_s=n * new / wall,
+            dispatches=dict(counts),
+            mean_prefill_dispatch_ms=1e3 * seconds["prefill"] / max(counts["prefill"], 1),
+            mean_decode_dispatch_ms=1e3 * seconds["decode"] / max(counts["decode"], 1),
+            k3_launches=launches, k3_expected=cspec.n_layers * (counts["prefill"] + counts["decode"]),
+            peak_memory_gib=torch.cuda.max_memory_allocated() / 2**30,
+        )
+    dense, disp = rounds["dense"], rounds["dispatch"]
+    exact, max_gap = _teacher_forcing(spec2, params2, dense["done"], dense["rids"], prompts, new)
+    same = sum(
+        int(a == c)
+        for r_d, r_x in zip(dense["rids"], disp["rids"])
+        for a, c in zip(dense["done"][r_d], disp["done"][r_x])
+    )
+    total = sum(len(dense["done"][r]) for r in dense["rids"])
+    lengths_ok = all(len(rd["done"].get(r, [])) == len(p) + new
+                     for rd in rounds.values() for r, p in zip(rd["rids"], prompts))
+
+    records["flash_attention"]["launches_by_phase"]["moe"] = k1_launches
+    records["ragged_gqa_attend"]["launches_by_phase"]["moe"] = dense["k3_launches"] + disp["k3_launches"]
+    line = {
+        "phase": "moe", "model": "Qwen3-30B-A3B widths", "n_layers": MOE_LAYERS,
+        "compressed_eval_path": resolve_exec_mode(cspec, config.compressed_exec),
+        "padding_overhead": padding_overhead(cspec),
+        "init_seconds": init_s, "step_seconds": results["step_seconds"],
+        "total_seconds": results["total_seconds"], "job_peak_memory_gib": job_peak,
+        "baseline_ppl": results["baseline_ppl"], "compressed_ppl": results["compressed_ppl"],
+        "params_before": results["params_before"], "params_after": results["params_after"],
+        "ranks": {
+            "q": list(cspec.q_ranks), "k": list(cspec.k_ranks), "v": list(cspec.v_ranks),
+            "o": list(cspec.o_ranks), "gate (every expert of a layer)": list(cspec.gate_ranks),
+        },
+        "launches": {"flash_attention": k1_launches}, "expected_launches": {"flash_attention": k1_expected},
+        "compressed_logits_max_abs_err": logit_err,
+        "padded_vs_unrolled_logits_max_abs_err": padded_err,
+        "serve": {
+            "requests": n, "max_new_tokens": new, "prompt_lengths": lens.tolist(),
+            "moe_capacity": capacity,
+            **{moe: {k: v for k, v in rd.items() if k not in ("done", "rids")} for moe, rd in rounds.items()},
+            "decode_checks": checks,
+            "teacher_forcing": {"exact_argmax": exact, "of": n * new, "max_gap_to_row_max": max_gap},
+            "dispatch_tokens_equal_dense": {"equal": same, "of": total},
+        },
+    }
+    emit(line)
+    problems = []
+    if k1_launches != k1_expected:
+        problems.append(f"flash_attention launched {k1_launches} times in the job, expected {k1_expected}")
+    for moe, rd in rounds.items():
+        if rd["k3_launches"] != rd["k3_expected"]:
+            problems.append(f"ragged_gqa_attend launched {rd['k3_launches']} times in the {moe} round, "
+                            f"expected {rd['k3_expected']}")
+    for key in ("baseline_ppl", "compressed_ppl"):
+        if not math.isfinite(results[key]):
+            problems.append(f"{key} is not finite")
+    if not (0 < sum(cspec.gate_ranks) < sum(spec.gate_ranks) and 0 < sum(cspec.q_ranks) < sum(spec.q_ranks)):
+        problems.append("rank lists did not shrink")
+    if spec2 != cspec:
+        problems.append("reloaded artifact's spec differs from the compressed spec")
+    if not logit_ok:
+        problems.append(f"compressed logits: kernel vs plain attention differ by {logit_err}")
+    if not padded_ok:
+        problems.append(f"compressed logits: forward_padded vs unrolled forward differ by {padded_err}")
+    if not lengths_ok:
+        problems.append(f"a request did not return prompt + {new} tokens")
+    for moe in rounds:
+        if not checks.get(moe, {}).get("ok"):
+            problems.append(f"decode logits check of the {moe} round: {checks.get(moe)}")
+    if max_gap > 1e-3:
+        problems.append(f"a served token is {max_gap} below its row's max logit ({exact} of {n * new} exact)")
+    if same != total:
+        problems.append(f"dispatch served {total - same} tokens other than dense's")
+    if problems:
+        raise AssertionError("; ".join(problems))
+    return line
+
+
 def card_line() -> str:
     try:
         out = subprocess.run(
@@ -944,10 +1229,10 @@ def card_line() -> str:
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--phases", default="build,kernel,main,serve,long")
+    ap.add_argument("--phases", default="build,kernel,main,serve,moe,long")
     ap.add_argument("--profile", action="store_true",
-                    help="trace the main job, the serve round and the long job with "
-                    "torch.profiler; print their device busy time")
+                    help="trace the main job, the serve round, the moe job and the long "
+                    "job with torch.profiler; print their device busy time")
     args = ap.parse_args(argv)
     phases = args.phases.split(",")
 
@@ -970,15 +1255,20 @@ def main(argv=None) -> int:
         emit(phase_build())
     if "kernel" in phases:
         phase_kernel(records)
-    if {"main", "serve", "long"} & set(phases) and "kernel" not in phases:
-        raise SystemExit("chip_smoke: the main, serve and long phases need the kernel phase's records")
+    if {"main", "serve", "moe", "long"} & set(phases) and "kernel" not in phases:
+        raise SystemExit("chip_smoke: the main, serve, moe and long phases need the kernel phase's records")
     if "main" in phases or "serve" in phases:
         main_out = phase_main(records, args.profile)
         if "serve" in phases:
             phase_serve(records, main_out, args.profile)
         del main_out
+    if "moe" in phases:
+        torch.cuda.empty_cache()
+        phase_moe(records, args.profile)
     if "long" in phases:
         phase_long(records, args.profile)
+    for rec in records.values():  # each path's launches, read just after it ran
+        rec["launches"] = sum(rec["launches_by_phase"].values())
     emit({"kernels": list(records.values())})
     print(card_line(), flush=True)
     emit({

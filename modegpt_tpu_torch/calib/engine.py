@@ -11,11 +11,17 @@ calibration batches and accumulates:
 * ``accumulate="device"`` (speed): float32 running sums stay on the
   device and are normalised there, with no per-batch host transfer.
 
+Taps are taken and summed per layer (`models.forward.forward_taps`), so
+a mixed dense/MoE stack, whose layers' ``cov_mlp`` differ in shape
+(``[D', D']`` dense, ``[E, D, D]`` MoE), calibrates in one pass over the
+batches where the JAX pipeline runs one pass per kind (the same sums).
+
 The windowed and streamed calibrations of the JAX package are not ported.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import logging
 from dataclasses import dataclass
 from typing import Dict, List, Sequence
@@ -23,7 +29,7 @@ from typing import Dict, List, Sequence
 import numpy as np
 import torch
 
-from modegpt_tpu_torch.models.forward import forward
+from modegpt_tpu_torch.models.forward import forward_taps
 from modegpt_tpu_torch.models.spec import ModelSpec
 
 logger = logging.getLogger("modegpt_tpu_torch")
@@ -46,9 +52,11 @@ class CalibrationResult:
     bi_scores: List[float]
     n_sequences: int
     total_tokens: int
+    # shared-expert Grams of the target layers that have one (qwen2_moe)
+    cov_shared: Dict[int, torch.Tensor] = dataclasses.field(default_factory=dict)
 
 
-_FIELDS = ("cov_mlp", "cov_q", "cov_k", "cov_x")
+_FIELDS = ("cov_mlp", "cov_q", "cov_k", "cov_x", "cov_shared")
 
 
 def calibrate(
@@ -76,42 +84,43 @@ def calibrate(
     acc_device = torch.device("cpu") if accumulate == "host" else device
     acc_dtype = torch.float64 if accumulate == "host" else torch.float32
 
-    acc: Dict[str, torch.Tensor] = {}
+    acc: Dict[str, Dict[int, torch.Tensor]] = {key: {} for key in _FIELDS}
     bi = torch.zeros(spec.n_layers, dtype=acc_dtype, device=acc_device)
     n_sequences = 0
     seq_len = int(batches[0].shape[1])
     for batch in batches:
         n_sequences += int(batch.shape[0])
         ids = torch.as_tensor(np.asarray(batch), device=device)
-        _, stats = forward(
+        _, taps, bi_acc = forward_taps(
             spec, params, ids, stats_layers=stats_layers,
             gram_precision=gram_precision, want_logits=False,
         )
-        for key in _FIELDS:
-            s = getattr(stats, key).to(device=acc_device, dtype=acc_dtype)
-            if key in acc:
-                acc[key] += s
-            else:
-                acc[key] = s
-        bi += stats.bi_acc.to(device=acc_device, dtype=acc_dtype)
+        for l, layer_taps in taps.items():
+            for key, gram in layer_taps.items():
+                g = gram.to(device=acc_device, dtype=acc_dtype)
+                if l in acc[key]:
+                    acc[key][l] += g
+                else:
+                    acc[key][l] = g
+        del taps
+        bi += bi_acc.to(device=acc_device, dtype=acc_dtype)
 
     total_tokens = n_sequences * seq_len
     # Normalisation (reference: calibration.py:135-146): BI by sequence
     # count, covariances by token count (the actual seq_len, where the
     # reference hardcodes 2048).
     bi = bi.to(device="cpu", dtype=torch.float64) / n_sequences
-    if accumulate == "host":
-        for key in _FIELDS:
-            acc[key] /= total_tokens
-    else:
-        inv = torch.tensor(1.0 / total_tokens, dtype=torch.float32, device=device)
-        for key in _FIELDS:
-            acc[key] *= inv
+    for per_layer in acc.values():
+        for g in per_layer.values():
+            if accumulate == "host":
+                g /= total_tokens
+            else:
+                g *= 1.0 / total_tokens  # a float32 scale, on the device
     logger.info(
         "calibration: %d sequences x %d tokens, %d target layers (%s accumulation)",
         n_sequences, seq_len, len(stats_layers), accumulate,
     )
-    per_layer = {key: {l: acc[key][i] for i, l in enumerate(stats_layers)} for key in _FIELDS}
+    per_layer = {key: {l: acc[key][l] for l in stats_layers if l in acc[key]} for key in _FIELDS}
     return CalibrationResult(
         **per_layer,
         bi_scores=bi.tolist(),

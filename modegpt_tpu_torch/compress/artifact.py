@@ -2,7 +2,9 @@
 
 Port of ``modegpt_tpu.compress.artifact``, npz backend, float32 and
 bfloat16 storage. The on-disk format is the JAX package's, so an
-artifact written by either package loads in the other:
+artifact written by either package loads in the other, MoE ones
+included (``layers/3/experts/up/kernel`` [E, d, r], ``layers/3/router``,
+``layers/3/shared/...``, ``layers/3/shared_gate``):
 
 * the factor store: one ``layer_{i}_{suffix}.npz`` per layer and solver
   (the reference's temp store names, model_adapter.py:184-191);
@@ -213,8 +215,20 @@ def _validate_shapes(spec: ModelSpec, params: Dict) -> None:
         check(f"layers/{l}/k", lp["k"]["kernel"].shape, (spec.d_model, spec.k_ranks[l]))
         check(f"layers/{l}/v", lp["v"]["kernel"].shape, (spec.d_model, spec.v_ranks[l]))
         check(f"layers/{l}/o", lp["o"]["kernel"].shape, (spec.o_ranks[l], spec.d_model))
-        check(f"layers/{l}/up", lp["up"]["kernel"].shape, (spec.d_model, spec.gate_ranks[l]))
-        check(f"layers/{l}/down", lp["down"]["kernel"].shape, (spec.gate_ranks[l], spec.d_model))
+        if spec.is_moe_layer(l):
+            E, r, d = spec.n_experts, spec.gate_ranks[l], spec.d_model
+            check(f"layers/{l}/router", lp["router"]["kernel"].shape, (d, E))
+            for name, want in (("gate", (E, d, r)), ("up", (E, d, r)), ("down", (E, r, d))):
+                check(f"layers/{l}/experts/{name}", lp["experts"][name]["kernel"].shape, want)
+            if spec.shared_d_int:
+                rs = spec.shared_rank(l)
+                for name, want in (("gate", (d, rs)), ("up", (d, rs)), ("down", (rs, d))):
+                    check(f"layers/{l}/shared/{name}", lp["shared"][name]["kernel"].shape, want)
+                if spec.shared_expert_gate:
+                    check(f"layers/{l}/shared_gate", lp["shared_gate"]["kernel"].shape, (d, 1))
+        else:
+            check(f"layers/{l}/up", lp["up"]["kernel"].shape, (spec.d_model, spec.gate_ranks[l]))
+            check(f"layers/{l}/down", lp["down"]["kernel"].shape, (spec.gate_ranks[l], spec.d_model))
         if "rotary_mask" in lp:
             check(
                 f"layers/{l}/rotary_mask",

@@ -6,10 +6,19 @@ layer-batched, padded device programs and states that this is
 bit-identical to the per-layer path (batched.py:20); here the body is
 that per-layer path, a loop over the ported ops:
 
-* Type-I:   `ops.mlp.nystrom_mlp`;
+* Type-I:   `ops.mlp.nystrom_mlp`; on a MoE layer once per expert,
+  against the Gram of the tokens routed to it, all experts at the
+  layer's one rank (the JAX `_solve_mlp_moe`, the semantics of
+  `pipeline.solve_layer`), and once more for a shared expert at its
+  own rank;
 * Type-II:  `ops.qk.compress_qk_layer_rope` / `compress_qk_layer_opt` on
-  the covariance diagonals, as ``_solve_qk_host`` does;
+  the covariance diagonals, as ``_solve_qk_host`` does, with a RoPE
+  arch's q/k biases (qwen2_moe) sliced through the rotary mask;
 * Type-III: `ops.vo.vo_full_factors`, sliced to rank.
+
+A MoE layer's experts are solved one after another: the ridge of each
+Cholesky escalates on its own matrix (`ops.psd`), which a batch over
+the experts would have to carry per matrix.
 
 Precision follows ``config.solver_precision``: ``f64_cpu`` solves in
 float64 on the CPU (VO whitening by eigh, the reference's); ``f32_device``
@@ -78,16 +87,36 @@ def solve_chunk_batched(
     def stat(covs, l):
         return covs[l].to(device=dev, dtype=dt)
 
+    def type_one(C, mp, keep, rank, gated=True):
+        """One Type-I solve of the MLP ``mp`` (forward-layout kernels)."""
+        return nystrom_mlp(
+            C.to(device=dev, dtype=dt), hf(mp, "up"), hf(mp, "gate") if gated else None, hf(mp, "down"),
+            keep, config.nystrom_ridge, rank=rank,
+        )
+
     out: Dict[str, Dict[int, Dict[str, np.ndarray]]] = {s: {} for s in ("mlp", "qk", "vo") if s in order}
     for l in layers:
         lp = params["layers"][l]
-        if "mlp" in order:
-            rank = compress_ranks_for_layer(spec, keep_ratios[l], "mlp")
-            f = nystrom_mlp(
-                stat(calib.cov_mlp, l), hf(lp, "up"),
-                hf(lp, "gate") if spec.gated_mlp else None, hf(lp, "down"),
-                keep_ratios[l], config.nystrom_ridge, rank=rank,
-            )
+        if "mlp" in order and spec.is_moe_layer(l):
+            rank = compress_ranks_for_layer(spec, keep_ratios[l], "mlp", layer=l)
+            ek, cov = lp["experts"], calib.cov_mlp[l]
+            experts = [
+                type_one(cov[e], {name: {"kernel": ek[name]["kernel"][e]} for name in ek}, keep_ratios[l], rank)
+                for e in range(spec.n_experts)
+            ]
+            fd = {name: to_numpy(torch.stack([getattr(f, name) for f in experts]))
+                  for name in ("up", "gate", "down", "idx")}
+            del experts
+            if spec.has_shared_expert(l):
+                s_rank = compress_ranks_for_layer(spec, keep_ratios[l], "shared")
+                f = type_one(calib.cov_shared[l], lp["shared"], keep_ratios[l], s_rank)
+                fd.update({"shared_" + name: to_numpy(getattr(f, name)) for name in ("up", "gate", "down", "idx")})
+                logger.info("[MLP-shared] layer %d: shared expert compressed to rank %d", l, s_rank)
+            out["mlp"][l] = fd
+            logger.info("[MLP-MoE] layer %d: %d experts compressed to rank %d", l, spec.n_experts, rank)
+        elif "mlp" in order:
+            rank = compress_ranks_for_layer(spec, keep_ratios[l], "mlp", layer=l)
+            f = type_one(calib.cov_mlp[l], lp, keep_ratios[l], rank, spec.gated_mlp)
             fd = {"up": to_numpy(f.up), "down": to_numpy(f.down), "idx": to_numpy(f.idx)}
             if spec.gated_mlp:
                 fd["gate"] = to_numpy(f.gate)
@@ -108,6 +137,15 @@ def solve_chunk_batched(
             if spec.uses_rope:
                 f = compress_qk_layer_rope(cov_q, cov_k, hf(lp, "q"), hf(lp, "k"), rank, config.ridge_qk)
                 fd = {"q": to_numpy(f.q), "k": to_numpy(f.k), "rotary_mask": to_numpy(f.rotary_mask)}
+                if "bias" in lp["q"]:
+                    # qkv biases on a RoPE arch (qwen2_moe): the kept
+                    # coordinates of each head, through the same mask
+                    masks = fd["rotary_mask"]
+                    bq = to_numpy(lp["q"]["bias"]).reshape(H, -1)
+                    bk = to_numpy(lp["k"]["bias"]).reshape(Hk, -1)
+                    mq = np.repeat(masks, spec.group_size, axis=0)
+                    fd["q_bias"] = np.concatenate([bq[h][mq[h]] for h in range(H)])
+                    fd["k_bias"] = np.concatenate([bk[h][masks[h]] for h in range(Hk)])
             else:
                 f = compress_qk_layer_opt(
                     cov_q, cov_k, hf(lp, "q"), hf(lp, "k"),

@@ -9,11 +9,15 @@ The per-layer factor store doubles as a resume checkpoint: layers whose
 factor files exist are skipped on a re-run, guarded by a fingerprint of
 the run (`_check_factor_store`).
 
+Dense llama, qwen3 and opt and the mixture-of-experts mixtral, qwen3_moe
+and qwen2_moe run; a mixed dense/MoE stack calibrates every layer in one
+pass (`calib.engine`). The compressed evaluation runs unrolled or padded
+(`evals.perplexity.resolve_exec_mode`).
+
 Paths of the JAX pipeline that this port does not have raise
 NotImplementedError up front: fused compression, windowed and streamed
-calibration, meshes (data/model parallel, pipeline and ring), padded
-compressed execution, qk_method=svd, quantised or orbax artifacts and
-profiler traces.
+calibration, meshes (data/model parallel, pipeline and ring),
+qk_method=svd, quantised or orbax artifacts and profiler traces.
 """
 
 from __future__ import annotations
@@ -274,6 +278,7 @@ def run_compression(
         "v_ranks": list(comp_spec.v_ranks),
         "o_ranks": list(comp_spec.o_ranks),
         "gate_ranks": list(comp_spec.gate_ranks),
+        **({"shared_gate_ranks": list(comp_spec.shared_gate_ranks)} if comp_spec.shared_gate_ranks else {}),
     }
     results["params_before"] = n_before
     results["params_after"] = n_after

@@ -2,8 +2,9 @@
 
 Port of ``modegpt_tpu.compress.surgery``: dense (spec, params) + solver
 factors -> compressed (spec, params). The compressed spec carries the
-per-layer rank lists; the compressed params carry the new kernels and
-the per-layer rotary masks. Solvers emit HF ``[out, in]`` weights;
+per-layer rank lists (and the shared experts' ranks); the compressed
+params carry the new kernels, the stacked per-expert kernels of MoE
+layers and the per-layer rotary masks. Solvers emit HF ``[out, in]`` weights;
 forward kernels are ``[in, out]`` — the transposition happens here.
 """
 
@@ -20,15 +21,27 @@ from modegpt_tpu_torch.models.spec import ModelSpec
 __all__ = ["compress_ranks_for_layer", "apply_factors"]
 
 
-def compress_ranks_for_layer(spec: ModelSpec, keep_ratio: float, kind: str) -> int:
+def compress_ranks_for_layer(spec: ModelSpec, keep_ratio: float, kind: str, layer: Optional[int] = None) -> int:
     """Per-layer rank from a keep ratio, with the reference's rounding:
 
-    kind='mlp':  rank = int(d_int * keep)            (compress_mlp.py:37)
-    kind='qk':   per head, even for RoPE archs       (compress_qk.py:177-182)
-    kind='vo':   per head, even for RoPE archs       (compress_vo.py:36-41)
+    kind='mlp':    rank = int(D * keep)               (compress_mlp.py:37)
+    kind='shared': the same rule on the shared expert's intermediate
+    kind='qk':     per head, even for RoPE archs      (compress_qk.py:177-182)
+    kind='vo':     per head, even for RoPE archs      (compress_vo.py:36-41)
+
+    D is ``spec.d_int`` (an expert's width on a MoE spec), except for a
+    dense ``layer`` of a mixed dense/MoE stack, whose own intermediate
+    (``spec.gate_ranks[layer]`` of the uncompressed spec) is wider. The
+    JAX package takes ``spec.d_int`` there too, cutting those layers to a
+    fraction of their intended rank; the port does not copy that.
     """
     if kind == "mlp":
-        return max(1, int(spec.d_int * keep_ratio))
+        width = spec.d_int
+        if layer is not None and spec.n_experts and not spec.is_moe_layer(layer):
+            width = spec.gate_ranks[layer]
+        return max(1, int(width * keep_ratio))
+    if kind == "shared":
+        return max(1, int(spec.shared_d_int * keep_ratio))
     if kind not in ("qk", "vo"):
         raise NotImplementedError(f"modegpt_tpu_torch.compress.surgery: rank kind {kind!r}")
     rank = int(spec.head_dim * keep_ratio)
@@ -55,7 +68,10 @@ def apply_factors(
     """Build the compressed (spec, params) from per-layer solver factors.
 
     Each factors dict maps layer_idx -> dict of HF-layout arrays:
-      mlp: {"up", "gate"?, "down", "up_bias"?, "down_bias"?}
+      mlp: {"up", "gate"?, "down", "up_bias"?, "down_bias"?}; on a MoE
+           layer stacked per expert ({"up", "gate"} [E, r, d], "down"
+           [E, d, r]) plus the shared expert's "shared_up",
+           "shared_gate", "shared_down" where it has one
       qk:  {"q", "k", "rotary_mask"?, "q_bias"?, "k_bias"?}
       vo:  {"v", "o", "o_bias"?}
     Layers absent from a dict keep their dense weights. New kernels land
@@ -73,6 +89,8 @@ def apply_factors(
     v_ranks = list(spec.v_ranks)
     o_ranks = list(spec.o_ranks)
     gate_ranks = list(spec.gate_ranks)
+    shared_ranks = [spec.shared_rank(l) for l in range(spec.n_layers)]
+    shared_changed = bool(spec.shared_gate_ranks)
     dtype = params["embed_tokens"].dtype
     dev = params["embed_tokens"].device
 
@@ -80,12 +98,25 @@ def apply_factors(
     any_mask = False
     for l in range(spec.n_layers):
         lp = dict(params["layers"][l])  # shallow copy; replaced leaves are new
-        if l in mlp_factors:
+        if l in mlp_factors and spec.is_moe_layer(l):
             f = mlp_factors[l]
-            if np.ndim(f["up"]) != 2:
-                raise NotImplementedError(
-                    f"modegpt_tpu_torch.compress.surgery: layer {l} has MoE factors"
+            if np.ndim(f["up"]) != 3:
+                raise ValueError(
+                    f"layer {l}: MoE spec but 2D MLP factors (the factor store "
+                    "was solved for a different, dense model)"
                 )
+            # stacked HF factors [E, r, d] / [E, d, r] -> [E, d, r] / [E, r, d]
+            # kernels; the router stays
+            lp["experts"] = {name: {"kernel": _as_kernel(f[name], dtype, dev)} for name in ("gate", "up", "down")}
+            gate_ranks[l] = int(f["up"].shape[1])
+            if f.get("shared_up") is not None:
+                lp["shared"] = {
+                    name: {"kernel": _as_kernel(f["shared_" + name], dtype, dev)} for name in ("gate", "up", "down")
+                }
+                shared_ranks[l] = int(f["shared_up"].shape[0])
+                shared_changed = True
+        elif l in mlp_factors:
+            f = mlp_factors[l]
             lp["up"] = {"kernel": _as_kernel(f["up"], dtype, dev)}
             if spec.gated_mlp:
                 lp["gate"] = {"kernel": _as_kernel(f["gate"], dtype, dev)}
@@ -121,8 +152,9 @@ def apply_factors(
         if release_dense:
             src = params["layers"][l]
             if l in mlp_factors:
-                for key in ("up", "gate", "down"):
-                    src.pop(key, None)
+                for key in ("experts", "shared") if spec.is_moe_layer(l) else ("up", "gate", "down"):
+                    if key in lp and lp[key] is not src.get(key):
+                        src.pop(key, None)
             if l in qk_factors:
                 src.pop("q", None)
                 src.pop("k", None)
@@ -140,5 +172,6 @@ def apply_factors(
         o_ranks=o_ranks,
         gate_ranks=gate_ranks,
         has_rotary_masks=any_mask or spec.has_rotary_masks,
+        shared_gate_ranks=shared_ranks if shared_changed else None,
     )
     return new_spec, new_params

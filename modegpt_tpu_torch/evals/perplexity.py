@@ -45,13 +45,17 @@ def _nll_from_logits(logits: torch.Tensor, batch: torch.Tensor) -> torch.Tensor:
 
 def resolve_exec_mode(spec: ModelSpec, exec_mode: str) -> str:
     """"padded" or "unrolled" for ``exec_mode`` auto|padded|unrolled: auto
-    pads a non-uniform spec whose padding overhead is below 1.5x
-    (reference rule: modegpt_tpu/evals/perplexity.py:89-96; mixed
-    dense/MoE stacks never reach here, MoE is not ported)."""
+    pads a non-uniform spec whose padding overhead is below 1.5x, except
+    a mixed dense/MoE stack, which stays unrolled (padded, every layer
+    would carry zero kernels of the other kind; reference rule:
+    modegpt_tpu/evals/perplexity.py:84-96). An all-MoE stack pads like a
+    dense one."""
     if exec_mode not in ("auto", "unrolled", "padded"):
         raise ValueError(f"exec_mode must be auto, unrolled or padded, got {exec_mode!r}")
     if exec_mode == "auto":
-        return "padded" if not spec.is_uniform and padding_overhead(spec) < 1.5 else "unrolled"
+        mixed_moe = bool(spec.n_experts and spec.moe_layers)
+        use_padded = not spec.is_uniform and not mixed_moe and padding_overhead(spec) < 1.5
+        return "padded" if use_padded else "unrolled"
     return exec_mode
 
 

@@ -1,6 +1,6 @@
 """Time variants of an attention source against each other on the card.
 
-    python -m modegpt_tpu_torch.kernels.compare a.cu b.cu [...]
+    python -m modegpt_tpu_torch.kernels.compare a.cu b.cu@-fmad=false [...] [--sass DIR]
 
 Each file is a variant of one of the package's CUDA sources, told apart
 by the C entry it exports:
@@ -9,11 +9,16 @@ by the C entry it exports:
   T = 16384 cases of ``chip_smoke.py``'s K2 table run on every variant;
 * ``modegpt_ragged_gqa_attend`` (``csrc/ragged_decode.cu``, with its
   ``modegpt_ragged_gqa_workspace``): ``chip_smoke.py``'s K3 decode and
-  chunk cases.
+  chunk cases, and its row sweep: every decode form in use, at G*S of
+  1, 2, 3, 4, 5, 8, 12 and 16 query rows a kv head.
 
 All variants build at once with the package's nvcc flags (into the
 directory of the first file; ``csrc/`` is on the include path, so a copy
-kept elsewhere still finds ``ptx.cuh``). Every case runs on every
+kept elsewhere still finds ``ptx.cuh``). ``file.cu@flag@flag`` adds nvcc
+flags to one variant (``b.cu@-fmad=false``), so one source can be built
+two ways. ``--sass DIR`` writes each library's ``cuobjdump -sass``,
+gzipped, to ``DIR/<variant>.sass.gz``, and the ptxas report of each
+build goes to stderr. Every case runs on every
 variant in turn, on the same seeded inputs, and each line gives the ms
 per launch, the largest difference from the first variant's output and,
 for K3, from the plain version's. K3's launches go into preallocated
@@ -25,6 +30,7 @@ clocks close the output. It needs one NVIDIA card.
 from __future__ import annotations
 
 import ctypes
+import gzip
 import os
 import subprocess
 import sys
@@ -58,23 +64,44 @@ RAGGED_CASES = [
     dict(_DECODE, name="chunk_S128_pos384_int8", B=1, S=128, pos=[384], int8=True),
     dict(_DECODE, name="chunk_S128_pos0", B=1, S=128, pos=[0]),
 ]
+# the decode forms' row sweep: (G, S) with G*S = 1, 2, 3, 4, 5, 8, 12, 16
+# rows a kv head (H = 32 over 32 / G kv heads), queries at pos .. pos+S-1
+ROW_SWEEP = [(1, 1), (2, 1), (1, 3), (4, 1), (1, 5), (8, 1), (4, 3), (8, 2)]
+RAGGED_CASES += [
+    dict(_DECODE, name=f"rows{G * S}_G{G}_S{S}", Hk=32 // G, S=S) for G, S in ROW_SWEEP
+]
 _ENTRIES = ("modegpt_flash_attention_hbm", "modegpt_ragged_gqa_attend")
 
 
-def build(sources):
-    """(entry name, [library per source]) built in parallel; raises with
-    nvcc's output on a failed build or on variants of different sources."""
-    out_dir = os.path.dirname(os.path.abspath(sources[0]))
+def _label(variant: str) -> str:
+    """A variant's name: its file's base name, then its extra flags."""
+    src, *flags = variant.split("@")
+    return "@".join([os.path.basename(src), *flags])
+
+
+def build(variants, sass_dir=None):
+    """(entry name, [library per variant]) built in parallel; raises with
+    nvcc's output on a failed build or on variants of different sources.
+    A variant is a source path, then any extra nvcc flags after "@"."""
+    out_dir = os.path.dirname(os.path.abspath(variants[0].split("@")[0]))
     procs = []
-    for src in sources:
-        lib = os.path.join(out_dir, os.path.basename(src) + ".so")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-I", CSRC_DIR, "-o", lib, src]
-        procs.append((src, lib, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT)))
+    for variant in variants:
+        src, *flags = variant.split("@")
+        lib = os.path.join(out_dir, _label(variant).replace("=", "_") + ".so")
+        cmd = [_nvcc(), *NVCC_FLAGS, *flags, "-I", CSRC_DIR, "-o", lib, src]
+        procs.append((variant, lib, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT)))
     libs, entries = [], set()
-    for src, lib, proc in procs:
+    for variant, lib, proc in procs:
         log = proc.communicate()[0].decode(errors="replace")
         if proc.returncode:
-            raise RuntimeError(f"nvcc failed for {src}:\n{log}")
+            raise RuntimeError(f"nvcc failed for {variant}:\n{log}")
+        print(f"[ptxas {_label(variant)}]\n{log}", file=sys.stderr)
+        if sass_dir:
+            os.makedirs(sass_dir, exist_ok=True)
+            cuobjdump = os.path.join(os.path.dirname(_nvcc()), "cuobjdump")
+            dump = subprocess.run([cuobjdump, "-sass", lib], capture_output=True, check=False)
+            with gzip.open(os.path.join(sass_dir, _label(variant) + ".sass.gz"), "wb") as f:
+                f.write(dump.stdout + dump.stderr)
         cdll = ctypes.CDLL(lib)
         found = [e for e in _ENTRIES if hasattr(cdll, e)]
         if len(found) != 1:
@@ -206,12 +233,17 @@ def _compare_ragged(names, libs) -> None:
         print(f"{case['name']}: " + "; ".join(cells), flush=True)
 
 
-def main(sources) -> int:
-    if not sources or not torch.cuda.is_available():
+def main(argv) -> int:
+    sass_dir = None
+    if "--sass" in argv:
+        i = argv.index("--sass")
+        sass_dir = argv[i + 1]
+        argv = argv[:i] + argv[i + 2:]
+    if not argv or not torch.cuda.is_available():
         print(__doc__, file=sys.stderr)
         return 2
-    entry, libs = build(sources)
-    names = [os.path.basename(s) for s in sources]
+    entry, libs = build(argv, sass_dir)
+    names = [_label(v) for v in argv]
     gen = torch.Generator(device="cuda").manual_seed(0)
     x = torch.randn(8192, 8192, device="cuda", generator=gen)
     for _ in range(50):  # bring the clocks up before the first case

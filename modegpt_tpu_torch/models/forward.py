@@ -2,16 +2,27 @@
 
 Port of ``modegpt_tpu.models.forward`` for the dense and compressed
 (heterogeneous per-layer rank, rotary-masked) llama, qwen3 and opt
-models. Parameters are the JAX package's tree as torch tensors: kernels
-in ``[in, out]`` layout (``y = x @ kernel``), per-layer rotary masks as
-int32 leaves.
+models and the mixture-of-experts mixtral, qwen3_moe (all-MoE or mixed
+with dense layers) and qwen2_moe (shared expert, qkv biases). Parameters
+are the JAX package's tree as torch tensors: kernels in ``[in, out]``
+layout (``y = x @ kernel``), expert stacks ``[E, in, out]``, per-layer
+rotary masks as int32 leaves.
 
 When ``stats_layers`` is non-empty the forward also returns the
 calibration statistics (`CalibStats`): Grams of the post-activation MLP
-intermediate (``cov_mlp``), of the raw per-head q/k projections
-(``cov_q`` / ``cov_k``, pre-RoPE, pre-q_norm) and of the attention input
-(``cov_x``), plus the per-layer Block-Influence accumulators
-(``bi_acc``, reference: calibration.py:118-124).
+intermediate (``cov_mlp``; per expert ``[E, D, D]`` over the tokens
+routed to it on a MoE layer), of the shared expert's intermediate
+(``cov_shared``), of the raw per-head q/k projections (``cov_q`` /
+``cov_k``, pre-RoPE, pre-q_norm) and of the attention input (``cov_x``),
+plus the per-layer Block-Influence accumulators (``bi_acc``, reference:
+calibration.py:118-124).
+
+MoE layers run every expert on every token (`_moe_mlp`, the JAX
+package's formulation: static shapes, E/k times the routed FLOPs) or,
+in serving, through capacity-based token dispatch (`_moe_mlp_dispatch`).
+Routing is a float32 softmax over all experts, then the top k with ties
+to the lower expert index (a stable sort, as ``lax.top_k`` breaks them),
+renormalised when ``norm_topk_prob``.
 
 Attention at ``128 <= T <= 8192`` goes through the hand-written CUDA
 kernel K1 and at ``T > 8192`` through the long-context kernel K2
@@ -29,7 +40,8 @@ knob opts single Gram products into reduced precision.
 from __future__ import annotations
 
 import contextlib
-from typing import Dict, NamedTuple, Optional, Tuple
+import math
+from typing import Dict, List, NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -42,13 +54,13 @@ from modegpt_tpu_torch.kernels.flash_attention import (
 from modegpt_tpu_torch.models.spec import ModelSpec
 from modegpt_tpu_torch.ops.rope import apply_rope, masked_head_rms_norm, rope_cos_sin
 
-__all__ = ["forward", "CalibStats", "check_supported", "SUPPORTED_ARCHS"]
+__all__ = ["forward", "forward_taps", "CalibStats", "check_supported", "SUPPORTED_ARCHS"]
 
 # "highest" = true float32 (the JAX package's Precision.HIGHEST).
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 
-SUPPORTED_ARCHS = ("llama", "qwen3", "opt")
+SUPPORTED_ARCHS = ("llama", "qwen3", "opt", "mixtral", "qwen3_moe", "qwen2_moe")
 FLASH_MIN_T = 128  # the JAX forward's flash-route threshold
 FLASH_MAX_T = 8192  # beyond: the long-context kernel (K2)
 
@@ -56,11 +68,14 @@ FLASH_MAX_T = 8192  # beyond: the long-context kernel (K2)
 class CalibStats(NamedTuple):
     """Per-batch Gram statistics for `stats_layers` (stacked on axis 0)."""
 
-    cov_mlp: torch.Tensor  # [n_t, D_int, D_int]
+    cov_mlp: torch.Tensor  # [n_t, D_int, D_int] (MoE: [n_t, E, D, D])
     cov_q: torch.Tensor  # [n_t, n_heads, hd, hd]
     cov_k: torch.Tensor  # [n_t, n_kv_heads, hd, hd]
     cov_x: torch.Tensor  # [n_t, d_model, d_model]
     bi_acc: torch.Tensor  # [n_layers]
+    # shared-expert intermediate Gram [n_t, Ds, Ds]; None unless every
+    # tapped layer has a shared expert (qwen2_moe)
+    cov_shared: Optional[torch.Tensor] = None
 
 
 def check_supported(spec: ModelSpec) -> None:
@@ -68,8 +83,6 @@ def check_supported(spec: ModelSpec) -> None:
     missing = []
     if spec.arch not in SUPPORTED_ARCHS:
         missing.append(f"arch {spec.arch!r} (ported: {', '.join(SUPPORTED_ARCHS)})")
-    if spec.n_experts:
-        missing.append("MoE layers")
     if spec.post_norms or not spec.pre_norms or spec.flat_qk_norm:
         missing.append("gemma2/olmo2 norm wiring")
     if spec.attn_logit_softcap is not None or spec.final_logit_softcap is not None:
@@ -156,6 +169,147 @@ def _head_gram(x: torch.Tensor, prec: str = "highest") -> torch.Tensor:
     return _gram_of(x, None, "bthi,bthj->hij", prec)
 
 
+def _route(spec: ModelSpec, p: Dict, x: torch.Tensor):
+    """Router: float32 softmax over all experts, the top k (ties to the
+    lower index: a stable descending sort, as ``lax.top_k``), renormalised
+    when ``norm_topk_prob``. Returns (weights [..., k] float32, experts
+    [..., k] int64)."""
+    probs = torch.softmax(_linear(x, p["router"]).to(torch.float32), dim=-1)
+    w, idx = torch.sort(probs, dim=-1, descending=True, stable=True)
+    w, idx = w[..., : spec.experts_per_tok], idx[..., : spec.experts_per_tok]
+    if spec.norm_topk_prob:
+        w = w / torch.sum(w, dim=-1, keepdim=True)
+    return w, idx
+
+
+def _moe_mlp(spec: ModelSpec, p: Dict, x: torch.Tensor, collect: bool):
+    """Sparse-MoE MLP with every expert on every token (HF semantics,
+    modeling_mixtral.MixtralSparseMoeBlock; JAX forward.py:186): the
+    non-selected experts' outputs are weighted by zero.
+
+    The gate and up products are one batched product each, the tokens
+    broadcast over the expert stack ([E, N, D], no copy of the kernels);
+    the weighted sum over experts is one product of ``h * w``, laid out
+    over the flattened (expert, column) axis, with the stacked down
+    kernels, so no ``[B, T, E, d]`` tensor is formed.
+
+    Returns (y, h_routed, h_shared): h_routed [B, T, E, D] is the expert
+    intermediate masked 0/1 to the tokens routed to each expert (not
+    scaled by the routing weight), the rows each expert's down projection
+    sees, and h_shared [B, T, Ds] the shared expert's intermediate; both
+    None unless ``collect`` (h_shared also None without a shared expert).
+    """
+    B, T, d = x.shape
+    N, E = B * T, spec.n_experts
+    x2 = x.reshape(N, d)
+    w, idx = _route(spec, p, x2)
+    ek = p["experts"]
+    h = _act(torch.matmul(x2, ek["gate"]["kernel"]), spec.act)
+    h = h.mul_(torch.matmul(x2, ek["up"]["kernel"]))  # [E, N, D]
+    D = h.shape[-1]
+    w_full = torch.zeros((N, E), dtype=torch.float32, device=x.device).scatter_(-1, idx, w)
+    hw = (h * w_full.to(x.dtype).T[..., None]).transpose(0, 1).reshape(N, E * D)
+    y = (hw @ ek["down"]["kernel"].reshape(E * D, d)).view(B, T, d)
+    del hw
+    h_routed = h_shared = None
+    if collect:
+        routed = torch.zeros((N, E), dtype=h.dtype, device=x.device).scatter_(-1, idx, 1.0)
+        h_routed = h.mul_(routed.T[..., None]).transpose(0, 1).reshape(B, T, E, D)
+    del h
+    if "shared" in p:
+        ys, hs = _shared_expert(spec, p, x)
+        y = y + ys
+        if collect:
+            h_shared = hs
+    return y, h_routed, h_shared
+
+
+def _shared_expert(spec: ModelSpec, p: Dict, x: torch.Tensor):
+    """qwen2_moe's shared expert: a dense gated MLP over all tokens,
+    scaled by a per-token sigmoid gate computed in float32 when the layer
+    has one (HF Qwen2MoeSparseMoeBlock.forward). Returns (y, h)."""
+    sp = p["shared"]
+    hs = _act(_linear(x, sp["gate"]), spec.act) * _linear(x, sp["up"])
+    ys = _linear(hs, sp["down"])
+    if "shared_gate" in p:
+        gate = torch.sigmoid(_linear(x, p["shared_gate"]).to(torch.float32))
+        ys = ys * gate.to(ys.dtype)
+    return ys, hs
+
+
+def _moe_gram(h_routed: torch.Tensor) -> torch.Tensor:
+    """[B, T, E, D] routed intermediates -> per-expert Gram [E, D, D], at
+    "highest" always: the JAX layer calls it without gram_precision."""
+    return _gram_of(h_routed, None, "btef,bteg->efg", "highest")
+
+
+def _moe_mlp_dispatch(
+    spec: ModelSpec,
+    p: Dict,
+    x: torch.Tensor,
+    capacity_factor: float,
+    token_valid: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """Capacity-based token dispatch (JAX forward.py:283): the (token,
+    expert) assignments sorted by expert, each expert given
+    C = ceil(capacity_factor * N * k / E) slots (at most N), its tokens
+    gathered into an [E, C, d] buffer, one batched product per projection,
+    and the weighted results summed back per token. Assignments past an
+    expert's capacity are dropped, earlier tokens first served; at
+    capacity_factor >= E/k nothing is dropped and the result is
+    `_moe_mlp`'s up to float reassociation.
+
+    token_valid [B, T] (optional): False tokens (masked serving rows,
+    padded prefill tails) go to a virtual expert E that holds no capacity,
+    so they never take a real token's slot. Where JAX drops the
+    out-of-range scatters of the virtual expert and of the overflow, the
+    port clamps those indices into range and adds zeros there (an
+    out-of-range index on a CUDA tensor is a device-side assert); kept
+    assignments have unique (expert, slot) pairs.
+    """
+    B, T, d = x.shape
+    N, E, k = B * T, spec.n_experts, spec.experts_per_tok
+    C = max(1, min(N, int(math.ceil(capacity_factor * N * k / E))))
+    dev = x.device
+    xf = x.reshape(N, d)
+    w, idx = _route(spec, p, xf)  # [N, k]
+    expert_of = idx.reshape(-1)
+    if token_valid is not None:
+        tv = token_valid.reshape(-1).to(dev).repeat_interleave(k)
+        expert_of = torch.where(tv, expert_of, torch.full_like(expert_of, E))
+    token_of = torch.arange(N, device=dev).repeat_interleave(k)
+
+    # stable sort by expert: earlier tokens win the capacity slots
+    order = torch.argsort(expert_of, stable=True)
+    sorted_e = expert_of[order]
+    counts = torch.bincount(expert_of, minlength=E + 1)
+    starts = torch.cumsum(counts, 0) - counts
+    slot = torch.arange(N * k, device=dev) - starts[sorted_e]
+    keep = (slot < C) & (sorted_e < E)
+    e_ix, s_ix = sorted_e.clamp(max=E - 1), slot.clamp(max=C - 1)
+    tok_sorted = token_of[order]
+
+    buf = torch.zeros((E, C, d), dtype=x.dtype, device=dev)
+    vals = torch.where(keep[:, None], xf[tok_sorted], torch.zeros((), dtype=x.dtype, device=dev))
+    buf.index_put_((e_ix, s_ix), vals, accumulate=True)  # dropped ones add zeros
+
+    ek = p["experts"]
+    h = _act(torch.bmm(buf, ek["gate"]["kernel"]), spec.act) * torch.bmm(buf, ek["up"]["kernel"])
+    y_e = torch.bmm(h, ek["down"]["kernel"])  # [E, C, d]
+
+    # each assignment's weighted output back at its unsorted place, then
+    # summed over the token's k assignments (no atomics)
+    w_sorted = w.reshape(-1).to(x.dtype)[order]
+    picked = torch.where(keep[:, None], y_e[e_ix, s_ix] * w_sorted[:, None],
+                         torch.zeros((), dtype=x.dtype, device=dev))
+    contrib = torch.empty_like(picked)
+    contrib[order] = picked
+    y = contrib.view(N, k, d).sum(dim=1).view(B, T, d)
+    if "shared" in p:
+        y = y + _shared_expert(spec, p, x)[0]
+    return y
+
+
 def _attention(
     q: torch.Tensor,
     k: torch.Tensor,
@@ -225,27 +379,39 @@ def _layer(
     if not pre_ln:
         x = _norm(x, p["attn_norm"], spec.norm, spec.norm_eps)
 
-    x, h = _mlp_block(spec, p, x)
+    x, h, h_shared = _mlp_block(spec, p, x, layer_idx, collect)
     if collect:
-        taps["cov_mlp"] = _gram(h.reshape(-1, h.shape[-1]), gram_precision)
+        if spec.is_moe_layer(layer_idx):
+            taps["cov_mlp"] = _moe_gram(h)  # "highest" whatever gram_precision says, as JAX
+        else:
+            taps["cov_mlp"] = _gram(h.reshape(-1, h.shape[-1]), gram_precision)
+        if h_shared is not None:
+            taps["cov_shared"] = _gram(h_shared.reshape(-1, h_shared.shape[-1]), gram_precision)
     return x, (taps if collect else None)
 
 
-def _mlp_block(spec: ModelSpec, p: Dict, x: torch.Tensor):
+def _mlp_block(spec: ModelSpec, p: Dict, x: torch.Tensor, layer_idx: int, collect: bool = True):
     """A layer's MLP half with its residual (and norm: before for pre-LN,
-    after for post-LN OPT). Returns (x_out, h), h the post-activation
-    intermediate the calibration taps."""
+    after for post-LN OPT). Returns (x_out, h, h_shared): h the
+    post-activation intermediate the calibration taps (on a MoE layer the
+    routed [B, T, E, D] intermediate, None unless ``collect``), h_shared
+    the shared expert's (or None)."""
     pre_ln = spec.do_layer_norm_before
     residual = x
     x_ln2 = _norm(x, p["mlp_norm"], spec.norm, spec.norm_eps) if pre_ln else x
-    if spec.gated_mlp:
-        h = _act(_linear(x_ln2, p["gate"]), spec.act) * _linear(x_ln2, p["up"])
+    if spec.is_moe_layer(layer_idx):
+        y, h, h_shared = _moe_mlp(spec, p, x_ln2, collect)
+        x = residual + y
     else:
-        h = _act(_linear(x_ln2, p["up"]), spec.act)
-    x = residual + _linear(h, p["down"])
+        h_shared = None
+        if spec.gated_mlp:
+            h = _act(_linear(x_ln2, p["gate"]), spec.act) * _linear(x_ln2, p["up"])
+        else:
+            h = _act(_linear(x_ln2, p["up"]), spec.act)
+        x = residual + _linear(h, p["down"])
     if not pre_ln:
         x = _norm(x, p["mlp_norm"], spec.norm, spec.norm_eps)
-    return x, h
+    return x, h, h_shared
 
 
 def _bi_piece(h_in: torch.Tensor, h_out: torch.Tensor) -> torch.Tensor:
@@ -275,12 +441,47 @@ def forward(
       params: parameter tree (kernels in [in, out] layout), on one device.
       input_ids: [B, T] integer tokens on that device.
       stats_layers: layers whose Gram taps are collected; BI accumulators
-        cover every layer whenever this is non-empty.
+        cover every layer whenever this is non-empty. The taps are
+        stacked over these layers, so they must share shapes (one kind
+        of a mixed dense/MoE stack; `calibrate` takes per-layer taps).
       attn_impl: "auto" (the CUDA kernel on the card, the plain version
         elsewhere), "flash" or "xla" (plain).
       want_logits: False skips the final norm and LM head (the JAX
         calibration path's dead-code-eliminated logits); logits is None.
     """
+    logits, taps_by_layer, bi = forward_taps(
+        spec, params, input_ids, stats_layers, attn_impl, gram_precision, want_logits
+    )
+    stats = None
+    if stats_layers:
+        has_shared = all("cov_shared" in taps_by_layer[l] for l in stats_layers)
+        stats = CalibStats(
+            cov_mlp=torch.stack([taps_by_layer[l]["cov_mlp"] for l in stats_layers]),
+            cov_q=torch.stack([taps_by_layer[l]["cov_q"] for l in stats_layers]),
+            cov_k=torch.stack([taps_by_layer[l]["cov_k"] for l in stats_layers]),
+            cov_x=torch.stack([taps_by_layer[l]["cov_x"] for l in stats_layers]),
+            bi_acc=bi,
+            cov_shared=torch.stack([taps_by_layer[l]["cov_shared"] for l in stats_layers])
+            if has_shared
+            else None,
+        )
+    return logits, stats
+
+
+@torch.no_grad()
+def forward_taps(
+    spec: ModelSpec,
+    params: Dict,
+    input_ids: torch.Tensor,
+    stats_layers: Tuple[int, ...] = (),
+    attn_impl: str = "auto",
+    gram_precision: str = "highest",
+    want_logits: bool = True,
+) -> Tuple[Optional[torch.Tensor], Dict[int, Dict[str, torch.Tensor]], Optional[torch.Tensor]]:
+    """`forward` with the taps left per layer: (logits | None,
+    {layer: {"cov_mlp", "cov_q", "cov_k", "cov_x"[, "cov_shared"]}},
+    bi_acc [n_layers] | None). A mixed dense/MoE stack taps every layer
+    in one pass this way."""
     check_supported(spec)
     B, T = input_ids.shape
     ids = input_ids.long()
@@ -300,8 +501,8 @@ def forward(
         attn_impl = "flash" if x.is_cuda else "xla"
 
     collect = len(stats_layers) > 0
-    taps_by_layer = {}
-    bi = []
+    taps_by_layer: Dict[int, Dict[str, torch.Tensor]] = {}
+    bi: List[torch.Tensor] = []
     for l in range(spec.n_layers):
         h_in = x
         x, taps = _layer(
@@ -323,14 +524,4 @@ def forward(
             logits = _linear(x, params["lm_head"])
         else:
             logits = x @ params["embed_tokens"].T  # tied embeddings
-
-    stats = None
-    if collect:
-        stats = CalibStats(
-            cov_mlp=torch.stack([taps_by_layer[l]["cov_mlp"] for l in stats_layers]),
-            cov_q=torch.stack([taps_by_layer[l]["cov_q"] for l in stats_layers]),
-            cov_k=torch.stack([taps_by_layer[l]["cov_k"] for l in stats_layers]),
-            cov_x=torch.stack([taps_by_layer[l]["cov_x"] for l in stats_layers]),
-            bi_acc=torch.stack(bi),
-        )
-    return logits, stats
+    return logits, taps_by_layer, (torch.stack(bi) if collect else None)

@@ -116,7 +116,7 @@ def _layer_step(spec: ModelSpec, layer_idx: int, p: Dict, x, cos, sin, cache_k, 
     x = residual + _linear(attn, p["o"])
     if not pre_ln:
         x = _norm(x, p["attn_norm"], spec.norm, spec.norm_eps)
-    return _mlp_block(spec, p, x)[0]
+    return _mlp_block(spec, p, x, layer_idx, collect=False)[0]
 
 
 @torch.no_grad()

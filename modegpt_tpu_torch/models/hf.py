@@ -1,8 +1,10 @@
 """HuggingFace checkpoint ingestion: state dict -> the port's parameter tree.
 
-Port of ``modegpt_tpu.models.hf`` for llama, qwen3 and opt. HF Linear
-weights are ``[out, in]``; the forward's kernels are ``[in, out]``, so
-each projection is transposed once here. `params_from_state_dict` is
+Port of ``modegpt_tpu.models.hf`` for llama, qwen3, opt, mixtral,
+qwen3_moe and qwen2_moe. HF Linear weights are ``[out, in]``; the
+forward's kernels are ``[in, out]``, so each projection is transposed
+once here, and a MoE layer's per-expert weights are stacked into
+``[E, in, out]`` kernels. `params_from_state_dict` is
 pure torch; `load_hf_model` imports ``transformers`` when called (it is
 absent on the card's machine, where the smoke run builds its weights in
 code).
@@ -79,7 +81,7 @@ def params_from_state_dict(
                     lp[ours]["bias"] = V(b + theirs + ".bias")
             layers.append(lp)
         params["layers"] = layers
-    else:  # llama / qwen3
+    else:  # llama / qwen3 / mixtral / qwen3_moe / qwen2_moe
         pre = "model."
         params["embed_tokens"] = V(pre + "embed_tokens.weight")
         params["final_norm"] = {"scale": V(pre + "norm.weight")}
@@ -93,10 +95,37 @@ def params_from_state_dict(
                 "k": {"kernel": W(b + "self_attn.k_proj.weight")},
                 "v": {"kernel": W(b + "self_attn.v_proj.weight")},
                 "o": {"kernel": W(b + "self_attn.o_proj.weight")},
-                "gate": {"kernel": W(b + "mlp.gate_proj.weight")},
-                "up": {"kernel": W(b + "mlp.up_proj.weight")},
-                "down": {"kernel": W(b + "mlp.down_proj.weight")},
             }
+            if spec.is_moe_layer(l):
+                # mixtral: block_sparse_moe.gate + experts.{e}.w1/w3/w2;
+                # qwen*_moe: mlp.gate + mlp.experts.{e}.{gate,up,down}_proj,
+                # and qwen2_moe's mlp.shared_expert.* + mlp.shared_expert_gate
+                if spec.arch == "mixtral":
+                    moe, names = b + "block_sparse_moe.", ("w1", "w3", "w2")
+                else:
+                    moe, names = b + "mlp.", ("gate_proj", "up_proj", "down_proj")
+                lp["router"] = {"kernel": W(moe + "gate.weight")}
+
+                def EW(name):  # [E, in, out]
+                    return torch.stack([W(f"{moe}experts.{e}.{name}.weight") for e in range(spec.n_experts)])
+
+                lp["experts"] = {
+                    "gate": {"kernel": EW(names[0])},
+                    "up": {"kernel": EW(names[1])},
+                    "down": {"kernel": EW(names[2])},
+                }
+                if spec.shared_d_int:
+                    lp["shared"] = {
+                        "gate": {"kernel": W(moe + "shared_expert.gate_proj.weight")},
+                        "up": {"kernel": W(moe + "shared_expert.up_proj.weight")},
+                        "down": {"kernel": W(moe + "shared_expert.down_proj.weight")},
+                    }
+                    if spec.shared_expert_gate:
+                        lp["shared_gate"] = {"kernel": W(moe + "shared_expert_gate.weight")}
+            else:
+                lp["gate"] = {"kernel": W(b + "mlp.gate_proj.weight")}
+                lp["up"] = {"kernel": W(b + "mlp.up_proj.weight")}
+                lp["down"] = {"kernel": W(b + "mlp.down_proj.weight")}
             if spec.attention_bias:
                 for ours, theirs in [
                     ("q", "self_attn.q_proj"), ("k", "self_attn.k_proj"),

@@ -67,11 +67,31 @@ def init_params(
             "k": linear((spec.d_model, spec.k_ranks[l]), ab),
             "v": linear((spec.d_model, spec.v_ranks[l]), ab),
             "o": linear((spec.o_ranks[l], spec.d_model), ab and spec.arch == "opt"),
-            "up": linear((spec.d_model, spec.gate_ranks[l]), mb),
-            "down": linear((spec.gate_ranks[l], spec.d_model), mb),
         }
-        if spec.gated_mlp:
-            lp["gate"] = linear((spec.d_model, spec.gate_ranks[l]), spec.mlp_bias)
+        if spec.is_moe_layer(l):
+            # the router, the stacked experts [E, d, r] / [E, r, d] and,
+            # for qwen2_moe, the shared expert and its scalar gate
+            E, rg = spec.n_experts, spec.gate_ranks[l]
+            lp["router"] = {"kernel": dense((spec.d_model, E))}
+            lp["experts"] = {
+                "gate": {"kernel": dense((E, spec.d_model, rg))},
+                "up": {"kernel": dense((E, spec.d_model, rg))},
+                "down": {"kernel": dense((E, rg, spec.d_model))},
+            }
+            if spec.shared_d_int:
+                rs = spec.shared_rank(l)
+                lp["shared"] = {
+                    "gate": {"kernel": dense((spec.d_model, rs))},
+                    "up": {"kernel": dense((spec.d_model, rs))},
+                    "down": {"kernel": dense((rs, spec.d_model))},
+                }
+                if spec.shared_expert_gate:
+                    lp["shared_gate"] = {"kernel": dense((spec.d_model, 1))}
+        else:
+            lp["up"] = linear((spec.d_model, spec.gate_ranks[l]), mb)
+            lp["down"] = linear((spec.gate_ranks[l], spec.d_model), mb)
+            if spec.gated_mlp:
+                lp["gate"] = linear((spec.d_model, spec.gate_ranks[l]), spec.mlp_bias)
         if spec.qk_norm:
             lp["q_norm"] = {"scale": torch.ones(spec.head_dim, dtype=dtype, device=dev)}
             lp["k_norm"] = {"scale": torch.ones(spec.head_dim, dtype=dtype, device=dev)}

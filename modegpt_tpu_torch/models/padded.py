@@ -1,10 +1,14 @@
 """Padded-uniform execution for heterogeneous-rank compressed models.
 
-Port of ``modegpt_tpu.models.padded`` for dense llama, qwen3 and opt
-stacks, dense or compressed. Every layer's factors are zero-padded to the
-stack-wide max rank per module and stacked into ``[L, ...]`` leaves, so
-every layer has the same shapes; the layer scan is a Python loop over
-``l`` that reads ``layers[...][l]`` views.
+Port of ``modegpt_tpu.models.padded`` for llama, qwen3, opt, mixtral,
+qwen3_moe and qwen2_moe stacks, dense or compressed. Every layer's
+factors are zero-padded to the stack-wide max rank per module and
+stacked into ``[L, ...]`` leaves, so every layer has the same shapes; the
+layer scan is a Python loop over ``l`` that reads ``layers[...][l]``
+views. Expert stacks pad their intermediate axis to the largest gate
+rank, shared experts to the largest shared rank. A mixed dense/MoE stack
+carries both MLP kinds on every layer, the other kind's kernels zero
+(as the JAX stack does), and each layer runs its own kind.
 
 Exactness (equal to the unrolled forward up to float reassociation):
 
@@ -29,7 +33,10 @@ host, and only the surviving (row, position) pairs are written, because
 an out-of-range index on a CUDA tensor is a device-side assert and a
 clamped write would overwrite a live position.
 
-MoE, tensor parallelism, olmo2's flat q/k norm and soft-capping raise
+MoE layers run every expert on every token (``moe="dense"``) or by
+capacity-based token dispatch (``moe="dispatch"``, with ``token_valid``
+marking the rows whose tokens may claim expert capacity). Tensor
+parallelism, olmo2's flat q/k norm and soft-capping raise
 NotImplementedError (`models.forward.check_supported`).
 """
 
@@ -41,7 +48,15 @@ import numpy as np
 import torch
 
 from modegpt_tpu_torch.kernels.ragged_decode import ragged_gqa_attend, ragged_gqa_attend_reference
-from modegpt_tpu_torch.models.forward import _act, _attention, _linear, _norm, check_supported
+from modegpt_tpu_torch.models.forward import (
+    _act,
+    _attention,
+    _linear,
+    _moe_mlp,
+    _moe_mlp_dispatch,
+    _norm,
+    check_supported,
+)
 from modegpt_tpu_torch.models.spec import ModelSpec
 from modegpt_tpu_torch.ops.rope import (
     apply_rope,
@@ -130,7 +145,18 @@ def pad_to_uniform(spec: ModelSpec, params: Dict) -> PaddedModel:
     device = params["embed_tokens"].device
     Rq = max(spec.q_ranks[l] // H for l in range(L))
     Rv = max(spec.v_ranks[l] // Hk for l in range(L))
-    Rg = max(spec.gate_ranks)
+    d, E = spec.d_model, spec.n_experts
+    moe_ls = [l for l in range(L) if spec.is_moe_layer(l)]
+    dense_ls = [l for l in range(L) if not spec.is_moe_layer(l)]
+    # the widest gate rank of each MLP kind, and of the shared experts
+    Rg_moe = max((spec.gate_ranks[l] for l in moe_ls), default=0)
+    Rg_dense = max((spec.gate_ranks[l] for l in dense_ls), default=0)
+    Rs = max((spec.shared_rank(l) for l in moe_ls), default=0) if spec.shared_d_int else 0
+    pdtype = params["embed_tokens"].dtype
+
+    def zeros(*shape):  # the other MLP kind's kernels on a mixed stack's layer
+        return torch.zeros(shape, dtype=pdtype, device=device)
+
     # every layer needs the same leaves to stack: if any layer carries a
     # rotary mask (or a RoPE layer's q/k need padding), all get one
     need_masks = spec.has_rotary_masks or (rope and any(spec.q_ranks[l] // H != Rq for l in range(L)))
@@ -146,11 +172,51 @@ def pad_to_uniform(spec: ModelSpec, params: Dict) -> PaddedModel:
         q["k"] = _pad_linear(p["k"], pad_out=lambda x, ax: _pad_head_axis(x, Hk, rq, Rq, rope, ax))
         q["v"] = _pad_linear(p["v"], pad_out=lambda x, ax: _pad_head_axis(x, Hk, rv, Rv, False, ax))
         q["o"] = _pad_linear(p["o"], pad_in=lambda x, ax: _pad_head_axis(x, H, rv, Rv, False, ax))
-        g_pad = lambda x, ax: _pad_tail(x, rg, Rg, ax)  # noqa: E731
-        q["up"] = _pad_linear(p["up"], pad_out=g_pad)
-        q["down"] = _pad_linear(p["down"], pad_in=g_pad)
-        if spec.gated_mlp:
-            q["gate"] = _pad_linear(p["gate"], pad_out=g_pad)
+        if spec.is_moe_layer(l):
+            ek = p["experts"]
+            q["router"] = p["router"]
+            q["experts"] = {
+                "gate": {"kernel": _pad_tail(ek["gate"]["kernel"], rg, Rg_moe, 2)},
+                "up": {"kernel": _pad_tail(ek["up"]["kernel"], rg, Rg_moe, 2)},
+                "down": {"kernel": _pad_tail(ek["down"]["kernel"], rg, Rg_moe, 1)},
+            }
+            if spec.shared_d_int:
+                rs = spec.shared_rank(l)
+                s_pad = lambda x, ax: _pad_tail(x, rs, Rs, ax)  # noqa: E731
+                sp = p["shared"]
+                q["shared"] = {
+                    "gate": _pad_linear(sp["gate"], pad_out=s_pad),
+                    "up": _pad_linear(sp["up"], pad_out=s_pad),
+                    "down": _pad_linear(sp["down"], pad_in=s_pad),
+                }
+                if "shared_gate" in p:
+                    q["shared_gate"] = p["shared_gate"]
+            if dense_ls:  # mixed stack: the dense kind's zero kernels
+                q["up"] = {"kernel": zeros(d, Rg_dense)}
+                q["down"] = {"kernel": zeros(Rg_dense, d)}
+                if spec.gated_mlp:
+                    q["gate"] = {"kernel": zeros(d, Rg_dense)}
+        else:
+            g_pad = lambda x, ax: _pad_tail(x, rg, Rg_dense, ax)  # noqa: E731
+            q["up"] = _pad_linear(p["up"], pad_out=g_pad)
+            q["down"] = _pad_linear(p["down"], pad_in=g_pad)
+            if spec.gated_mlp:
+                q["gate"] = _pad_linear(p["gate"], pad_out=g_pad)
+            if moe_ls:  # mixed stack: the MoE kind's zero kernels
+                q["router"] = {"kernel": zeros(d, E)}
+                q["experts"] = {
+                    "gate": {"kernel": zeros(E, d, Rg_moe)},
+                    "up": {"kernel": zeros(E, d, Rg_moe)},
+                    "down": {"kernel": zeros(E, Rg_moe, d)},
+                }
+                if spec.shared_d_int:
+                    q["shared"] = {
+                        "gate": {"kernel": zeros(d, Rs)},
+                        "up": {"kernel": zeros(d, Rs)},
+                        "down": {"kernel": zeros(Rs, d)},
+                    }
+                    if spec.shared_expert_gate:
+                        q["shared_gate"] = {"kernel": zeros(d, 1)}
         if spec.qk_norm:
             q["q_norm"] = p["q_norm"]
             q["k_norm"] = p["k_norm"]
@@ -174,7 +240,8 @@ def pad_to_uniform(spec: ModelSpec, params: Dict) -> PaddedModel:
         k_ranks=(Hk * Rq,) * L,
         v_ranks=(Hk * Rv,) * L,
         o_ranks=(H * Rv,) * L,
-        gate_ranks=(Rg,) * L,
+        gate_ranks=tuple(Rg_moe if spec.is_moe_layer(l) else Rg_dense for l in range(L)),
+        shared_gate_ranks=(Rs,) * L if spec.shared_d_int else None,
     )
     q_hd_true = torch.tensor([spec.q_ranks[l] / H for l in range(L)], dtype=torch.float32, device=device)
     return PaddedModel(spec=pspec, layers=stacked, other=other, q_hd_true=q_hd_true)
@@ -245,13 +312,20 @@ def _layer_padded(
     cache: Optional[Tuple[torch.Tensor, ...]] = None,
     pos: Optional[torch.Tensor] = None,
     write_ix=None,
+    moe_layer: bool = False,
+    moe: str = "dense",
+    moe_capacity: float = 2.0,
+    token_valid: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """One padded layer. Without a cache: full causal self-attention
     (attn_impl "flash" or "xla"). With ``cache`` = this layer's
     (ck, cv[, k_scale, v_scale]) views [B, Hk, T(, R)]: the new K/V are
     written in place at ``write_ix`` and the rows attend the pool from
     ``pos`` (attn_impl "ragged", the CUDA kernel on the card, or "xla",
-    its plain version: the masked contraction over the whole pool)."""
+    its plain version: the masked contraction over the whole pool).
+    ``moe_layer``: the MLP is the layer's experts, run by ``moe``
+    ("dense" or "dispatch" at ``moe_capacity``, where ``token_valid``
+    [B, S] keeps masked rows from claiming expert capacity)."""
     B, S, _ = x.shape
     H, Hk = spec.n_heads, spec.n_kv_heads
     Rq = spec.q_ranks[0] // H
@@ -301,11 +375,16 @@ def _layer_padded(
 
     residual = x
     x_ln2 = _norm(x, p["mlp_norm"], spec.norm, spec.norm_eps) if pre_ln else x
-    if spec.gated_mlp:
-        h = _act(_linear(x_ln2, p["gate"]), spec.act) * _linear(x_ln2, p["up"])
+    if moe_layer and moe == "dispatch":
+        x = residual + _moe_mlp_dispatch(spec, p, x_ln2, moe_capacity, token_valid)
+    elif moe_layer:
+        x = residual + _moe_mlp(spec, p, x_ln2, False)[0]
     else:
-        h = _act(_linear(x_ln2, p["up"]), spec.act)
-    x = residual + _linear(h, p["down"])
+        if spec.gated_mlp:
+            h = _act(_linear(x_ln2, p["gate"]), spec.act) * _linear(x_ln2, p["up"])
+        else:
+            h = _act(_linear(x_ln2, p["up"]), spec.act)
+        x = residual + _linear(h, p["down"])
     if not pre_ln:
         x = _norm(x, p["mlp_norm"], spec.norm, spec.norm_eps)
     return x
@@ -347,12 +426,15 @@ def forward_padded(
     q_hd_true: torch.Tensor,
     input_ids: torch.Tensor,
     attn_impl: str = "auto",
+    moe: str = "dense",
+    moe_capacity: float = 2.0,
 ) -> torch.Tensor:
     """Full causal forward over the padded stack; returns logits. Same
     numerics as `forward(orig_spec, orig_params, ...)`. attn_impl "auto"
     takes the CUDA flash-attention kernels on the card (K1 for
     128 <= T <= 8192, K2 beyond) and the plain version elsewhere, through
-    `forward`'s attention route."""
+    `forward`'s attention route. moe: "dense" or "dispatch" (MoE layers,
+    see `_layer_padded`)."""
     check_supported(spec)
     T = input_ids.shape[1]
     x = _embed(spec, other, input_ids)
@@ -366,7 +448,8 @@ def forward_padded(
         )
     for l in range(spec.n_layers):
         x = _layer_padded(
-            spec, _layer_params(layers, l), q_hd_true[l], x, cos, sin, attn_impl, _layer_window(spec, l)
+            spec, _layer_params(layers, l), q_hd_true[l], x, cos, sin, attn_impl, _layer_window(spec, l),
+            moe_layer=spec.is_moe_layer(l), moe=moe, moe_capacity=moe_capacity,
         )
     return _unembed(spec, other, x)
 
@@ -397,6 +480,9 @@ def _model_step_padded(
     cache_scales: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
     decode_attn: str = "xla",
     logits_at: Optional[int] = None,
+    moe: str = "dense",
+    moe_capacity: float = 2.0,
+    token_valid: Optional[torch.Tensor] = None,
 ):
     """New tokens [B, S] through the padded stack with a stacked cache.
 
@@ -408,7 +494,10 @@ def _model_step_padded(
     contraction over the whole pool) or "ragged" (the CUDA kernel, whose
     reads cover each row's live keys only). ``logits_at``: None for every
     position's logits, or one position s whose logits alone are computed
-    (a prefill chunk needs its last real position only).
+    (a prefill chunk needs its last real position only). moe,
+    moe_capacity: MoE execution (`_layer_padded`); token_valid [B, S]
+    bool: the rows and positions whose tokens may claim dispatch-MoE
+    expert capacity (masked slots and padded chunk tails may not).
 
     Returns (logits [B, S or 1, V], length + S as a host value)."""
     check_supported(spec)
@@ -434,6 +523,7 @@ def _model_step_padded(
         x = _layer_padded(
             spec, _layer_params(layers, l), q_hd_true[l], x, cos, sin, decode_attn,
             _layer_window(spec, l), cache=tuple(c[l] for c in pools), pos=pos, write_ix=write_ix,
+            moe_layer=spec.is_moe_layer(l), moe=moe, moe_capacity=moe_capacity, token_valid=token_valid,
         )
     if logits_at is not None:
         x = x[:, logits_at : logits_at + 1]

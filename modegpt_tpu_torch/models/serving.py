@@ -26,11 +26,17 @@ keeps them on the host (``ServeState.lengths``, numpy): the host decides
 which cache writes fall past the pool, so none reaches the device as an
 out-of-range index.
 
+MoE models serve with every expert on every token (``moe="dense"``) or
+through capacity-based token dispatch (``moe="dispatch"`` at
+``moe_capacity``): each dispatch marks the tokens that may claim expert
+capacity (a prefill chunk's real positions; the decode-active slots), as
+the JAX step functions do.
+
 Options of the JAX batcher that this port does not have yet (speculative
 decoding, batched and mixed prefill, fused multi-step decode, prefix
 caching, per-request sampling, logprobs, guided decoding, logit bias,
-min_tokens, repetition penalty, meshes, W8A8 prefill, MoE dispatch)
-raise NotImplementedError.
+min_tokens, repetition penalty, meshes, W8A8 prefill) raise
+NotImplementedError.
 """
 
 from __future__ import annotations
@@ -122,22 +128,28 @@ def _chunks(prompt: np.ndarray, bucket: int) -> List[Tuple[np.ndarray, int, bool
 def _prefill_chunk(pm: PaddedModel, state: ServeState, slot: int, piece: np.ndarray, pos0: int,
                    bucket: int, commit: bool, temperature: float,
                    generator: Optional[torch.Generator], top_p=None, min_p=None,
-                   decode_attn: str = "xla") -> Optional[int]:
+                   decode_attn: str = "xla", moe: str = "dense",
+                   moe_capacity: float = 2.0) -> Optional[int]:
     """Run one prompt chunk (`piece`, at most `bucket` tokens, right-padded
     to `bucket`) through `slot` at offset pos0. The pools are read and
     written through the slot's views, never copied. When `commit` is set
     (the prompt's last chunk) the next token is sampled from the last
-    real position and returned; else None."""
+    real position and returned; else None. The padded tail claims no
+    dispatch-MoE expert capacity."""
     dev = _device(pm)
     real_len = piece.shape[0]
     chunk = np.zeros((1, bucket), np.int64)
     chunk[0, :real_len] = piece
     view = slice(slot, slot + 1)
     scales = None if state.scales is None else tuple(s[:, view] for s in state.scales)
+    tail_valid = None  # only dispatch reads it
+    if moe == "dispatch":
+        tail_valid = torch.from_numpy(np.arange(bucket)[None, :] < real_len).to(dev)
     logits, _ = _model_step_padded(
         pm.spec, pm.layers, pm.other, pm.q_hd_true, torch.from_numpy(chunk).to(dev),
         state.cache_k[:, view], state.cache_v[:, view], pos0, cache_scales=scales,
         decode_attn=decode_attn, logits_at=real_len - 1,
+        moe=moe, moe_capacity=moe_capacity, token_valid=tail_valid,
     )
     state.lengths[slot] = pos0 + real_len
     if not commit:
@@ -149,17 +161,21 @@ def _prefill_chunk(pm: PaddedModel, state: ServeState, slot: int, piece: np.ndar
 
 def _one_decode_step(pm: PaddedModel, state: ServeState, active: np.ndarray, temperature: float,
                      top_k, generator: Optional[torch.Generator], top_p=None, min_p=None,
-                     decode_attn: str = "xla") -> torch.Tensor:
+                     decode_attn: str = "xla", moe: str = "dense",
+                     moe_capacity: float = 2.0) -> torch.Tensor:
     """One decode step for ALL slots from each slot's last token at its
     own length. Inactive rows run masked: their length and last token do
-    not advance, and their cache write lands at their current position,
-    to be overwritten on reuse. Returns the sampled tokens [slots]."""
+    not advance, their cache write lands at their current position, to
+    be overwritten on reuse, and their tokens claim no dispatch-MoE
+    expert capacity. Returns the sampled tokens [slots]."""
+    active = np.asarray(active, bool)
+    valid = torch.from_numpy(active[:, None]).to(_device(pm)) if moe == "dispatch" else None
     logits, _ = _model_step_padded(
         pm.spec, pm.layers, pm.other, pm.q_hd_true, state.last_token[:, None],
         state.cache_k, state.cache_v, state.lengths, cache_scales=state.scales, decode_attn=decode_attn,
+        moe=moe, moe_capacity=moe_capacity, token_valid=valid,
     )
     nxt = _sample(logits[:, -1, :], generator, temperature, top_k, top_p=top_p, min_p=min_p)
-    active = np.asarray(active, bool)
     state.last_token.copy_(torch.where(torch.from_numpy(active).to(nxt.device), nxt, state.last_token))
     state.lengths[active] += 1
     return nxt
@@ -167,7 +183,7 @@ def _one_decode_step(pm: PaddedModel, state: ServeState, active: np.ndarray, tem
 
 def prefill_slot(pm: PaddedModel, state: ServeState, slot: int, prompt_ids, bucket: int,
                  temperature: float = 0.0, generator: Optional[torch.Generator] = None,
-                 decode_attn: str = "auto") -> ServeState:
+                 decode_attn: str = "auto", moe: str = "dense", moe_capacity: float = 2.0) -> ServeState:
     """Admit a prompt into `slot`, chunk by chunk (prompts longer than
     `bucket` are chunked). The slot's first generated token ends up in
     ``state.last_token[slot]``."""
@@ -181,16 +197,17 @@ def prefill_slot(pm: PaddedModel, state: ServeState, slot: int, prompt_ids, buck
     attn = resolve_decode_attn(decode_attn, _device(pm))
     for piece, pos0, is_last in _chunks(prompt_ids, bucket):
         _prefill_chunk(pm, state, slot, piece, pos0, bucket, is_last, temperature, generator,
-                       decode_attn=attn)
+                       decode_attn=attn, moe=moe, moe_capacity=moe_capacity)
     return state
 
 
 def decode_slots(pm: PaddedModel, state: ServeState, active, temperature: float = 0.0,
                  top_k=None, generator: Optional[torch.Generator] = None, top_p=None, min_p=None,
-                 decode_attn: str = "auto"):
+                 decode_attn: str = "auto", moe: str = "dense", moe_capacity: float = 2.0):
     """One decode step across all slots. Returns (state, tokens [slots])."""
     nxt = _one_decode_step(pm, state, active, temperature, top_k, generator, top_p=top_p,
-                           min_p=min_p, decode_attn=resolve_decode_attn(decode_attn, _device(pm)))
+                           min_p=min_p, decode_attn=resolve_decode_attn(decode_attn, _device(pm)),
+                           moe=moe, moe_capacity=moe_capacity)
     return state, nxt
 
 
@@ -211,12 +228,16 @@ class ContinuousBatcher:
     ``prefill_chunks_per_step`` chunks (round-robin across admitting
     slots) before the decode step of the already-active slots, so a long
     prompt never blocks decoding.
+
+    ``moe``: "dense" (every expert on every token; exact) or "dispatch"
+    (capacity-based token dispatch at ``moe_capacity``; nothing is
+    dropped at moe_capacity >= n_experts / experts_per_tok).
     """
 
     def __init__(self, pm: PaddedModel, slots: int = 8, max_len: int = 512,
                  prefill_bucket: int = 64, eos_token_id: Optional[int] = None,
                  temperature: float = 0.0, moe: str = "dense",
-                 prefill_chunks_per_step: int = 1,
+                 moe_capacity: float = 2.0, prefill_chunks_per_step: int = 1,
                  spec_decode: str = "off", draft_pm: Optional[PaddedModel] = None,
                  kv_dtype: str = "model", steps_per_dispatch: int = 1,
                  prefill_exec: str = "per_slot",
@@ -233,6 +254,8 @@ class ContinuousBatcher:
             raise ValueError(f"steps_per_dispatch must be >= 1, got {steps_per_dispatch}")
         if prefill_exec not in ("per_slot", "batched"):
             raise ValueError(f"prefill_exec must be per_slot or batched, got {prefill_exec!r}")
+        if moe not in ("dense", "dispatch"):
+            raise ValueError(f"moe must be dense or dispatch, got {moe!r}")
         _not_ported([name for name, on in (
             (f"spec_decode={spec_decode!r}", spec_decode != "off"),
             ("draft_pm", draft_pm is not None),
@@ -244,7 +267,6 @@ class ContinuousBatcher:
             ("repetition_penalty", repetition_penalty not in (None, 1.0)),
             ("mesh", mesh is not None),
             ("a8_prefill", a8_prefill),
-            (f"moe={moe!r}", moe != "dense"),
         ) if on])
         self.pm = pm
         self.device = _device(pm)
@@ -253,6 +275,8 @@ class ContinuousBatcher:
         self.bucket = prefill_bucket
         self.eos = eos_token_id
         self.temperature = temperature
+        self.moe = moe
+        self.moe_capacity = moe_capacity
         self.top_p = top_p
         self.min_p = min_p
         self.prefill_chunks_per_step = prefill_chunks_per_step
@@ -407,7 +431,7 @@ class ContinuousBatcher:
                 tok = _prefill_chunk(
                     self.pm, self.state, s, piece, pos0, self.bucket, is_last,
                     self.temperature, generator, top_p=self.top_p, min_p=self.min_p,
-                    decode_attn=self.decode_attn,
+                    decode_attn=self.decode_attn, moe=self.moe, moe_capacity=self.moe_capacity,
                 )
                 budget -= 1
                 if is_last:
@@ -439,6 +463,7 @@ class ContinuousBatcher:
         toks = _one_decode_step(
             self.pm, self.state, active, self.temperature, None, generator,
             top_p=self.top_p, min_p=self.min_p, decode_attn=self.decode_attn,
+            moe=self.moe, moe_capacity=self.moe_capacity,
         ).tolist()
         for s in range(self.slots):
             if active[s]:

@@ -12,10 +12,12 @@ stderr. The model is an artifact directory written by either package's
 compression; its tokenizer is read from the directory (or the source the
 artifact names) with ``transformers``.
 
-Flags for features this port does not have yet raise NotImplementedError:
-int8 weights, MoE dispatch, speculative decoding, fused decode, prefix
-caching, batched prefill, W8A8 prefill, in-memory compression, and a
-plain HF checkpoint as --model.
+A MoE artifact serves with every expert on every token (``--moe_exec
+dense``) or by capacity-based token dispatch (``--moe_exec dispatch``
+at ``--moe_capacity``). Flags for features this port does not have yet
+raise NotImplementedError: int8 weights, speculative decoding, fused
+decode, prefix caching, batched prefill, W8A8 prefill, in-memory
+compression, and a plain HF checkpoint as --model.
 """
 
 from __future__ import annotations
@@ -85,7 +87,6 @@ def main(argv=None):
     args = _parser().parse_args(argv)
     unported = [name for name, on in (
         ("--quantize_int8", args.quantize_int8),
-        ("--moe_exec dispatch", args.moe_exec != "dense"),
         ("--compress_ratio (in-memory compression)", args.compress_ratio is not None),
         (f"--spec_decode {args.spec_decode}", args.spec_decode != "off"),
         ("--draft_model", bool(args.draft_model)),
@@ -125,7 +126,7 @@ def main(argv=None):
     batcher = ContinuousBatcher(
         pm, slots=args.slots, max_len=args.max_len, prefill_bucket=args.prefill_bucket,
         eos_token_id=getattr(tokenizer, "eos_token_id", None), temperature=args.temperature,
-        kv_dtype=args.kv_dtype,
+        moe=args.moe_exec, moe_capacity=args.moe_capacity, kv_dtype=args.kv_dtype,
     )
     rid_to_idx, prompt_lens = {}, {}
     for i, text in enumerate(texts):

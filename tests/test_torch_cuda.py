@@ -321,3 +321,59 @@ def test_padded_serving_steps_go_through_the_ragged_kernel(cuda_device, kv_dtype
     np.testing.assert_array_equal(a.lengths, b.lengths)
     # int8 codes may sit one rounding step apart
     torch.testing.assert_close(a.cache_k.float(), b.cache_k.float(), rtol=1e-4, atol=1e-4 if kv_dtype == "model" else 1.0)
+
+
+# the decode forms in use, by rows a kv head (G*S = 1 ... 16; 8 heads)
+ROW_SWEEP = [(1, 1), (2, 1), (1, 3), (4, 1), (1, 5), (8, 1), (4, 3), (8, 2)]
+
+
+@pytest.mark.parametrize("G,S", ROW_SWEEP, ids=[f"rows{G * S}_G{G}_S{S}" for G, S in ROW_SWEEP])
+def test_ragged_decode_forms_by_rows(cuda_device, G, S):
+    from modegpt_tpu_torch.kernels.ragged_decode import ragged_gqa_attend, ragged_gqa_attend_reference
+
+    case = dict(B=4, H=8, Hk=8 // G, T=700, S=S, Rq=126, Rv=126)
+    q, k, v, pos, kw = _ragged_inputs(case, cuda_device, torch.float32, seed=G * 16 + S)
+    got = ragged_gqa_attend(q, k, v, pos, **kw)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, ragged_gqa_attend_reference(q, k, v, pos, **kw), **TOLERANCE["float32"])
+
+
+@pytest.mark.parametrize("moe", ["dense", "dispatch"])
+def test_moe_forward_on_the_card_matches_the_cpu(cuda_device, moe):
+    """A tiny qwen2_moe-shaped model (a mixed stack: shared expert, a dense
+    middle layer) on the card against the same weights on the CPU: the
+    unrolled forward through K1, and the padded stack with dense or
+    dispatched experts."""
+    from modegpt_tpu_torch.models.padded import forward_padded, pad_to_uniform
+
+    cfg = SimpleNamespace(
+        model_type="qwen2_moe", vocab_size=256, hidden_size=64, intermediate_size=96,
+        moe_intermediate_size=48, shared_expert_intermediate_size=80, num_hidden_layers=3,
+        num_attention_heads=4, num_key_value_heads=2, max_position_embeddings=512, rms_norm_eps=1e-6,
+        rope_theta=10000.0, hidden_act="silu", tie_word_embeddings=False, num_experts=8,
+        num_experts_per_tok=2, norm_topk_prob=False, decoder_sparse_step=1, mlp_only_layers=[1],
+        rope_scaling=None,
+    )
+    spec = spec_from_hf_config(cfg)
+    cpu = init_params(spec, torch.Generator().manual_seed(0), device="cpu")
+    card = _tree_to(cpu, cuda_device)
+    ids = torch.from_numpy(np.random.default_rng(2).integers(0, 256, (2, 160)))
+    before = flash_attention.launches
+    got, _ = forward(spec, card, ids.to(cuda_device))
+    torch.cuda.synchronize()
+    assert flash_attention.launches == before + spec.n_layers
+    want, _ = forward(spec, cpu, ids)
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-4)
+    pm, pm_cpu = pad_to_uniform(spec, card), pad_to_uniform(spec, cpu)
+    cap = spec.n_experts / spec.experts_per_tok
+    lp = forward_padded(pm.spec, pm.layers, pm.other, pm.q_hd_true, ids.to(cuda_device), moe=moe, moe_capacity=cap)
+    lc = forward_padded(pm_cpu.spec, pm_cpu.layers, pm_cpu.other, pm_cpu.q_hd_true, ids, moe=moe, moe_capacity=cap)
+    torch.testing.assert_close(lp.cpu(), lc, rtol=1e-4, atol=1e-4)
+
+
+def _tree_to(tree, device):
+    if isinstance(tree, dict):
+        return {k: _tree_to(v, device) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_tree_to(v, device) for v in tree]
+    return None if tree is None else tree.to(device)
