@@ -5,6 +5,7 @@
     python3 chip_smoke.py --phases build,kernel
     python3 chip_smoke.py --phases build,kernel,long
     python3 chip_smoke.py --phases build,kernel,moe
+    python3 chip_smoke.py --phases build,kernel,archs
 
 Phases, each printing one JSON line:
 
@@ -61,6 +62,22 @@ Phases, each printing one JSON line:
    attention and against the padded stack, and the CLI's perplexity
    against the job's compressed perplexity.
 
+7. archs  — the dense archs beyond llama and opt. At the published
+   Gemma-2-9B widths (hidden 3584, intermediate 14336, 16 heads over 8 kv
+   heads of 256, vocab 256000 tied, query_pre_attn_scalar 256, score cap
+   50, final cap 30, a 4096 window on alternate layers), 42 -> 4 layers,
+   random f32 weights, the main phase's job settings: its soft-capped
+   scores take the plain attention in every forward, so K1 must launch 0
+   times in the job (the JAX forward sends such layers to XLA, not to
+   its kernel). The reloaded artifact, padded, serves the serve phase's
+   16 requests through K3 with the cap (K3 against its plain version,
+   teacher forcing, launches = layers x dispatches). Then one forward of
+   each of gemma-7b, OLMo-2-7B, gpt2-xl, Phi-3-mini, StarCoder2-7B,
+   Mistral-7B and Qwen2-7B at published widths, 2 layers, through K1 (2
+   launches each) against the plain attention, and one decode step of
+   each padded model through K3 against its plain version (multi-head
+   G*S = 1, and groups of 4, 7 and 9).
+
 Then a `{"kernels": [...]}` line (each kernel's launches summed over the
 paths that ran it, and by path), the card's name and power limit as
 nvidia-smi reports them, and last `{"ok": true, "device": {...}}`. Any
@@ -102,6 +119,16 @@ KERNEL_CASES = [
     dict(name="mha", B=2, H=32, Hk=32, T=2048, hd=128, hd_v=128, dtype="float32", window=None),
     # the moe phase's job (Qwen3-30B-A3B: 32 heads over 4 kv heads)
     dict(name="moe_f32", B=2, H=32, Hk=4, T=2048, hd=128, hd_v=128, dtype="float32", window=None),
+    # the archs phase's forwards at published widths (B = 1): gemma-7b's
+    # 16 heads of 256, phi3's 96-wide heads with a 2047 window at
+    # T = 2048, gpt2-xl's 25 heads of 64 at its 1024 positions, qwen2's
+    # 7 and starcoder2's 9 query heads a kv head
+    dict(name="gemma7b_mha_hd256", B=1, H=16, Hk=16, T=2048, hd=256, hd_v=256, dtype="float32", window=None),
+    dict(name="phi3_hd96_window2047", B=1, H=32, Hk=32, T=2048, hd=96, hd_v=96, dtype="float32", window=2047),
+    dict(name="gpt2xl_H25_hd64", B=1, H=25, Hk=25, T=1024, hd=64, hd_v=64, dtype="float32", window=None),
+    dict(name="qwen2_G7", B=1, H=28, Hk=4, T=2048, hd=128, hd_v=128, dtype="float32", window=None),
+    dict(name="starcoder2_G9_window4096", B=1, H=36, Hk=4, T=2048, hd=128, hd_v=128, dtype="float32",
+         window=4096),
 ]
 # K2 (flash_attention_hbm) cases. The first is the long phase's shape: one
 # 16384-token window (eval and calibration batches of 1) at 32 heads over
@@ -161,12 +188,33 @@ RAGGED_CASES = [
     # step is G*S = 8 rows a kv head, and a prefill chunk 1024
     dict(_DECODE, name="decode_moe_G8", Hk=4),
     dict(_DECODE, name="chunk_moe_G8_S128", Hk=4, B=1, S=128, pos=[384]),
+    # the archs phase: the soft-capped Gemma-2-9B stack (16 heads over 8
+    # kv heads) at padded ranks of 256, decode and prefill chunk;
+    # multi-head attention at published widths (G*S = 1); GQA groups of
+    # 7 (qwen2) and 9 (starcoder2)
+    dict(_DECODE, name="gemma2_softcap_r256", H=16, Hk=8, Rq=256, Rv=256, softcap=50.0),
+    dict(_DECODE, name="gemma2_chunk_softcap_r256", H=16, Hk=8, Rq=256, Rv=256, softcap=50.0, B=1, S=128,
+         pos=[384]),
+    # the archs phase's served model: its widest layer keeps 250 of 256
+    # dims a head, so the padded ranks are 250
+    dict(_DECODE, name="gemma2_served_softcap_r250", H=16, Hk=8, Rq=250, Rv=250, softcap=50.0),
+    dict(_DECODE, name="mha_gemma7b_r256", H=16, Hk=16, Rq=256, Rv=256),
+    dict(_DECODE, name="mha_phi3_r96", Hk=32, Rq=96, Rv=96),
+    dict(_DECODE, name="mha_gpt2xl_H25_r64", H=25, Hk=25, Rq=64, Rv=64),
+    dict(_DECODE, name="qwen2_G7", H=28, Hk=4, Rq=128, Rv=128),
+    dict(_DECODE, name="starcoder2_G9", H=36, Hk=4, Rq=128, Rv=128),
 ]
 # the row sweep: every decode form in use (G*S = 1, 2, 3, 4, 5, 8, 12,
 # 16 query rows a kv head; 32 heads over 32 / G kv heads), so a form that
 # sums wrongly at one row count shows here
 ROW_SWEEP = [(1, 1), (2, 1), (1, 3), (4, 1), (1, 5), (8, 1), (4, 3), (8, 2)]
 RAGGED_CASES += [dict(_DECODE, name=f"rows{G * S}_G{G}_S{S}", Hk=32 // G, S=S) for G, S in ROW_SWEEP]
+# the one-row form (multi-head decode) in the pool's other dtypes
+RAGGED_CASES += [
+    dict(_DECODE, name="rows1_G1_S1_bf16", Hk=32, dtype="bfloat16"),
+    dict(_DECODE, name="rows1_G1_S1_int8", Hk=32, int8=True),
+    dict(_DECODE, name="rows1_G1_S1_int8_bf16", Hk=32, int8=True, dtype="bfloat16"),
+]
 
 # The serve phase's traffic: prompts of token ids from the synthetic eval
 # set, lengths uniform over [min_prompt, max_prompt] from a seeded numpy
@@ -201,6 +249,63 @@ QWEN3_30B_A3B = dict(  # Qwen/Qwen3-30B-A3B config.json
     num_experts=128, num_experts_per_tok=8, norm_topk_prob=True, decoder_sparse_step=1,
     mlp_only_layers=[], use_sliding_window=False, sliding_window=None, max_window_layers=48,
 )
+
+ARCH_LAYERS = 4  # Gemma-2-9B's 42 layers cut to 4 (two sliding, two full): 0.79 GB of f32 weights a layer
+GEMMA2_9B = dict(  # google/gemma-2-9b config.json
+    model_type="gemma2", vocab_size=256000, hidden_size=3584, intermediate_size=14336,
+    num_hidden_layers=42, num_attention_heads=16, num_key_value_heads=8, head_dim=256,
+    max_position_embeddings=8192, rms_norm_eps=1e-6, rope_theta=10000.0,
+    hidden_activation="gelu_pytorch_tanh", tie_word_embeddings=True, attention_bias=False,
+    query_pre_attn_scalar=256, attn_logit_softcapping=50.0, final_logit_softcapping=30.0,
+    sliding_window=4096, rope_scaling=None,
+)
+# The other seven dense archs at published widths (each model's widths,
+# vocabulary, window and the like as published; every other field the
+# default of its transformers config class), cut to FORWARD_LAYERS
+# layers, one forward each at (1, T) tokens.
+FORWARD_LAYERS = 2
+ARCH_FORWARDS = {
+    "google/gemma-7b": (2048, dict(
+        model_type="gemma", vocab_size=256000, hidden_size=3072, intermediate_size=24576,
+        num_hidden_layers=28, num_attention_heads=16, num_key_value_heads=16, head_dim=256,
+        max_position_embeddings=8192, rms_norm_eps=1e-6, rope_theta=10000.0,
+        hidden_activation="gelu_pytorch_tanh", tie_word_embeddings=True, rope_scaling=None)),
+    "allenai/OLMo-2-1124-7B": (2048, dict(
+        model_type="olmo2", vocab_size=100352, hidden_size=4096, intermediate_size=11008,
+        num_hidden_layers=32, num_attention_heads=32, num_key_value_heads=32,
+        max_position_embeddings=2048, rms_norm_eps=1e-5, rope_theta=500000.0, hidden_act="silu",
+        tie_word_embeddings=False, rope_scaling=None)),
+    "openai-community/gpt2-xl": (1024, dict(  # T = its n_positions
+        model_type="gpt2", vocab_size=50257, n_embd=1600, n_layer=48, n_head=25, n_inner=None,
+        n_positions=1024, activation_function="gelu_new", layer_norm_epsilon=1e-5,
+        tie_word_embeddings=True)),
+    "microsoft/Phi-3-mini-4k-instruct": (2048, dict(  # a 2047 window: it bites at T = 2048
+        model_type="phi3", vocab_size=32064, hidden_size=3072, intermediate_size=8192,
+        num_hidden_layers=32, num_attention_heads=32, num_key_value_heads=32,
+        max_position_embeddings=4096, rms_norm_eps=1e-5, rope_theta=10000.0, hidden_act="silu",
+        tie_word_embeddings=False, sliding_window=2047, rope_scaling=None)),
+    "bigcode/starcoder2-7b": (2048, dict(  # G = 9, biases, LayerNorm
+        model_type="starcoder2", vocab_size=49152, hidden_size=4608, intermediate_size=18432,
+        num_hidden_layers=32, num_attention_heads=36, num_key_value_heads=4,
+        max_position_embeddings=4096, norm_epsilon=1e-5, rope_theta=10000.0,
+        hidden_act="gelu_pytorch_tanh", tie_word_embeddings=True, use_bias=True, sliding_window=4096,
+        rope_scaling=None)),
+    "mistralai/Mistral-7B-v0.1": (2048, dict(
+        model_type="mistral", vocab_size=32000, hidden_size=4096, intermediate_size=14336,
+        num_hidden_layers=32, num_attention_heads=32, num_key_value_heads=8,
+        max_position_embeddings=131072, rms_norm_eps=1e-6, rope_theta=10000.0, hidden_act="silu",
+        tie_word_embeddings=False, sliding_window=4096, rope_scaling=None)),
+    "Qwen/Qwen2-7B": (2048, dict(  # G = 7, qkv biases
+        model_type="qwen2", vocab_size=152064, hidden_size=3584, intermediate_size=18944,
+        num_hidden_layers=28, num_attention_heads=28, num_key_value_heads=4,
+        max_position_embeddings=32768, rms_norm_eps=1e-6, rope_theta=10000.0, hidden_act="silu",
+        tie_word_embeddings=False, use_sliding_window=False, sliding_window=None,
+        max_window_layers=28, rope_scaling=None)),
+}
+# each padded 2-layer model's decode check: DECODE_SLOTS rows, each
+# prefilled to its own length (plain attention), then one decode step
+# through K3 against its plain version
+DECODE_SLOTS, DECODE_POOL = 4, 512
 
 
 def emit(obj) -> None:
@@ -566,28 +671,33 @@ def _profile_line(prof, wall_s: float, phase: str = "main", ranges=()) -> dict:
 
 
 MOE_RANGE = "moe_mlp (every expert on every token)"
+CAPPED_RANGE = "plain attention (soft-capped scores)"
 
 
 @contextlib.contextmanager
-def _moe_range():
-    """Wrap the port's dense MoE MLP (as the unrolled and the padded
-    forward call it) in a profiler range named MOE_RANGE."""
+def _annotated(name: str, range_name: str):
+    """Wrap the function `name` of `models.forward` (the unrolled and the
+    padded forward both call it from there) in a profiler range named
+    `range_name`, counting its calls: `_moe_mlp`, the dense MoE MLP, or
+    `flash_attention_reference`, the plain attention. Yields
+    {"calls": n}."""
     import torch
 
     from modegpt_tpu_torch.models import forward as forward_mod
-    from modegpt_tpu_torch.models import padded as padded_mod
 
-    original = forward_mod._moe_mlp
+    original = getattr(forward_mod, name)
+    count = {"calls": 0}
 
     def annotated(*args, **kwargs):
-        with torch.profiler.record_function(MOE_RANGE):
+        count["calls"] += 1
+        with torch.profiler.record_function(range_name):
             return original(*args, **kwargs)
 
-    forward_mod._moe_mlp = padded_mod._moe_mlp = annotated
+    setattr(forward_mod, name, annotated)
     try:
-        yield
+        yield count
     finally:
-        forward_mod._moe_mlp = padded_mod._moe_mlp = original
+        setattr(forward_mod, name, original)
 
 
 def phase_main(records: dict, profile: bool = False) -> dict:
@@ -1079,7 +1189,7 @@ def phase_moe(records: dict, profile: bool = False) -> dict:
         prof = _profiler() if profile else contextlib.nullcontext()
         t_run = time.perf_counter()
         fa_mod.flash_attention.launches = 0
-        with prof, _moe_range() if profile else contextlib.nullcontext():
+        with prof, _annotated("_moe_mlp", MOE_RANGE) if profile else contextlib.nullcontext():
             results = run_compression(config, spec=spec, params=params)
         k1_launches = fa_mod.flash_attention.launches
         t_run = time.perf_counter() - t_run
@@ -1216,6 +1326,231 @@ def phase_moe(records: dict, profile: bool = False) -> dict:
     return line
 
 
+def _decode_check(pm) -> dict:
+    """One decode step of a padded model through K3 against its plain
+    version: DECODE_SLOTS rows prefilled through the plain attention, then
+    decoded at lengths of their own (320, 256, 192, 128)."""
+    import numpy as np
+    import torch
+
+    from modegpt_tpu_torch.kernels import ragged_decode as rd_mod
+    from modegpt_tpu_torch.models.padded import _model_step_padded, init_cache_padded
+
+    spec, P = pm.spec, 320
+    rng = np.random.default_rng(0)
+    ck, cv, _ = init_cache_padded(pm, DECODE_SLOTS, DECODE_POOL)
+    prompt = torch.as_tensor(rng.integers(0, spec.vocab_size, (DECODE_SLOTS, P)), device="cuda")
+    nxt = torch.as_tensor(rng.integers(0, spec.vocab_size, (DECODE_SLOTS, 1)), device="cuda")
+    lengths = np.array([P - 64 * i for i in range(DECODE_SLOTS)])
+    with torch.no_grad():
+        _model_step_padded(spec, pm.layers, pm.other, pm.q_hd_true, prompt, ck, cv, 0, decode_attn="xla",
+                           logits_at=P - 1)
+        out, launched = {}, 0
+        for attn in ("ragged", "xla"):
+            before = rd_mod.ragged_gqa_attend.launches
+            out[attn], _ = _model_step_padded(spec, pm.layers, pm.other, pm.q_hd_true, nxt, ck.clone(), cv.clone(),
+                                              lengths, decode_attn=attn)
+            launched += rd_mod.ragged_gqa_attend.launches - before
+    a, c = out["ragged"], out["xla"]
+    return {
+        "rows_a_kv_head": spec.group_size, "Rq": spec.q_ranks[0] // spec.n_heads,
+        "Rv": spec.v_ranks[0] // spec.n_kv_heads, "lengths": lengths.tolist(), "k3_launches": launched,
+        "max_abs_err": float((a - c).abs().max()),
+        "ok": bool(torch.allclose(a, c, rtol=1e-3, atol=1e-3)) and bool(torch.isfinite(a).all()),
+    }
+
+
+def phase_archs(records: dict, profile: bool = False) -> dict:
+    """The dense archs beyond llama and opt. At Gemma-2-9B widths (4
+    layers): a compression job, in which no forward takes K1 (the scores
+    are soft-capped, so every layer takes the plain attention, as the JAX
+    forward sends it to XLA), then the serve phase's 16 requests through
+    K3 with the cap. Then one forward of each of the seven other archs at
+    published widths (2 layers) through K1 against the plain attention,
+    and one decode step of each padded model through K3 against its plain
+    version."""
+    import torch
+
+    from modegpt_tpu_torch.calib.data import load_eval_tokens
+    from modegpt_tpu_torch.compress.artifact import load_compressed_model
+    from modegpt_tpu_torch.compress.pipeline import run_compression
+    from modegpt_tpu_torch.config import CompressionConfig
+    from modegpt_tpu_torch.evals.perplexity import resolve_exec_mode
+    from modegpt_tpu_torch.kernels import flash_attention as fa_mod
+    from modegpt_tpu_torch.kernels import ragged_decode as rd_mod
+    from modegpt_tpu_torch.models import serving
+    from modegpt_tpu_torch.models.forward import forward
+    from modegpt_tpu_torch.models.init import init_params
+    from modegpt_tpu_torch.models.padded import forward_padded, pad_to_uniform, padding_overhead
+    from modegpt_tpu_torch.models.spec import spec_from_hf_config
+
+    spec = spec_from_hf_config(SimpleNamespace(**{**GEMMA2_9B, "num_hidden_layers": ARCH_LAYERS}))
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = init_params(spec, torch.Generator(device="cuda").manual_seed(0), device="cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+
+    with tempfile.TemporaryDirectory(prefix="modegpt_smoke_archs_") as tmp:
+        config = CompressionConfig(
+            model="random-gemma-2-9b-widths", device="cuda",
+            seq_len=2048, calib_size=8, calibs_batch_size=2, eval_batch_size=2,
+            eval_max_samples=4, compression_ratio=0.3, dataset="synthetic",
+            solver_precision="f32_device",
+            output_dir=os.path.join(tmp, "out"),
+            temp_storage_dir=os.path.join(tmp, "layers"),
+            metrics_dir=os.path.join(tmp, "metrics"),
+        ).validate()
+        prof = _profiler() if profile else contextlib.nullcontext()
+        t_run = time.perf_counter()
+        fa_mod.flash_attention.launches = 0
+        with prof, _annotated("flash_attention_reference", CAPPED_RANGE) as plain:
+            results = run_compression(config, spec=spec, params=params)
+        k1_job = fa_mod.flash_attention.launches
+        t_run = time.perf_counter() - t_run
+        job_peak = torch.cuda.max_memory_allocated() / 2**30
+        del params, results["compressed_params"]
+        if profile:
+            emit(_profile_line(prof, t_run, "archs", ranges=(CAPPED_RANGE,)))
+        n_eval = min(config.eval_max_samples, 16)  # the synthetic eval set
+        n_batches = 2 * math.ceil(n_eval / config.eval_batch_size) + math.ceil(
+            config.calib_size / config.calibs_batch_size
+        )
+        cspec = results["compressed_spec"]
+        spec2, params2, _ = load_compressed_model(results["artifact_dir"], device="cuda")
+
+    # the padded stack against the unrolled forward on one eval window
+    ids = torch.as_tensor(load_eval_tokens(None, "synthetic", 512, 1, vocab_size=spec.vocab_size), device="cuda")
+    pm = pad_to_uniform(spec2, params2)
+    with torch.no_grad():
+        lu, _ = forward(spec2, params2, ids, attn_impl="flash")
+        lpad = forward_padded(pm.spec, pm.layers, pm.other, pm.q_hd_true, ids, attn_impl="flash")
+    padded_err = float((lpad - lu).abs().max())
+    padded_ok = bool(torch.allclose(lpad, lu, rtol=1e-3, atol=1e-3))
+    del lu, lpad
+    torch.cuda.empty_cache()
+
+    # the serve phase's 16 requests through K3, with the cap
+    n, new = SERVE["requests"], SERVE["max_new_tokens"]
+    prompts, lens = _serve_prompts(cspec.vocab_size, n)
+    b = serving.ContinuousBatcher(pm, slots=SERVE["slots"], max_len=SERVE["max_len"],
+                                  prefill_bucket=SERVE["prefill_bucket"], temperature=0.0, decode_attn="auto")
+    check = {}
+
+    def on_step(step):
+        if check or not any(_decoding(b)):
+            return
+        a, c = (_decode_logits(pm, b.state, attn) for attn in ("ragged", "xla"))
+        check.update(step=step, err=float((a - c).abs().max()), ok=bool(torch.allclose(a, c, rtol=1e-3, atol=1e-3)))
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    torch.cuda.reset_peak_memory_stats()
+    rd_mod.ragged_gqa_attend.launches = 0
+    with _counted_dispatches() as (counts, seconds):
+        done, rids, wall = _serve_round(b, prompts, gen, on_step=on_step)
+    k3_round = rd_mod.ragged_gqa_attend.launches
+    serve_peak = torch.cuda.max_memory_allocated() / 2**30
+    k3_expected = cspec.n_layers * (counts["prefill"] + counts["decode"])
+    exact, max_gap = _teacher_forcing(spec2, params2, done, rids, prompts, new)
+    lengths_ok = all(len(done.get(r, [])) == len(p) + new for r, p in zip(rids, prompts))
+    decode_attn = b.decode_attn
+    del pm, params2, b
+    torch.cuda.empty_cache()
+
+    # the seven other archs: one forward each through K1 against the plain
+    # attention, and one decode step of the padded model through K3
+    forwards = {}
+    for name, (T, cfg) in ARCH_FORWARDS.items():
+        depth = "n_layer" if cfg["model_type"] == "gpt2" else "num_hidden_layers"
+        fspec = spec_from_hf_config(SimpleNamespace(**{**cfg, depth: FORWARD_LAYERS}))
+        fparams = init_params(fspec, torch.Generator(device="cuda").manual_seed(0), device="cuda")
+        fids = torch.as_tensor(load_eval_tokens(None, "synthetic", T, 1, vocab_size=fspec.vocab_size), device="cuda")
+        fa_mod.flash_attention.launches = 0
+        with torch.no_grad():
+            lk, _ = forward(fspec, fparams, fids, attn_impl="flash")
+            k1 = fa_mod.flash_attention.launches
+            lp, _ = forward(fspec, fparams, fids, attn_impl="xla")
+        forwards[name] = {
+            "arch": fspec.arch, "T": T, "heads": fspec.n_heads, "kv_heads": fspec.n_kv_heads,
+            "head_dim": fspec.head_dim, "window": fspec.sliding_window if fspec.layer_types else None,
+            "k1_launches": k1, "logits_max_abs_err": float((lk - lp).abs().max()),
+            "ok": bool(torch.allclose(lk, lp, rtol=1e-3, atol=1e-3)) and bool(torch.isfinite(lk).all()),
+        }
+        del lk, lp
+        forwards[name]["decode"] = _decode_check(pad_to_uniform(fspec, fparams))
+        del fparams
+        torch.cuda.empty_cache()
+
+    k1_forwards = sum(f["k1_launches"] for f in forwards.values())
+    records["flash_attention"]["launches_by_phase"]["archs"] = k1_job + k1_forwards
+    records["ragged_gqa_attend"]["launches_by_phase"]["archs"] = k3_round
+    line = {
+        "phase": "archs", "model": "Gemma-2-9B widths", "n_layers": ARCH_LAYERS,
+        "compressed_eval_path": resolve_exec_mode(cspec, config.compressed_exec),
+        "padding_overhead": padding_overhead(cspec),
+        "init_seconds": init_s, "step_seconds": results["step_seconds"],
+        "total_seconds": results["total_seconds"], "job_peak_memory_gib": job_peak,
+        "baseline_ppl": results["baseline_ppl"], "compressed_ppl": results["compressed_ppl"],
+        "params_before": results["params_before"], "params_after": results["params_after"],
+        "ranks": {
+            "q": list(cspec.q_ranks), "k": list(cspec.k_ranks), "v": list(cspec.v_ranks),
+            "o": list(cspec.o_ranks), "gate": list(cspec.gate_ranks),
+        },
+        "launches": {"flash_attention": k1_job, "plain_attention_calls": plain["calls"]},
+        "expected_launches": {"flash_attention": 0, "plain_attention_calls": ARCH_LAYERS * n_batches},
+        "padded_vs_unrolled_logits_max_abs_err": padded_err,
+        "serve": {
+            "requests": n, "max_new_tokens": new, "prompt_lengths": lens.tolist(),
+            "decode_attn": decode_attn, "wall_seconds": wall, "generated_tokens_per_s": n * new / wall,
+            "dispatches": dict(counts),
+            "mean_prefill_dispatch_ms": 1e3 * seconds["prefill"] / max(counts["prefill"], 1),
+            "mean_decode_dispatch_ms": 1e3 * seconds["decode"] / max(counts["decode"], 1),
+            "k3_launches": k3_round, "k3_expected": k3_expected, "decode_check": check,
+            "teacher_forcing": {"exact_argmax": exact, "of": n * new, "max_gap_to_row_max": max_gap},
+            "peak_memory_gib": serve_peak,
+        },
+        "forwards": forwards,
+    }
+    emit(line)
+    problems = []
+    if k1_job != 0:
+        problems.append(f"flash_attention launched {k1_job} times in the soft-capped job, expected 0")
+    if plain["calls"] != ARCH_LAYERS * n_batches:
+        problems.append(f"the plain attention ran {plain['calls']} times in the job, "
+                        f"expected {ARCH_LAYERS * n_batches}")
+    for key in ("baseline_ppl", "compressed_ppl"):
+        if not math.isfinite(results[key]):
+            problems.append(f"{key} is not finite")
+    if not (0 < sum(cspec.gate_ranks) < sum(spec.gate_ranks) and 0 < sum(cspec.q_ranks) < sum(spec.q_ranks)):
+        problems.append("rank lists did not shrink")
+    if spec2 != cspec:
+        problems.append("reloaded artifact's spec differs from the compressed spec")
+    if not padded_ok:
+        problems.append(f"compressed logits: forward_padded vs unrolled forward differ by {padded_err}")
+    if k3_round != k3_expected:
+        problems.append(f"ragged_gqa_attend launched {k3_round} times in the serve round, expected {k3_expected}")
+    if decode_attn != "ragged":
+        problems.append(f"decode_attn auto resolved to {decode_attn}, not ragged")
+    if not lengths_ok:
+        problems.append(f"a request did not return prompt + {new} tokens")
+    if not check.get("ok"):
+        problems.append(f"decode logits K3 vs plain: {check}")
+    if exact != n * new or max_gap > 1e-3:
+        problems.append(f"{exact} of {n * new} served tokens are the unrolled forward's argmax "
+                        f"(largest gap {max_gap})")
+    for name, f in forwards.items():
+        if f["k1_launches"] != FORWARD_LAYERS:
+            problems.append(f"{name}: flash_attention launched {f['k1_launches']} times, expected {FORWARD_LAYERS}")
+        if not f["ok"]:
+            problems.append(f"{name}: logits K1 vs plain differ by {f['logits_max_abs_err']}")
+        d = f["decode"]
+        if d["k3_launches"] != FORWARD_LAYERS or not d["ok"]:
+            problems.append(f"{name}: decode step K3 vs plain: {d}")
+    if problems:
+        raise AssertionError("; ".join(problems))
+    return line
+
+
 def card_line() -> str:
     try:
         out = subprocess.run(
@@ -1229,10 +1564,10 @@ def card_line() -> str:
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--phases", default="build,kernel,main,serve,moe,long")
+    ap.add_argument("--phases", default="build,kernel,main,serve,moe,long,archs")
     ap.add_argument("--profile", action="store_true",
-                    help="trace the main job, the serve round, the moe job and the long "
-                    "job with torch.profiler; print their device busy time")
+                    help="trace the main job, the serve round, the moe job, the long job and "
+                    "the archs job with torch.profiler; print their device busy time")
     args = ap.parse_args(argv)
     phases = args.phases.split(",")
 
@@ -1255,8 +1590,8 @@ def main(argv=None) -> int:
         emit(phase_build())
     if "kernel" in phases:
         phase_kernel(records)
-    if {"main", "serve", "moe", "long"} & set(phases) and "kernel" not in phases:
-        raise SystemExit("chip_smoke: the main, serve, moe and long phases need the kernel phase's records")
+    if {"main", "serve", "moe", "long", "archs"} & set(phases) and "kernel" not in phases:
+        raise SystemExit("chip_smoke: the main, serve, moe, long and archs phases need the kernel phase's records")
     if "main" in phases or "serve" in phases:
         main_out = phase_main(records, args.profile)
         if "serve" in phases:
@@ -1267,6 +1602,9 @@ def main(argv=None) -> int:
         phase_moe(records, args.profile)
     if "long" in phases:
         phase_long(records, args.profile)
+    if "archs" in phases:
+        torch.cuda.empty_cache()
+        phase_archs(records, args.profile)
     for rec in records.values():  # each path's launches, read just after it ran
         rec["launches"] = sum(rec["launches_by_phase"].values())
     emit({"kernels": list(records.values())})

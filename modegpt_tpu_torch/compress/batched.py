@@ -13,7 +13,8 @@ that per-layer path, a loop over the ported ops:
   own rank;
 * Type-II:  `ops.qk.compress_qk_layer_rope` / `compress_qk_layer_opt` on
   the covariance diagonals, as ``_solve_qk_host`` does, with a RoPE
-  arch's q/k biases (qwen2_moe) sliced through the rotary mask;
+  arch's q/k biases (qwen2, starcoder2, qwen2_moe) sliced through the
+  rotary mask;
 * Type-III: `ops.vo.vo_full_factors`, sliced to rank.
 
 A MoE layer's experts are solved one after another: the ridge of each
@@ -138,8 +139,9 @@ def solve_chunk_batched(
                 f = compress_qk_layer_rope(cov_q, cov_k, hf(lp, "q"), hf(lp, "k"), rank, config.ridge_qk)
                 fd = {"q": to_numpy(f.q), "k": to_numpy(f.k), "rotary_mask": to_numpy(f.rotary_mask)}
                 if "bias" in lp["q"]:
-                    # qkv biases on a RoPE arch (qwen2_moe): the kept
-                    # coordinates of each head, through the same mask
+                    # qkv biases on a RoPE arch (qwen2, starcoder2,
+                    # qwen2_moe): the kept coordinates of each head,
+                    # through the same mask
                     masks = fd["rotary_mask"]
                     bq = to_numpy(lp["q"]["bias"]).reshape(H, -1)
                     bk = to_numpy(lp["k"]["bias"]).reshape(Hk, -1)

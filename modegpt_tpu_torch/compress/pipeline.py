@@ -9,9 +9,10 @@ The per-layer factor store doubles as a resume checkpoint: layers whose
 factor files exist are skipped on a re-run, guarded by a fingerprint of
 the run (`_check_factor_store`).
 
-Dense llama, qwen3 and opt and the mixture-of-experts mixtral, qwen3_moe
-and qwen2_moe run; a mixed dense/MoE stack calibrates every layer in one
-pass (`calib.engine`). The compressed evaluation runs unrolled or padded
+Every architecture the spec parses runs: the dense llama, mistral,
+qwen2, qwen3, phi3, starcoder2, gemma, gemma2, olmo2, opt and gpt2 and
+the mixture-of-experts mixtral, qwen3_moe and qwen2_moe; a mixed
+dense/MoE stack calibrates every layer in one pass (`calib.engine`). The compressed evaluation runs unrolled or padded
 (`evals.perplexity.resolve_exec_mode`).
 
 Paths of the JAX pipeline that this port does not have raise

@@ -183,6 +183,27 @@ __device__ __forceinline__ float warp_sum8(float x) {
 
 // ---- decode form: one block per (split, kv head, slot) ----
 
+// Key kk of a warp's tile into the P.V sums: acc[r][c] += p[r][kk] *
+// v[kk][col] over the lane's output columns (col = lane + 32 c). sPw is
+// the warp's [RMAX][DKW] probabilities.
+template <typename KV, int RMAX, int VPT>
+__device__ __forceinline__ void pv_key(const KV* vrow, const float* sPw, int kk, int lane, int Rv, int rows,
+                                       float (&acc)[RMAX][VPT]) {
+  float pv[RMAX];
+#pragma unroll
+  for (int r = 0; r < RMAX; ++r) pv[r] = sPw[r * DKW + kk];
+#pragma unroll
+  for (int c = 0; c < VPT; ++c) {
+    const int col = lane + WARP * c;
+    if (col < Rv) {
+      const float vv = to_f(vrow[col]);
+#pragma unroll
+      for (int r = 0; r < RMAX; ++r)
+        if (r < rows) acc[r][c] = fmaf(pv[r], vv, acc[r][c]);
+    }
+  }
+}
+
 // T: q / output dtype; KV: pool dtype (T, or int8_t with scales); RMAX >=
 // rows; VPT: output columns a lane holds (Rv <= 32 * VPT).
 template <typename T, typename KV, int RMAX, int VPT>
@@ -315,21 +336,17 @@ __global__ void __launch_bounds__(DW * WARP) decode_split(const Args a) {
 
     const int nk = min(DKW, k_hi + 1 - (t0 + warp * DKW));
     const unsigned char* vt = sV(st) + warp * DKW * a.v_stride;
-    for (int kk = 0; kk < nk; ++kk) {
-      const KV* vrow = reinterpret_cast<const KV*>(vt + kk * a.v_stride);
-      float pv[RMAX];
-#pragma unroll
-      for (int r = 0; r < RMAX; ++r) pv[r] = sP[(warp * RMAX + r) * DKW + kk];
-#pragma unroll
-      for (int c = 0; c < VPT; ++c) {
-        const int col = lane + WARP * c;
-        if (col < a.Rv) {
-          const float vv = to_f(vrow[col]);
-#pragma unroll
-          for (int r = 0; r < RMAX; ++r)
-            if (r < a.rows) acc[r][c] = fmaf(pv[r], vv, acc[r][c]);
-        }
-      }
+    const float* sPw = sP + warp * RMAX * DKW;
+    if constexpr (RMAX == 1) {
+      // the one-row form's key loop stays rolled: unrolled (the
+      // compiler's 4-way unroll), it summed P.V wrongly on an H100 with m
+      // and l right, where the same loop rolled is exact
+#pragma unroll 1
+      for (int kk = 0; kk < nk; ++kk)
+        pv_key<KV, RMAX, VPT>(reinterpret_cast<const KV*>(vt + kk * a.v_stride), sPw, kk, lane, a.Rv, a.rows, acc);
+    } else {
+      for (int kk = 0; kk < nk; ++kk)
+        pv_key<KV, RMAX, VPT>(reinterpret_cast<const KV*>(vt + kk * a.v_stride), sPw, kk, lane, a.Rv, a.rows, acc);
     }
     __syncthreads();  // the stage is refilled two tiles on
   }
@@ -761,10 +778,9 @@ cudaError_t launch(Args a, int B, cudaStream_t st) {
   if (p.decode) {
     a.k_stride = shared_stride(a.Rq * (int)sizeof(KV));
     a.v_stride = shared_stride(a.Rv * (int)sizeof(KV));
-    // no RMAX = 1 form: on an H100 it summed P.V wrongly at G*S = 1 (m
-    // and l right; a block barrier in place of __syncwarp did not help),
-    // where the RMAX = 2 and 4 forms, the same code, are exact
-    if (p.rows <= 4) {
+    if (p.rows == 1) {  // multi-head attention's decode step
+      err = launch_decode<T, KV, 1>(a, B, st);
+    } else if (p.rows <= 4) {
       err = launch_decode<T, KV, 4>(a, B, st);
     } else {
       err = launch_decode<T, KV, 16>(a, B, st);

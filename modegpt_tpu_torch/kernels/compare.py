@@ -50,12 +50,24 @@ CASES = [
 ]
 # K3: chip_smoke.py's decode and chunk cases; pos None draws B positions
 # over the pool, "edge" puts slot 1 past its end
-_DECODE = dict(B=8, H=32, Hk=8, T=1024, S=1, Rq=126, Rv=126, dtype=torch.float32, window=None, int8=False, pos=None)
+_DECODE = dict(B=8, H=32, Hk=8, T=1024, S=1, Rq=126, Rv=126, dtype=torch.float32, window=None, softcap=None,
+               int8=False, pos=None)
 RAGGED_CASES = [
     dict(_DECODE, name="decode_f32"),
     dict(_DECODE, name="decode_bf16", dtype=torch.bfloat16),
     dict(_DECODE, name="int8_f32", int8=True),
     dict(_DECODE, name="mha", Hk=32),
+    # the archs phase's served shapes: multi-head attention at published
+    # widths (one query row a kv head), GQA groups of 7 and 9, and the
+    # soft-capped Gemma-2-9B stack at ranks of 256
+    dict(_DECODE, name="mha_gemma7b_r256", H=16, Hk=16, Rq=256, Rv=256),
+    dict(_DECODE, name="mha_phi3_r96", Hk=32, Rq=96, Rv=96),
+    dict(_DECODE, name="mha_gpt2xl_H25_r64", H=25, Hk=25, Rq=64, Rv=64),
+    dict(_DECODE, name="qwen2_G7", H=28, Hk=4, Rq=128, Rv=128),
+    dict(_DECODE, name="starcoder2_G9", H=36, Hk=4, Rq=128, Rv=128),
+    dict(_DECODE, name="gemma2_softcap_r256", H=16, Hk=8, Rq=256, Rv=256, softcap=50.0),
+    dict(_DECODE, name="gemma2_chunk_softcap_r256", H=16, Hk=8, Rq=256, Rv=256, softcap=50.0, B=1, S=128,
+         pos=[384]),
     dict(_DECODE, name="edge_row", pos="edge"),
     dict(_DECODE, name="window100", window=100),
     dict(_DECODE, name="decode_T4096", T=4096),
@@ -69,6 +81,12 @@ RAGGED_CASES = [
 ROW_SWEEP = [(1, 1), (2, 1), (1, 3), (4, 1), (1, 5), (8, 1), (4, 3), (8, 2)]
 RAGGED_CASES += [
     dict(_DECODE, name=f"rows{G * S}_G{G}_S{S}", Hk=32 // G, S=S) for G, S in ROW_SWEEP
+]
+# the one-row form in the pool's other dtypes
+RAGGED_CASES += [
+    dict(_DECODE, name="rows1_G1_S1_bf16", Hk=32, dtype=torch.bfloat16),
+    dict(_DECODE, name="rows1_G1_S1_int8", Hk=32, int8=True),
+    dict(_DECODE, name="rows1_G1_S1_int8_bf16", Hk=32, int8=True, dtype=torch.bfloat16),
 ]
 _ENTRIES = ("modegpt_flash_attention_hbm", "modegpt_ragged_gqa_attend")
 
@@ -134,7 +152,7 @@ def launch(fn, q, k, v):
 
 
 def _ragged_launcher(lib):
-    """prepare(q, k, v, pos, k_scale, v_scale, window) -> a callable that
+    """prepare(q, k, v, pos, k_scale, v_scale, window, softcap) -> a callable that
     launches one variant's kernels into preallocated output and scratch
     and returns the output, so that the timed loop is the launches."""
     fn, ws_fn = lib.modegpt_ragged_gqa_attend, lib.modegpt_ragged_gqa_workspace
@@ -143,7 +161,7 @@ def _ragged_launcher(lib):
     ws_fn.argtypes = [ctypes.c_int] * 7
     ws_fn.restype = ctypes.c_longlong
 
-    def prepare(q, k, v, pos, ks, vs, window):
+    def prepare(q, k, v, pos, ks, vs, window, softcap=None):
         B, H, S, Rq = q.shape
         Hk, T, Rv = k.shape[1], k.shape[2], v.shape[-1]
         o = torch.empty((B, H, S, Rv), dtype=q.dtype, device=q.device)
@@ -151,7 +169,7 @@ def _ragged_launcher(lib):
         args = (
             q.data_ptr(), k.data_ptr(), v.data_ptr(), 0 if ks is None else ks.data_ptr(),
             0 if vs is None else vs.data_ptr(), pos.data_ptr(), o.data_ptr(), ws.data_ptr(),
-            B, H, Hk, S, T, Rq, Rv, window or 0, 0.0, 0 if q.dtype == torch.float32 else 1,
+            B, H, Hk, S, T, Rq, Rv, window or 0, softcap or 0.0, 0 if q.dtype == torch.float32 else 1,
             torch.cuda.current_stream().cuda_stream,
         )
 
@@ -218,12 +236,12 @@ def _compare_ragged(names, libs) -> None:
             k, v = (t(rng.standard_normal((B, Hk, T, r)).astype(np.float32)).to(case["dtype"]) for r in (Rq, Rv))
             ks = vs = None
         pos = torch.tensor(pos_host, dtype=torch.int32, device="cuda")
-        w = case["window"]
-        plain = ragged_gqa_attend_reference(q, k, v, pos, ks, vs, window=w).float()
+        w, cap = case["window"], case["softcap"]
+        plain = ragged_gqa_attend_reference(q, k, v, pos, ks, vs, window=w, softcap=cap).float()
         first = None
         cells = []
         for label, prepare in zip(names, runs):
-            run = prepare(q, k, v, pos, ks, vs, w)
+            run = prepare(q, k, v, pos, ks, vs, w, cap)
             out = run().float()
             first = out if first is None else first
             diff = float((out - first).abs().max())

@@ -55,11 +55,14 @@ def flash_attention_reference(
     v: torch.Tensor,
     scale: Optional[float] = None,
     window: Optional[int] = None,
+    softcap: Optional[float] = None,
 ) -> torch.Tensor:
     """Masked float32-softmax attention with GQA — the XLA branch of
     ``modegpt_tpu.models.forward._attention``: scores in the input dtype
-    times ``scale``, softmax in float32, probabilities cast back to the
-    input dtype for the product with v. A key is visible iff
+    times ``scale``, then in float32 ``softcap * tanh(s / softcap)`` when
+    a cap is given (gemma2; the kernels have none, so the forward routes
+    a capped layer here), softmax in float32, probabilities cast back to
+    the input dtype for the product with v. A key is visible iff
     ``q - window < k <= q``.
 
     It runs over blocks of query rows. Each row's softmax is independent
@@ -88,7 +91,10 @@ def flash_attention_reference(
         mask = ki <= qi
         if window is not None:
             mask = mask & (ki > qi - window)
-        scores = scores.to(torch.float32).masked_fill(~mask, float("-inf"))
+        scores = scores.to(torch.float32)
+        if softcap is not None:
+            scores = torch.tanh(scores / softcap) * softcap
+        scores = scores.masked_fill(~mask, float("-inf"))
         probs = torch.softmax(scores, dim=-1).to(q.dtype)
         del scores
         out[:, :, :, r0:r1] = torch.einsum("bkgst,bktd->bkgsd", probs, v[:, :, k0:r1])

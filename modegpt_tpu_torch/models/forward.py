@@ -1,12 +1,21 @@
 """Functional decoder-only forward pass with calibration taps.
 
-Port of ``modegpt_tpu.models.forward`` for the dense and compressed
-(heterogeneous per-layer rank, rotary-masked) llama, qwen3 and opt
-models and the mixture-of-experts mixtral, qwen3_moe (all-MoE or mixed
-with dense layers) and qwen2_moe (shared expert, qkv biases). Parameters
-are the JAX package's tree as torch tensors: kernels in ``[in, out]``
-layout (``y = x @ kernel``), expert stacks ``[E, in, out]``, per-layer
-rotary masks as int32 leaves.
+Port of ``modegpt_tpu.models.forward`` for every architecture the spec
+parses, dense and compressed (heterogeneous per-layer rank,
+rotary-masked): llama, mistral, qwen2, qwen3, phi3, starcoder2, gemma,
+gemma2, olmo2, opt and gpt2, and the mixture-of-experts mixtral,
+qwen3_moe (all-MoE or mixed with dense layers) and qwen2_moe (shared
+expert, qkv biases). Parameters are the JAX package's tree as torch
+tensors: kernels in ``[in, out]`` layout (``y = x @ kernel``), expert
+stacks ``[E, in, out]``, per-layer rotary masks as int32 leaves.
+
+The layer's wiring follows the spec: pre-norms (or none: olmo2; or the
+norm after the residual add: post-LN OPT), gemma2's and olmo2's
+post-sublayer norms on each sublayer's output before its residual add,
+qwen3's per-head or olmo2's whole-projection q/k norm, gemma's
+``(1 + w)`` RMSNorm and ``sqrt(d_model)`` embedding scale, gemma2's
+fixed attention scale and its soft caps on the attention scores and the
+final logits, learned positions for opt and gpt2.
 
 When ``stats_layers`` is non-empty the forward also returns the
 calibration statistics (`CalibStats`): Grams of the post-activation MLP
@@ -27,8 +36,10 @@ renormalised when ``norm_topk_prob``.
 Attention at ``128 <= T <= 8192`` goes through the hand-written CUDA
 kernel K1 and at ``T > 8192`` through the long-context kernel K2
 (``kernels/flash_attention.py``) on the card, the route the JAX forward
-takes to its two Pallas kernels; shorter sequences and the CPU take the
-plain masked-softmax version, computed over blocks of query rows.
+takes to its two Pallas kernels; shorter sequences, the CPU and a layer
+whose scores are soft-capped (gemma2: the kernels have no cap, and the
+JAX forward sends such a layer to XLA) take the plain masked-softmax
+version, computed over blocks of query rows.
 
 Precision: "highest" means true float32, so TF32 is switched off for
 matmuls and convolutions when this module is imported
@@ -51,8 +62,8 @@ from modegpt_tpu_torch.kernels.flash_attention import (
     flash_attention_hbm,
     flash_attention_reference,
 )
-from modegpt_tpu_torch.models.spec import ModelSpec
-from modegpt_tpu_torch.ops.rope import apply_rope, masked_head_rms_norm, rope_cos_sin
+from modegpt_tpu_torch.models.spec import ARCHS, ModelSpec
+from modegpt_tpu_torch.ops.rope import apply_rope, masked_flat_rms_norm, masked_head_rms_norm, rope_cos_sin
 
 __all__ = ["forward", "forward_taps", "CalibStats", "check_supported", "SUPPORTED_ARCHS"]
 
@@ -60,7 +71,7 @@ __all__ = ["forward", "forward_taps", "CalibStats", "check_supported", "SUPPORTE
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 
-SUPPORTED_ARCHS = ("llama", "qwen3", "opt", "mixtral", "qwen3_moe", "qwen2_moe")
+SUPPORTED_ARCHS = ARCHS  # every architecture the spec parses
 FLASH_MIN_T = 128  # the JAX forward's flash-route threshold
 FLASH_MAX_T = 8192  # beyond: the long-context kernel (K2)
 
@@ -79,17 +90,12 @@ class CalibStats(NamedTuple):
 
 
 def check_supported(spec: ModelSpec) -> None:
-    """Raise NotImplementedError for a spec this port cannot run yet."""
-    missing = []
+    """Raise NotImplementedError for an architecture this port does not
+    know."""
     if spec.arch not in SUPPORTED_ARCHS:
-        missing.append(f"arch {spec.arch!r} (ported: {', '.join(SUPPORTED_ARCHS)})")
-    if spec.post_norms or not spec.pre_norms or spec.flat_qk_norm:
-        missing.append("gemma2/olmo2 norm wiring")
-    if spec.attn_logit_softcap is not None or spec.final_logit_softcap is not None:
-        missing.append("logit soft-capping")
-    if missing:
         raise NotImplementedError(
-            "modegpt_tpu_torch.models.forward does not support " + "; ".join(missing)
+            f"modegpt_tpu_torch.models.forward does not support arch {spec.arch!r} "
+            f"(ported: {', '.join(SUPPORTED_ARCHS)})"
         )
 
 
@@ -98,6 +104,11 @@ def _norm(x: torch.Tensor, p: Dict, kind: str, eps: float) -> torch.Tensor:
     if kind == "rmsnorm":
         var = torch.mean(xf * xf, dim=-1, keepdim=True)
         return (xf * torch.rsqrt(var + eps)).to(x.dtype) * p["scale"]
+    if kind == "rmsnorm_1p":
+        # gemma: scale by (1 + weight), in float32 before the cast
+        # (HF GemmaRMSNorm.forward)
+        var = torch.mean(xf * xf, dim=-1, keepdim=True)
+        return (xf * torch.rsqrt(var + eps) * (1.0 + p["scale"].to(torch.float32))).to(x.dtype)
     if kind == "layernorm":
         mean = torch.mean(xf, dim=-1, keepdim=True)
         var = torch.mean((xf - mean) ** 2, dim=-1, keepdim=True)
@@ -126,6 +137,108 @@ def _act(x: torch.Tensor, kind: str) -> torch.Tensor:
     if kind in ("gelu_new", "gelu_pytorch_tanh"):
         return F.gelu(x, approximate="tanh")
     raise ValueError(f"unknown activation {kind}")
+
+
+def _scale_embed(spec: ModelSpec, x: torch.Tensor) -> torch.Tensor:
+    """gemma and gemma2 scale the token embeddings by sqrt(d_model),
+    rounded through the model dtype (HF GemmaModel.forward)."""
+    if spec.arch in ("gemma", "gemma2"):
+        return x * torch.tensor(spec.d_model**0.5, dtype=x.dtype)
+    return x
+
+
+def _softcap(x: torch.Tensor, cap: Optional[float]) -> torch.Tensor:
+    """gemma2's soft cap ``cap * tanh(x / cap)``, computed in place on
+    ``x`` (a fresh score or logit tensor); x itself when cap is None."""
+    if cap is None:
+        return x
+    return x.div_(cap).tanh_().mul_(cap)
+
+
+def _embed(spec: ModelSpec, params: Dict, ids: torch.Tensor, positions: Optional[torch.Tensor] = None):
+    """Token embeddings (gemma's scale; OPT-350m's ``project_in``) plus,
+    for opt and gpt2, the learned positions at ``positions`` ([T] or
+    [B, T] absolute positions, default 0..T-1; OPT's table is offset by
+    2). A position past the table reads its last row, as the JAX gather
+    clamps; on a CUDA tensor an out-of-range index would be a device-side
+    assert."""
+    x = _scale_embed(spec, params["embed_tokens"][ids.long()])
+    if spec.uses_rope:
+        return x
+    if "project_in" in params:
+        x = _linear(x, params["project_in"])
+    if positions is None:
+        positions = torch.arange(ids.shape[1], device=ids.device)
+    table = params["embed_positions"]
+    pe = table[(positions.long() + spec.position_offset).clamp_(max=table.shape[0] - 1)]
+    return x + (pe[None] if pe.dim() == 2 else pe)
+
+
+def _unembed(spec: ModelSpec, params: Dict, x: torch.Tensor) -> torch.Tensor:
+    """Final norm, OPT-350m's ``project_out``, the LM head (or the tied
+    embeddings) and gemma2's final soft cap."""
+    if params.get("final_norm") is not None:
+        x = _norm(x, params["final_norm"], spec.norm, spec.norm_eps)
+    if "project_out" in params:
+        x = _linear(x, params["project_out"])
+    if params.get("lm_head") is not None:
+        logits = _linear(x, params["lm_head"])
+    else:
+        logits = x @ params["embed_tokens"].T  # tied embeddings
+    return _softcap(logits, spec.final_logit_softcap)
+
+
+def _attn_scale(spec: ModelSpec, q_hd: int) -> float:
+    """The score scale: the compressed head dim's (reference:
+    LlamaRebuild.py:282), or gemma2's query_pre_attn_scalar**-0.5, which
+    stays fixed under compression."""
+    if spec.query_pre_attn_scalar is not None:
+        return spec.query_pre_attn_scalar**-0.5
+    return q_hd**-0.5
+
+
+def _attn_input(spec: ModelSpec, p: Dict, x: torch.Tensor) -> torch.Tensor:
+    """What the q/k/v projections see: x through the pre-attention norm,
+    or x itself where the layer has none (olmo2; post-LN OPT)."""
+    if spec.do_layer_norm_before and spec.pre_norms:
+        return _norm(x, p["attn_norm"], spec.norm, spec.norm_eps)
+    return x
+
+
+def _qk_norms(spec: ModelSpec, p: Dict, q: torch.Tensor, k: torch.Tensor, rotary_mask, r_true=None):
+    """q [B, T, H, r], k [B, T, Hk, r] through qwen3's per-head or
+    olmo2's whole-projection RMSNorm (unchanged for the other archs), the
+    weights gathered through the rotary mask. ``r_true``: the padded
+    stack's true per-head rank, so that zero pads do not dilute the
+    variance."""
+    if spec.qk_norm:
+        q = masked_head_rms_norm(q, p["q_norm"]["scale"], rotary_mask, spec.group_size, spec.norm_eps, r_true)
+        k = masked_head_rms_norm(k, p["k_norm"]["scale"], rotary_mask, 1, spec.norm_eps, r_true)
+    elif spec.flat_qk_norm:
+        B, T, H, r = q.shape
+        Hk = k.shape[2]
+        q = masked_flat_rms_norm(
+            q.reshape(B, T, H * r), p["q_norm"]["scale"], rotary_mask, H, spec.head_dim,
+            spec.group_size, spec.norm_eps, None if r_true is None else H * r_true,
+        ).view(B, T, H, r)
+        k = masked_flat_rms_norm(
+            k.reshape(B, T, Hk * r), p["k_norm"]["scale"], rotary_mask, Hk, spec.head_dim,
+            1, spec.norm_eps, None if r_true is None else Hk * r_true,
+        ).view(B, T, Hk, r)
+    return q, k
+
+
+def _attn_output(spec: ModelSpec, p: Dict, residual: torch.Tensor, attn: torch.Tensor) -> torch.Tensor:
+    """The o projection and the residual add: gemma2's and olmo2's
+    post-attention norm on the projection before the add, post-LN OPT's
+    norm after it."""
+    a_out = _linear(attn, p["o"])
+    if spec.post_norms:
+        a_out = _norm(a_out, p["post_attn_norm"], spec.norm, spec.norm_eps)
+    x = residual + a_out
+    if not spec.do_layer_norm_before:
+        x = _norm(x, p["attn_norm"], spec.norm, spec.norm_eps)
+    return x
 
 
 @contextlib.contextmanager
@@ -317,17 +430,20 @@ def _attention(
     scaling: float,
     window: Optional[int],
     impl: str = "xla",
+    softcap: Optional[float] = None,
 ) -> torch.Tensor:
     """Causal (optionally sliding-window) attention; q [B,H,T,r],
     k/v [B,Hk,T,r_k]. impl="flash" takes the CUDA kernel K1 for
     ``128 <= T <= 8192`` and K2 beyond (the JAX rule, forward.py:454-462);
     "xla" (the JAX name of the plain path) takes the masked float32-softmax
-    version, which runs over blocks of query rows at any T."""
+    version, which runs over blocks of query rows at any T. ``softcap``
+    (gemma2's cap on the scores, before the mask) takes the plain version
+    whatever impl says, as the JAX forward does: neither kernel has a cap."""
     T = q.shape[2]
-    if impl == "flash" and T >= FLASH_MIN_T:
+    if impl == "flash" and T >= FLASH_MIN_T and softcap is None:
         kernel = flash_attention_hbm if T > FLASH_MAX_T else flash_attention
         return kernel(q.contiguous(), k.contiguous(), v.contiguous(), scale=scaling, window=window)
-    return flash_attention_reference(q, k, v, scale=scaling, window=window)
+    return flash_attention_reference(q, k, v, scale=scaling, window=window, softcap=softcap)
 
 
 def _layer(
@@ -347,12 +463,11 @@ def _layer(
     q_hd = spec.q_ranks[layer_idx] // H
     v_hd = spec.v_ranks[layer_idx] // Hk
     rotary_mask = p.get("rotary_mask")
-    pre_ln = spec.do_layer_norm_before  # False = post-LN OPT (e.g. OPT-350m)
     taps = {}
 
     # ---- attention ----
     residual = x
-    x_ln = _norm(x, p["attn_norm"], spec.norm, spec.norm_eps) if pre_ln else x
+    x_ln = _attn_input(spec, p, x)
     q = _linear(x_ln, p["q"]).reshape(B, T, H, q_hd)
     k = _linear(x_ln, p["k"]).reshape(B, T, Hk, q_hd)
     v = _linear(x_ln, p["v"]).reshape(B, T, Hk, v_hd)
@@ -360,9 +475,7 @@ def _layer(
         taps["cov_x"] = _gram(x_ln.reshape(-1, spec.d_model), gram_precision)
         taps["cov_q"] = _head_gram(q, gram_precision)
         taps["cov_k"] = _head_gram(k, gram_precision)
-    if spec.qk_norm:
-        q = masked_head_rms_norm(q, p["q_norm"]["scale"], rotary_mask, spec.group_size, spec.norm_eps)
-        k = masked_head_rms_norm(k, p["k_norm"]["scale"], rotary_mask, 1, spec.norm_eps)
+    q, k = _qk_norms(spec, p, q, k, rotary_mask)
     q = q.transpose(1, 2)  # [B, H, T, q_hd]
     k = k.transpose(1, 2)
     v = v.transpose(1, 2)
@@ -372,12 +485,9 @@ def _layer(
     window = None
     if spec.layer_types and spec.layer_types[layer_idx] == "sliding_attention":
         window = spec.sliding_window
-    # compressed-head-dim scaling (reference: LlamaRebuild.py:282)
-    attn = _attention(q, k, v, q_hd**-0.5, window, attn_impl)
+    attn = _attention(q, k, v, _attn_scale(spec, q_hd), window, attn_impl, spec.attn_logit_softcap)
     attn = attn.transpose(1, 2).reshape(B, T, H * v_hd)
-    x = residual + _linear(attn, p["o"])
-    if not pre_ln:
-        x = _norm(x, p["attn_norm"], spec.norm, spec.norm_eps)
+    x = _attn_output(spec, p, residual, attn)
 
     x, h, h_shared = _mlp_block(spec, p, x, layer_idx, collect)
     if collect:
@@ -390,25 +500,42 @@ def _layer(
     return x, (taps if collect else None)
 
 
-def _mlp_block(spec: ModelSpec, p: Dict, x: torch.Tensor, layer_idx: int, collect: bool = True):
-    """A layer's MLP half with its residual (and norm: before for pre-LN,
-    after for post-LN OPT). Returns (x_out, h, h_shared): h the
-    post-activation intermediate the calibration taps (on a MoE layer the
-    routed [B, T, E, D] intermediate, None unless ``collect``), h_shared
-    the shared expert's (or None)."""
+def _mlp_block(
+    spec: ModelSpec,
+    p: Dict,
+    x: torch.Tensor,
+    layer_idx: int,
+    collect: bool = True,
+    moe: str = "dense",
+    moe_capacity: float = 2.0,
+    token_valid: Optional[torch.Tensor] = None,
+):
+    """A layer's MLP half with its residual: the pre-MLP norm (none for
+    olmo2), gemma2's and olmo2's post-MLP norm on the down projection
+    before the add, post-LN OPT's norm after it. A MoE layer runs every
+    expert on every token (``moe="dense"``) or by capacity dispatch
+    (``"dispatch"``, serving; see `_moe_mlp_dispatch`). Returns (x_out,
+    h, h_shared): h the post-activation intermediate the calibration taps
+    (on a MoE layer the routed [B, T, E, D] intermediate, None unless
+    ``collect`` and never under dispatch), h_shared the shared expert's
+    (or None)."""
     pre_ln = spec.do_layer_norm_before
     residual = x
-    x_ln2 = _norm(x, p["mlp_norm"], spec.norm, spec.norm_eps) if pre_ln else x
-    if spec.is_moe_layer(layer_idx):
+    x_ln2 = _norm(x, p["mlp_norm"], spec.norm, spec.norm_eps) if (pre_ln and spec.pre_norms) else x
+    h = h_shared = None
+    if spec.is_moe_layer(layer_idx) and moe == "dispatch":
+        y = _moe_mlp_dispatch(spec, p, x_ln2, moe_capacity, token_valid)
+    elif spec.is_moe_layer(layer_idx):
         y, h, h_shared = _moe_mlp(spec, p, x_ln2, collect)
-        x = residual + y
     else:
-        h_shared = None
         if spec.gated_mlp:
             h = _act(_linear(x_ln2, p["gate"]), spec.act) * _linear(x_ln2, p["up"])
         else:
             h = _act(_linear(x_ln2, p["up"]), spec.act)
-        x = residual + _linear(h, p["down"])
+        y = _linear(h, p["down"])
+        if spec.post_norms:
+            y = _norm(y, p["post_mlp_norm"], spec.norm, spec.norm_eps)
+    x = residual + y
     if not pre_ln:
         x = _norm(x, p["mlp_norm"], spec.norm, spec.norm_eps)
     return x, h, h_shared
@@ -485,12 +612,7 @@ def forward_taps(
     check_supported(spec)
     B, T = input_ids.shape
     ids = input_ids.long()
-    x = params["embed_tokens"][ids]
-    if spec.arch == "opt":
-        if "project_in" in params:  # OPT-350m-style word_embed_proj_dim
-            x = _linear(x, params["project_in"])
-        pos = torch.arange(T, device=ids.device) + spec.position_offset
-        x = x + params["embed_positions"][pos][None]
+    x = _embed(spec, params, ids)
 
     cos = sin = None
     if spec.uses_rope:
@@ -514,14 +636,5 @@ def forward_taps(
         if taps is not None:
             taps_by_layer[l] = taps
 
-    logits = None
-    if want_logits:
-        if params.get("final_norm") is not None:
-            x = _norm(x, params["final_norm"], spec.norm, spec.norm_eps)
-        if "project_out" in params:
-            x = _linear(x, params["project_out"])
-        if params.get("lm_head") is not None:
-            logits = _linear(x, params["lm_head"])
-        else:
-            logits = x @ params["embed_tokens"].T  # tied embeddings
+    logits = _unembed(spec, params, x) if want_logits else None
     return logits, taps_by_layer, (torch.stack(bi) if collect else None)

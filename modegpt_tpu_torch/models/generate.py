@@ -8,8 +8,9 @@ HF `generate` over its compressed attention, LlamaRebuild.py:343-348):
   ranks, written in place at the filled length (the torch form of the
   JAX package's ``dynamic_update_slice`` with a donated cache); the new
   tokens attend the filled prefix through the grouped contraction of the
-  JAX ``_layer_step`` (a plain masked softmax, no kernel), with masked
-  RoPE at each new position through the layer's rotary mask;
+  JAX ``_layer_step`` (a plain masked softmax, no kernel, with gemma2's
+  score cap), with masked RoPE at each new position through the layer's
+  rotary mask;
 * `apply_repetition_penalty`: HF's CTRL-style penalty;
 * `_sample`: greedy argmax, or temperature sampling with HF's filter
   order temperature -> top-k -> top-p (nucleus) -> min-p. The knobs are
@@ -33,9 +34,20 @@ from typing import Dict, List, NamedTuple, Optional
 
 import torch
 
-from modegpt_tpu_torch.models.forward import _linear, _mlp_block, _norm, check_supported
+from modegpt_tpu_torch.models.forward import (
+    _attn_input,
+    _attn_output,
+    _attn_scale,
+    _embed,
+    _linear,
+    _mlp_block,
+    _qk_norms,
+    _softcap,
+    _unembed,
+    check_supported,
+)
 from modegpt_tpu_torch.models.spec import ModelSpec
-from modegpt_tpu_torch.ops.rope import apply_rope, masked_head_rms_norm, rope_cos_sin
+from modegpt_tpu_torch.ops.rope import apply_rope, rope_cos_sin
 from modegpt_tpu_torch.utils.device import resolve_device
 
 __all__ = [
@@ -80,16 +92,13 @@ def _layer_step(spec: ModelSpec, layer_idx: int, p: Dict, x, cos, sin, cache_k, 
     q_hd = spec.q_ranks[layer_idx] // H
     v_hd = spec.v_ranks[layer_idx] // Hk
     rotary_mask = p.get("rotary_mask")
-    pre_ln = spec.do_layer_norm_before
 
     residual = x
-    x_ln = _norm(x, p["attn_norm"], spec.norm, spec.norm_eps) if pre_ln else x
+    x_ln = _attn_input(spec, p, x)
     q = _linear(x_ln, p["q"]).reshape(B, S, H, q_hd)
     k = _linear(x_ln, p["k"]).reshape(B, S, Hk, q_hd)
     v = _linear(x_ln, p["v"]).reshape(B, S, Hk, v_hd)
-    if spec.qk_norm:
-        q = masked_head_rms_norm(q, p["q_norm"]["scale"], rotary_mask, spec.group_size, spec.norm_eps)
-        k = masked_head_rms_norm(k, p["k_norm"]["scale"], rotary_mask, 1, spec.norm_eps)
+    q, k = _qk_norms(spec, p, q, k, rotary_mask)
     q = q.transpose(1, 2)
     k = k.transpose(1, 2)
     v = v.transpose(1, 2)
@@ -103,19 +112,18 @@ def _layer_step(spec: ModelSpec, layer_idx: int, p: Dict, x, cos, sin, cache_k, 
     max_len = cache_k.shape[2]
     G = H // Hk
     qg = q.reshape(B, Hk, G, S, q_hd)
-    scores = torch.einsum("bkgsd,bktd->bkgst", qg, cache_k) * q_hd**-0.5
+    scores = torch.einsum("bkgsd,bktd->bkgst", qg, cache_k) * _attn_scale(spec, q_hd)
+    scores = _softcap(scores.to(torch.float32), spec.attn_logit_softcap)
     t_ids = torch.arange(max_len, device=x.device)[None, :]
     s_ids = pos + torch.arange(S, device=x.device)[:, None]
     mask = t_ids <= s_ids
     if spec.layer_types and spec.layer_types[layer_idx] == "sliding_attention":
         mask = mask & (t_ids > s_ids - spec.sliding_window)
-    scores = scores.to(torch.float32).masked_fill(~mask, float("-inf"))
+    scores = scores.masked_fill(~mask, float("-inf"))
     probs = torch.softmax(scores, dim=-1).to(q.dtype)
     attn = torch.einsum("bkgst,bktd->bkgsd", probs, cache_v).reshape(B, H, S, v_hd)
     attn = attn.transpose(1, 2).reshape(B, S, H * v_hd)
-    x = residual + _linear(attn, p["o"])
-    if not pre_ln:
-        x = _norm(x, p["attn_norm"], spec.norm, spec.norm_eps)
+    x = _attn_output(spec, p, residual, attn)
     return _mlp_block(spec, p, x, layer_idx, collect=False)[0]
 
 
@@ -129,27 +137,14 @@ def _model_step(spec: ModelSpec, params: Dict, tokens: torch.Tensor, cache: KVCa
     if pos + S > max_len:
         raise ValueError(f"generate: {pos} + {S} tokens exceed the cache's max_len {max_len}")
     dev = tokens.device
-    x = params["embed_tokens"][tokens.long()]
-    if spec.arch == "opt":
-        if "project_in" in params:
-            x = _linear(x, params["project_in"])
-        positions = pos + torch.arange(S, device=dev) + spec.position_offset
-        x = x + params["embed_positions"][positions][None]
+    x = _embed(spec, params, tokens, pos + torch.arange(S, device=dev))
     cos = sin = None
     if spec.uses_rope:
         positions = pos + torch.arange(S, device=dev, dtype=torch.int32)
         cos, sin = rope_cos_sin(positions, spec.head_dim, spec.rope_theta, dtype=x.dtype, scaling=spec.rope_scaling)
     for l in range(spec.n_layers):
         x = _layer_step(spec, l, params["layers"][l], x, cos, sin, cache.k[l], cache.v[l], pos)
-    if params.get("final_norm") is not None:
-        x = _norm(x, params["final_norm"], spec.norm, spec.norm_eps)
-    if "project_out" in params:
-        x = _linear(x, params["project_out"])
-    if params.get("lm_head") is not None:
-        logits = _linear(x, params["lm_head"])
-    else:
-        logits = x @ params["embed_tokens"].T
-    return logits, cache._replace(length=pos + S)
+    return _unembed(spec, params, x), cache._replace(length=pos + S)
 
 
 def prefill(spec: ModelSpec, params: Dict, prompt_ids: torch.Tensor, cache: KVCache):

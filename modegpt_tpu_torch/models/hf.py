@@ -1,13 +1,18 @@
 """HuggingFace checkpoint ingestion: state dict -> the port's parameter tree.
 
-Port of ``modegpt_tpu.models.hf`` for llama, qwen3, opt, mixtral,
-qwen3_moe and qwen2_moe. HF Linear weights are ``[out, in]``; the
-forward's kernels are ``[in, out]``, so each projection is transposed
-once here, and a MoE layer's per-expert weights are stacked into
-``[E, in, out]`` kernels. `params_from_state_dict` is
-pure torch; `load_hf_model` imports ``transformers`` when called (it is
-absent on the card's machine, where the smoke run builds its weights in
-code).
+Port of ``modegpt_tpu.models.hf`` for every architecture the spec
+parses. HF Linear weights are ``[out, in]``; the forward's kernels are
+``[in, out]``, so each projection is transposed once here (gpt2's Conv1D
+weights are already ``[in, out]``), and a MoE layer's per-expert weights
+are stacked into ``[E, in, out]`` kernels. Fused projections (gpt2's
+``c_attn``, phi3's ``qkv_proj`` and ``gate_up_proj``) split by the spec's
+rank lists, so a compressed re-import splits where the export fused.
+The norm names depend on the arch: llama's ``post_attention_layernorm``
+is the pre-MLP norm, gemma2's normalises the attention output (its MLP
+takes ``pre_feedforward_layernorm``), olmo2 has only the two post norms.
+`params_from_state_dict` is pure torch; `load_hf_model` imports
+``transformers`` when called (it is absent on the card's machine, where
+the smoke run builds its weights in code).
 """
 
 from __future__ import annotations
@@ -43,8 +48,38 @@ def params_from_state_dict(
     def has(name):
         return name in sd
 
+    def split(fused, sizes, transpose: bool):
+        """A fused weight (or bias) cut along its output axis: rows of an
+        HF [out, in] weight, columns of a Conv1D [in, out] one."""
+        t = fused.detach().to(device=dev, dtype=dtype)
+        axis = 0 if transpose or t.dim() == 1 else 1
+        parts = torch.split(t, list(sizes), dim=axis)
+        return [(part.T if transpose else part).contiguous() for part in parts]
+
     params: Dict = {}
-    if spec.arch == "opt":
+    if spec.arch == "gpt2":
+        # Conv1D weights are [in, out] already; c_attn [d, 3d] splits into
+        # q/k/v by the rank lists, c_fc/c_proj are up/down
+        pre = "transformer."
+        params["embed_tokens"] = V(pre + "wte.weight")
+        params["embed_positions"] = V(pre + "wpe.weight")
+        params["final_norm"] = {"scale": V(pre + "ln_f.weight"), "bias": V(pre + "ln_f.bias")}
+        layers = []
+        for l in range(spec.n_layers):
+            b = f"{pre}h.{l}."
+            sizes = (spec.q_ranks[l], spec.k_ranks[l], spec.v_ranks[l])
+            ws = split(sd[b + "attn.c_attn.weight"], sizes, transpose=False)
+            bs = split(sd[b + "attn.c_attn.bias"], sizes, transpose=False)
+            lp = {
+                "attn_norm": {"scale": V(b + "ln_1.weight"), "bias": V(b + "ln_1.bias")},
+                "mlp_norm": {"scale": V(b + "ln_2.weight"), "bias": V(b + "ln_2.bias")},
+                **{name: {"kernel": w, "bias": bias} for name, w, bias in zip("qkv", ws, bs)},
+            }
+            for ours, theirs in (("o", "attn.c_proj"), ("up", "mlp.c_fc"), ("down", "mlp.c_proj")):
+                lp[ours] = {"kernel": V(b + theirs + ".weight"), "bias": V(b + theirs + ".bias")}
+            layers.append(lp)
+        params["layers"] = layers
+    elif spec.arch == "opt":
         pre = "model.decoder."
         params["embed_tokens"] = V(pre + "embed_tokens.weight")
         params["embed_positions"] = V(pre + "embed_positions.weight")
@@ -81,21 +116,37 @@ def params_from_state_dict(
                     lp[ours]["bias"] = V(b + theirs + ".bias")
             layers.append(lp)
         params["layers"] = layers
-    else:  # llama / qwen3 / mixtral / qwen3_moe / qwen2_moe
+    else:  # the rotary archs
         pre = "model."
         params["embed_tokens"] = V(pre + "embed_tokens.weight")
         params["final_norm"] = {"scale": V(pre + "norm.weight")}
+        if has(pre + "norm.bias"):  # starcoder2: biased LayerNorm
+            params["final_norm"]["bias"] = V(pre + "norm.bias")
         layers = []
         for l in range(spec.n_layers):
             b = f"{pre}layers.{l}."
-            lp = {
-                "attn_norm": {"scale": V(b + "input_layernorm.weight")},
-                "mlp_norm": {"scale": V(b + "post_attention_layernorm.weight")},
-                "q": {"kernel": W(b + "self_attn.q_proj.weight")},
-                "k": {"kernel": W(b + "self_attn.k_proj.weight")},
-                "v": {"kernel": W(b + "self_attn.v_proj.weight")},
-                "o": {"kernel": W(b + "self_attn.o_proj.weight")},
-            }
+            if spec.post_norms and not spec.pre_norms:  # olmo2: the post norms only
+                names = {"post_attn_norm": "post_attention_layernorm", "post_mlp_norm": "post_feedforward_layernorm"}
+            elif spec.post_norms:  # gemma2: sandwich norms
+                names = {
+                    "attn_norm": "input_layernorm", "post_attn_norm": "post_attention_layernorm",
+                    "mlp_norm": "pre_feedforward_layernorm", "post_mlp_norm": "post_feedforward_layernorm",
+                }
+            else:
+                names = {"attn_norm": "input_layernorm", "mlp_norm": "post_attention_layernorm"}
+            lp = {}
+            for ours, theirs in names.items():
+                lp[ours] = {"scale": V(f"{b}{theirs}.weight")}
+                if has(f"{b}{theirs}.bias"):  # starcoder2's LayerNorms
+                    lp[ours]["bias"] = V(f"{b}{theirs}.bias")
+            if spec.arch == "phi3":  # fused qkv_proj [(H + 2 Hk) hd, d]
+                sizes = (spec.q_ranks[l], spec.k_ranks[l], spec.v_ranks[l])
+                qkv = split(sd[b + "self_attn.qkv_proj.weight"], sizes, transpose=True)
+                lp.update({name: {"kernel": w} for name, w in zip("qkv", qkv)})
+            else:
+                for name in "qkv":
+                    lp[name] = {"kernel": W(f"{b}self_attn.{name}_proj.weight")}
+            lp["o"] = {"kernel": W(b + "self_attn.o_proj.weight")}
             if spec.is_moe_layer(l):
                 # mixtral: block_sparse_moe.gate + experts.{e}.w1/w3/w2;
                 # qwen*_moe: mlp.gate + mlp.experts.{e}.{gate,up,down}_proj,
@@ -122,6 +173,16 @@ def params_from_state_dict(
                     }
                     if spec.shared_expert_gate:
                         lp["shared_gate"] = {"kernel": W(moe + "shared_expert_gate.weight")}
+            elif spec.arch == "phi3":  # fused gate_up_proj [2 D, d]
+                gd = spec.gate_ranks[l]
+                gate, up = split(sd[b + "mlp.gate_up_proj.weight"], (gd, gd), transpose=True)
+                lp["gate"], lp["up"] = {"kernel": gate}, {"kernel": up}
+                lp["down"] = {"kernel": W(b + "mlp.down_proj.weight")}
+            elif spec.arch == "starcoder2":  # non-gated, under GPT-2's names
+                for ours, theirs in (("up", "mlp.c_fc"), ("down", "mlp.c_proj")):
+                    lp[ours] = {"kernel": W(f"{b}{theirs}.weight")}
+                    if has(f"{b}{theirs}.bias"):
+                        lp[ours]["bias"] = V(f"{b}{theirs}.bias")
             else:
                 lp["gate"] = {"kernel": W(b + "mlp.gate_proj.weight")}
                 lp["up"] = {"kernel": W(b + "mlp.up_proj.weight")}
@@ -133,7 +194,7 @@ def params_from_state_dict(
                 ]:
                     if has(b + theirs + ".bias"):
                         lp[ours]["bias"] = V(b + theirs + ".bias")
-            if spec.qk_norm:
+            if spec.qk_norm or spec.flat_qk_norm:
                 lp["q_norm"] = {"scale": V(b + "self_attn.q_norm.weight")}
                 lp["k_norm"] = {"scale": V(b + "self_attn.k_norm.weight")}
             if rotary_masks is not None and l in rotary_masks:

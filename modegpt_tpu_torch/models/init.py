@@ -55,19 +55,24 @@ def init_params(
     }
     if spec.arch == "opt":
         params["embed_positions"] = dense((spec.max_position_embeddings + 2, spec.d_model))
+    elif spec.arch == "gpt2":
+        params["embed_positions"] = dense((spec.max_position_embeddings, spec.d_model))
 
     layers = []
     for l in range(spec.n_layers):
         ab = spec.attention_bias
-        mb = spec.mlp_bias or spec.arch == "opt"
-        lp = {
-            "attn_norm": norm_p(),
-            "mlp_norm": norm_p(),
-            "q": linear((spec.d_model, spec.q_ranks[l]), ab),
-            "k": linear((spec.d_model, spec.k_ranks[l]), ab),
-            "v": linear((spec.d_model, spec.v_ranks[l]), ab),
-            "o": linear((spec.o_ranks[l], spec.d_model), ab and spec.arch == "opt"),
-        }
+        mb = spec.mlp_bias or spec.arch in ("opt", "gpt2")
+        lp = {}
+        if spec.pre_norms or not spec.do_layer_norm_before:
+            lp.update(attn_norm=norm_p(), mlp_norm=norm_p())
+        if spec.post_norms:  # gemma2's sandwich norms, olmo2's only norms
+            lp.update(post_attn_norm=norm_p(), post_mlp_norm=norm_p())
+        lp.update(
+            q=linear((spec.d_model, spec.q_ranks[l]), ab),
+            k=linear((spec.d_model, spec.k_ranks[l]), ab),
+            v=linear((spec.d_model, spec.v_ranks[l]), ab),
+            o=linear((spec.o_ranks[l], spec.d_model), ab and spec.arch in ("opt", "gpt2", "starcoder2")),
+        )
         if spec.is_moe_layer(l):
             # the router, the stacked experts [E, d, r] / [E, r, d] and,
             # for qwen2_moe, the shared expert and its scalar gate
@@ -95,6 +100,9 @@ def init_params(
         if spec.qk_norm:
             lp["q_norm"] = {"scale": torch.ones(spec.head_dim, dtype=dtype, device=dev)}
             lp["k_norm"] = {"scale": torch.ones(spec.head_dim, dtype=dtype, device=dev)}
+        elif spec.flat_qk_norm:  # olmo2: one weight over the whole projection
+            lp["q_norm"] = {"scale": torch.ones(spec.n_heads * spec.head_dim, dtype=dtype, device=dev)}
+            lp["k_norm"] = {"scale": torch.ones(spec.n_kv_heads * spec.head_dim, dtype=dtype, device=dev)}
         layers.append(lp)
     params["layers"] = layers
     return params

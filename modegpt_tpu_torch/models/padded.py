@@ -1,7 +1,7 @@
 """Padded-uniform execution for heterogeneous-rank compressed models.
 
-Port of ``modegpt_tpu.models.padded`` for llama, qwen3, opt, mixtral,
-qwen3_moe and qwen2_moe stacks, dense or compressed. Every layer's
+Port of ``modegpt_tpu.models.padded`` for every architecture the spec
+parses, dense or compressed. Every layer's
 factors are zero-padded to the stack-wide max rank per module and
 stacked into ``[L, ...]`` leaves, so every layer has the same shapes; the
 layer scan is a Python loop over ``l`` that reads ``layers[...][l]``
@@ -19,9 +19,15 @@ Exactness (equal to the unrolled forward up to float reassociation):
   ``[first-half | 0.. | second-half | 0..]``, so ``rotate_half`` still
   pairs true coordinates with true coordinates.
 * The attention scale uses each layer's TRUE head dim (``q_hd_true``),
-  multiplied into q in q's dtype.
+  or gemma2's fixed ``query_pre_attn_scalar``, multiplied into q in q's
+  dtype.
 * Qwen3's per-head q/k RMSNorm divides by the true rank
-  (`ops.rope.masked_head_rms_norm` with ``r_true``).
+  (`ops.rope.masked_head_rms_norm` with ``r_true``), olmo2's
+  whole-projection norm by the true width ``H * r_true``
+  (`ops.rope.masked_flat_rms_norm` with ``true_dim``).
+* Each layer keeps its own window (gemma2 alternates sliding and full
+  layers); gemma2's soft caps apply to the scores, in the plain
+  attention and in K3, and to the final logits.
 
 `_model_step_padded` runs new tokens through the stack against a stacked
 KV cache ``[L, B, Hk, max_len, R]`` that it updates in place (the torch
@@ -36,8 +42,7 @@ clamped write would overwrite a live position.
 MoE layers run every expert on every token (``moe="dense"``) or by
 capacity-based token dispatch (``moe="dispatch"``, with ``token_valid``
 marking the rows whose tokens may claim expert capacity). Tensor
-parallelism, olmo2's flat q/k norm and soft-capping raise
-NotImplementedError (`models.forward.check_supported`).
+parallelism is not ported.
 """
 
 from __future__ import annotations
@@ -49,21 +54,18 @@ import torch
 
 from modegpt_tpu_torch.kernels.ragged_decode import ragged_gqa_attend, ragged_gqa_attend_reference
 from modegpt_tpu_torch.models.forward import (
-    _act,
     _attention,
+    _attn_input,
+    _attn_output,
+    _embed,
     _linear,
-    _moe_mlp,
-    _moe_mlp_dispatch,
-    _norm,
+    _mlp_block,
+    _qk_norms,
+    _unembed,
     check_supported,
 )
 from modegpt_tpu_torch.models.spec import ModelSpec
-from modegpt_tpu_torch.ops.rope import (
-    apply_rope,
-    apply_rope_ragged,
-    masked_head_rms_norm,
-    rope_cos_sin,
-)
+from modegpt_tpu_torch.ops.rope import apply_rope, apply_rope_ragged, rope_cos_sin
 
 __all__ = [
     "PaddedModel",
@@ -167,7 +169,7 @@ def pad_to_uniform(spec: ModelSpec, params: Dict) -> PaddedModel:
         rq = spec.q_ranks[l] // H
         rv = spec.v_ranks[l] // Hk
         rg = spec.gate_ranks[l]
-        q = {k_: p[k_] for k_ in ("attn_norm", "mlp_norm") if k_ in p}
+        q = {k_: p[k_] for k_ in ("attn_norm", "mlp_norm", "post_attn_norm", "post_mlp_norm") if k_ in p}
         q["q"] = _pad_linear(p["q"], pad_out=lambda x, ax: _pad_head_axis(x, H, rq, Rq, rope, ax))
         q["k"] = _pad_linear(p["k"], pad_out=lambda x, ax: _pad_head_axis(x, Hk, rq, Rq, rope, ax))
         q["v"] = _pad_linear(p["v"], pad_out=lambda x, ax: _pad_head_axis(x, Hk, rv, Rv, False, ax))
@@ -217,7 +219,7 @@ def pad_to_uniform(spec: ModelSpec, params: Dict) -> PaddedModel:
                     }
                     if spec.shared_expert_gate:
                         q["shared_gate"] = {"kernel": zeros(d, 1)}
-        if spec.qk_norm:
+        if spec.qk_norm or spec.flat_qk_norm:  # weights at the original dims
             q["q_norm"] = p["q_norm"]
             q["k_norm"] = p["k_norm"]
         if "rotary_mask" in p:
@@ -312,18 +314,18 @@ def _layer_padded(
     cache: Optional[Tuple[torch.Tensor, ...]] = None,
     pos: Optional[torch.Tensor] = None,
     write_ix=None,
-    moe_layer: bool = False,
+    layer: int = 0,
     moe: str = "dense",
     moe_capacity: float = 2.0,
     token_valid: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
-    """One padded layer. Without a cache: full causal self-attention
-    (attn_impl "flash" or "xla"). With ``cache`` = this layer's
-    (ck, cv[, k_scale, v_scale]) views [B, Hk, T(, R)]: the new K/V are
-    written in place at ``write_ix`` and the rows attend the pool from
-    ``pos`` (attn_impl "ragged", the CUDA kernel on the card, or "xla",
-    its plain version: the masked contraction over the whole pool).
-    ``moe_layer``: the MLP is the layer's experts, run by ``moe``
+    """One padded layer (``layer``: its index in the stack). Without a
+    cache: full causal self-attention (attn_impl "flash" or "xla"). With
+    ``cache`` = this layer's (ck, cv[, k_scale, v_scale]) views
+    [B, Hk, T(, R)]: the new K/V are written in place at ``write_ix`` and
+    the rows attend the pool from ``pos`` (attn_impl "ragged", the CUDA
+    kernel on the card, or "xla", its plain version: the masked
+    contraction over the whole pool). A MoE layer's experts run by ``moe``
     ("dense" or "dispatch" at ``moe_capacity``, where ``token_valid``
     [B, S] keeps masked rows from claiming expert capacity)."""
     B, S, _ = x.shape
@@ -331,24 +333,25 @@ def _layer_padded(
     Rq = spec.q_ranks[0] // H
     Rv = spec.v_ranks[0] // Hk
     rotary_mask = p.get("rotary_mask")
-    pre_ln = spec.do_layer_norm_before
 
     residual = x
-    x_ln = _norm(x, p["attn_norm"], spec.norm, spec.norm_eps) if pre_ln else x
+    x_ln = _attn_input(spec, p, x)
     q = _linear(x_ln, p["q"]).reshape(B, S, H, Rq)
     k = _linear(x_ln, p["k"]).reshape(B, S, Hk, Rq)
     v = _linear(x_ln, p["v"]).reshape(B, S, Hk, Rv)
-    if spec.qk_norm:
-        q = masked_head_rms_norm(q, p["q_norm"]["scale"], rotary_mask, spec.group_size, spec.norm_eps, q_hd_true)
-        k = masked_head_rms_norm(k, p["k_norm"]["scale"], rotary_mask, 1, spec.norm_eps, q_hd_true)
+    q, k = _qk_norms(spec, p, q, k, rotary_mask, q_hd_true)
     q = q.transpose(1, 2)
     k = k.transpose(1, 2)
     v = v.transpose(1, 2)
-    q_scale = torch.rsqrt(q_hd_true).to(q.dtype)
+    if spec.query_pre_attn_scalar is not None:  # gemma2's fixed scale
+        q_scale = torch.rsqrt(torch.tensor(spec.query_pre_attn_scalar, dtype=torch.float32)).to(q.dtype)
+    else:
+        q_scale = torch.rsqrt(q_hd_true).to(q.dtype)
+    softcap = spec.attn_logit_softcap
     if cache is None:
         if spec.uses_rope:
             q, k = apply_rope(q, k, cos, sin, rotary_mask)
-        attn = _attention(q * q_scale, k, v, 1.0, window, attn_impl)
+        attn = _attention(q * q_scale, k, v, 1.0, window, attn_impl, softcap)
     else:
         if spec.uses_rope:
             q, k = apply_rope_ragged(q, k, cos, sin, rotary_mask, spec.group_size)
@@ -367,55 +370,12 @@ def _layer_padded(
             _scatter(ck, k, write_ix)
             _scatter(cv, v, write_ix)
             scales = (None, None)
-        attn = _CACHE_ATTENTION[attn_impl](q, ck, cv, pos, k_scale=scales[0], v_scale=scales[1], window=window)
+        attn = _CACHE_ATTENTION[attn_impl](
+            q, ck, cv, pos, k_scale=scales[0], v_scale=scales[1], window=window, softcap=softcap
+        )
     attn = attn.transpose(1, 2).reshape(B, S, H * Rv)
-    x = residual + _linear(attn, p["o"])
-    if not pre_ln:
-        x = _norm(x, p["attn_norm"], spec.norm, spec.norm_eps)
-
-    residual = x
-    x_ln2 = _norm(x, p["mlp_norm"], spec.norm, spec.norm_eps) if pre_ln else x
-    if moe_layer and moe == "dispatch":
-        x = residual + _moe_mlp_dispatch(spec, p, x_ln2, moe_capacity, token_valid)
-    elif moe_layer:
-        x = residual + _moe_mlp(spec, p, x_ln2, False)[0]
-    else:
-        if spec.gated_mlp:
-            h = _act(_linear(x_ln2, p["gate"]), spec.act) * _linear(x_ln2, p["up"])
-        else:
-            h = _act(_linear(x_ln2, p["up"]), spec.act)
-        x = residual + _linear(h, p["down"])
-    if not pre_ln:
-        x = _norm(x, p["mlp_norm"], spec.norm, spec.norm_eps)
-    return x
-
-
-def _embed(spec: ModelSpec, other: Dict, tokens: torch.Tensor, pos0: Optional[torch.Tensor] = None):
-    """pos0: None, or a per-row [B] offset tensor on the tokens' device.
-    Learned positions past the table (a padded chunk's tail near the
-    end) read its last row, as JAX's clamping gather does; on a CUDA
-    tensor an out-of-range index would be a device-side assert."""
-    x = other["embed_tokens"][tokens.long()]
-    if spec.arch == "opt":
-        if "project_in" in other:
-            x = _linear(x, other["project_in"])
-        S = tokens.shape[1]
-        table = other["embed_positions"]
-        pos = torch.arange(S, device=tokens.device) + spec.position_offset
-        if pos0 is None:
-            return x + table[pos][None]
-        return x + table[(pos0.long()[:, None] + pos[None, :]).clamp_(max=table.shape[0] - 1)]
-    return x
-
-
-def _unembed(spec: ModelSpec, other: Dict, x: torch.Tensor) -> torch.Tensor:
-    if other.get("final_norm") is not None:
-        x = _norm(x, other["final_norm"], spec.norm, spec.norm_eps)
-    if "project_out" in other:
-        x = _linear(x, other["project_out"])
-    if other.get("lm_head") is not None:
-        return _linear(x, other["lm_head"])
-    return x @ other["embed_tokens"].T
+    x = _attn_output(spec, p, residual, attn)
+    return _mlp_block(spec, p, x, layer, False, moe, moe_capacity, token_valid)[0]
 
 
 @torch.no_grad()
@@ -449,7 +409,7 @@ def forward_padded(
     for l in range(spec.n_layers):
         x = _layer_padded(
             spec, _layer_params(layers, l), q_hd_true[l], x, cos, sin, attn_impl, _layer_window(spec, l),
-            moe_layer=spec.is_moe_layer(l), moe=moe, moe_capacity=moe_capacity,
+            layer=l, moe=moe, moe_capacity=moe_capacity,
         )
     return _unembed(spec, other, x)
 
@@ -511,7 +471,7 @@ def _model_step_padded(
         torch.from_numpy(np.ascontiguousarray(a)).to(dev) for a in (b_ok, s_ok, t_host[b_ok, s_ok])
     )
     pos = torch.from_numpy(pos_host.astype(np.int32)).to(dev)
-    x = _embed(spec, other, tokens, pos0=pos)
+    x = _embed(spec, other, tokens, pos.long()[:, None] + torch.arange(S, device=dev)[None, :])
     cos = sin = None
     if spec.uses_rope:
         positions = torch.from_numpy(t_host.reshape(-1).astype(np.int32)).to(dev)
@@ -523,7 +483,7 @@ def _model_step_padded(
         x = _layer_padded(
             spec, _layer_params(layers, l), q_hd_true[l], x, cos, sin, decode_attn,
             _layer_window(spec, l), cache=tuple(c[l] for c in pools), pos=pos, write_ix=write_ix,
-            moe_layer=spec.is_moe_layer(l), moe=moe, moe_capacity=moe_capacity, token_valid=token_valid,
+            layer=l, moe=moe, moe_capacity=moe_capacity, token_valid=token_valid,
         )
     if logits_at is not None:
         x = x[:, logits_at : logits_at + 1]

@@ -12,9 +12,13 @@ Port of ``modegpt_tpu.ops.rope``:
   src/patchers/DenseQwenRebuild.py:262-286): Qwen3 normalises q/k per
   head with a weight at the original head_dim; the compressed model
   gathers the matching weight coordinates through the rotary mask.
+* Masked whole-projection q/k RMSNorm (`masked_flat_rms_norm`): olmo2
+  normalises the flat ``[H*hd]`` projection with one weight of that
+  size, gathered per head through the rotary mask once compressed.
 * RoPE with per-row phase tables (`apply_rope_ragged`: every serving
-  slot at its own position), and the padded stack's form of the per-head
-  norm, whose variance divides by the layer's true rank (``r_true``).
+  slot at its own position), and the padded stack's forms of the two
+  norms, whose variance divides by the layer's true width (``r_true``,
+  ``true_dim``).
 """
 
 from __future__ import annotations
@@ -29,6 +33,7 @@ __all__ = [
     "apply_rope",
     "apply_rope_ragged",
     "masked_head_rms_norm",
+    "masked_flat_rms_norm",
 ]
 
 
@@ -161,4 +166,41 @@ def masked_head_rms_norm(
         if group > 1:
             mask = torch.repeat_interleave(mask, group, dim=0)
         w = w[mask]  # [H, r]
+    return (normed * w).to(x.dtype)
+
+
+def masked_flat_rms_norm(
+    x: torch.Tensor,
+    weight: torch.Tensor,
+    rotary_mask: Optional[torch.Tensor],
+    n_heads: int,
+    head_dim: int,
+    group: int,
+    eps: float,
+    true_dim: Union[None, float, torch.Tensor] = None,
+) -> torch.Tensor:
+    """Whole-projection q/k RMSNorm (olmo2's ``q_norm``/``k_norm`` over
+    ``[H*hd]``), the weight gathered through the rotary mask.
+
+    Args:
+      x: [B, T, H*r] flat projection output (r the compressed head dim).
+      weight: [H*head_dim] learned weight at the ORIGINAL dims.
+      rotary_mask: [Hk, r] kept indices per kv head, or None (dense).
+      group: heads per kv head on the q side (1 for k).
+      true_dim: None (the variance is the mean over x's last dim), or the
+        denominator of ``sum(x^2)``: padded execution passes
+        ``H * r_true`` so that zero pads do not dilute the variance. A
+        float or a 0-d float32 tensor.
+    """
+    xf = x.to(torch.float32)
+    denom = x.shape[-1] if true_dim is None else true_dim
+    var = torch.sum(xf * xf, dim=-1, keepdim=True) / denom
+    normed = xf * torch.rsqrt(var + eps)
+    w = weight.to(torch.float32)
+    if rotary_mask is not None:
+        mask = rotary_mask.long()
+        if group > 1:
+            mask = torch.repeat_interleave(mask, group, dim=0)
+        heads = torch.arange(n_heads, device=mask.device)[:, None] * head_dim
+        w = w[(heads + mask).reshape(-1)]  # [H*r]
     return (normed * w).to(x.dtype)

@@ -36,6 +36,13 @@ CASES = {
     "window100": dict(B=1, H=4, Hk=4, T=256, hd=16, hd_v=16, window=100),
     "hd44_hdv40": dict(B=1, H=4, Hk=2, T=192, hd=44, hd_v=40, window=None),
     "hd256": dict(B=1, H=2, Hk=1, T=130, hd=256, hd_v=256, window=None),
+    # the dense archs' shapes: groups of 7 (qwen2) and 9
+    # (starcoder2) query heads a kv head, phi3's 96-wide heads with a
+    # window just under T, gemma's 256-wide heads without grouping
+    "G7": dict(B=1, H=7, Hk=1, T=160, hd=32, hd_v=32, window=None),
+    "G9": dict(B=2, H=9, Hk=1, T=200, hd=32, hd_v=32, window=None),
+    "hd96_window255": dict(B=1, H=4, Hk=4, T=256, hd=96, hd_v=96, window=255),
+    "mha_hd256": dict(B=1, H=2, Hk=2, T=192, hd=256, hd_v=256, window=None),
 }
 TOLERANCE = {"float32": dict(rtol=2e-4, atol=2e-5), "bfloat16": dict(rtol=2e-2, atol=2e-2)}
 
@@ -232,6 +239,12 @@ RAGGED_CASES = {
     "chunk_S64_int8": dict(B=2, H=4, Hk=2, T=400, S=64, Rq=32, Rv=48, int8=True),
     "chunk_rq88_rv90": dict(B=2, H=4, Hk=2, T=300, S=32, Rq=88, Rv=90),
     "window5": dict(B=3, H=4, Hk=2, T=300, S=4, Rq=32, Rv=32, window=5),  # a window shorter than a split
+    # gemma2's soft cap at padded ranks of 256: the decode form and the
+    # chunk form's 256-column branch
+    "softcap_r256_decode": dict(B=3, H=4, Hk=2, T=300, S=1, Rq=256, Rv=256, softcap=5.0),
+    "softcap_r256_chunk": dict(B=2, H=4, Hk=2, T=300, S=32, Rq=256, Rv=256, softcap=5.0),
+    "G7_decode": dict(B=3, H=7, Hk=1, T=300, S=1, Rq=128, Rv=128),
+    "G9_decode": dict(B=3, H=9, Hk=1, T=300, S=1, Rq=128, Rv=128),
 }
 
 
@@ -336,6 +349,66 @@ def test_ragged_decode_forms_by_rows(cuda_device, G, S):
     got = ragged_gqa_attend(q, k, v, pos, **kw)
     torch.cuda.synchronize()
     torch.testing.assert_close(got, ragged_gqa_attend_reference(q, k, v, pos, **kw), **TOLERANCE["float32"])
+
+
+@pytest.mark.parametrize("pool", ["float32", "bfloat16", "int8"])
+def test_ragged_one_row_form(cuda_device, pool):
+    """Multi-head decode (G*S = 1) takes the one-row form, whose P.V key
+    loop stays rolled: against the plain version in every pool dtype."""
+    from modegpt_tpu_torch.kernels.ragged_decode import ragged_gqa_attend, ragged_gqa_attend_reference
+
+    case = dict(B=4, H=8, Hk=8, T=700, S=1, Rq=126, Rv=126, int8=pool == "int8")
+    dtype = torch.float32 if pool == "int8" else getattr(torch, pool)
+    q, k, v, pos, kw = _ragged_inputs(case, cuda_device, dtype, seed=3)
+    got = ragged_gqa_attend(q, k, v, pos, **kw)
+    torch.cuda.synchronize()
+    want = ragged_gqa_attend_reference(q, k, v, pos, **kw)
+    torch.testing.assert_close(got.float(), want.float(), **TOLERANCE[str(dtype).split(".")[1]])
+
+
+_TINY = dict(vocab_size=256, hidden_size=64, intermediate_size=96, num_hidden_layers=4,
+             num_attention_heads=4, num_key_value_heads=2, head_dim=16, max_position_embeddings=512,
+             rms_norm_eps=1e-6, rope_theta=10000.0, tie_word_embeddings=True, rope_scaling=None)
+TINY_CONFIGS = {
+    # alternating sliding (8) and full layers, caps that bite at this scale
+    "gemma2": dict(_TINY, model_type="gemma2", hidden_activation="gelu_pytorch_tanh", sliding_window=8,
+                   query_pre_attn_scalar=24, attn_logit_softcapping=3.0, final_logit_softcapping=30.0),
+    "olmo2": dict(_TINY, model_type="olmo2", hidden_act="silu", tie_word_embeddings=False),
+}
+
+
+@pytest.mark.parametrize("arch", sorted(TINY_CONFIGS))
+def test_tiny_model_served_on_the_card(cuda_device, arch):
+    """A tiny gemma2 (K3 with the soft cap, alternating windows; no K1)
+    and olmo2 (the flat q/k norm; K1): the forward on the card against the
+    CPU, and greedy serving through K3 token for token against the plain
+    cache attention."""
+    from modegpt_tpu_torch.kernels.ragged_decode import ragged_gqa_attend
+    from modegpt_tpu_torch.models.padded import pad_to_uniform
+    from modegpt_tpu_torch.models.serving import ContinuousBatcher
+
+    spec = spec_from_hf_config(SimpleNamespace(**TINY_CONFIGS[arch]))
+    cpu = init_params(spec, torch.Generator().manual_seed(0), scale=0.2, device="cpu")
+    card = _tree_to(cpu, cuda_device)
+    ids = torch.from_numpy(np.random.default_rng(4).integers(0, 256, (2, 160)))
+    before = flash_attention.launches
+    got, _ = forward(spec, card, ids.to(cuda_device))
+    torch.cuda.synchronize()
+    assert flash_attention.launches == before + (0 if spec.attn_logit_softcap else spec.n_layers)
+    want, _ = forward(spec, cpu, ids)
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-4)
+
+    pm = pad_to_uniform(spec, card)
+    prompts = [np.random.default_rng(n).integers(1, 256, n) for n in (5, 40, 17)]
+    served = {}
+    for attn in ("ragged", "xla"):
+        b = ContinuousBatcher(pm, slots=2, max_len=96, prefill_bucket=16, decode_attn=attn)
+        rids = [b.submit(p, max_new_tokens=8) for p in prompts]
+        before = ragged_gqa_attend.launches
+        done = b.run()
+        assert (ragged_gqa_attend.launches > before) == (attn == "ragged")
+        served[attn] = [list(map(int, done[r])) for r in rids]
+    assert served["ragged"] == served["xla"]
 
 
 @pytest.mark.parametrize("moe", ["dense", "dispatch"])

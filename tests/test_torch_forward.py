@@ -163,12 +163,15 @@ def test_compressed_forward(arch):
 
 
 def test_unported_arch_raises():
+    """An arch the spec does not know raises; every arch it parses runs
+    (tests/test_torch_archs.py holds each against the JAX package)."""
     from modegpt_tpu_torch.models.forward import check_supported
-    from modegpt_tpu_torch.models.spec import ModelSpec
+    from modegpt_tpu_torch.models.spec import ARCHS, ModelSpec
 
     spec, _ = j_params_from_hf(_llama())
-    olmo2 = ModelSpec.from_dict({**spec.to_dict(), "arch": "olmo2", "post_norms": True, "pre_norms": False})
     with pytest.raises(NotImplementedError, match="models.forward"):
-        check_supported(olmo2)
-    # the MoE families run (tests/test_torch_moe.py)
-    check_supported(ModelSpec.from_dict({**spec.to_dict(), "arch": "mixtral", "n_experts": 4}))
+        check_supported(ModelSpec.from_dict({**spec.to_dict(), "arch": "falcon"}))
+    olmo2 = ModelSpec.from_dict({**spec.to_dict(), "arch": "olmo2", "post_norms": True, "pre_norms": False})
+    check_supported(olmo2)
+    for arch in ARCHS:
+        check_supported(ModelSpec.from_dict({**spec.to_dict(), "arch": arch}))

@@ -237,7 +237,11 @@ def test_auto_runs_a_uniform_model_unrolled():
 
 
 def test_unported_stacks_raise():
+    """An arch the port does not know is refused; a soft-capped stack
+    (gemma2's wiring, tests/test_torch_archs.py) pads."""
     j_spec, _, _, t_params = _model("llama", "dense")
-    softcap = TSpec.from_dict({**j_spec.to_dict(), "attn_logit_softcap": 50.0})
+    unknown = TSpec.from_dict({**j_spec.to_dict(), "arch": "falcon"})
     with pytest.raises(NotImplementedError, match="models.forward"):
-        t_padded.pad_to_uniform(softcap, t_params)
+        t_padded.pad_to_uniform(unknown, t_params)
+    softcap = TSpec.from_dict({**j_spec.to_dict(), "attn_logit_softcap": 50.0})
+    assert t_padded.pad_to_uniform(softcap, t_params).spec.attn_logit_softcap == 50.0
