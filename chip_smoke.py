@@ -6,6 +6,7 @@
     python3 chip_smoke.py --phases build,kernel,long
     python3 chip_smoke.py --phases build,kernel,moe
     python3 chip_smoke.py --phases build,kernel,archs
+    python3 chip_smoke.py --phases build,kernel,main,quant
 
 Phases, each printing one JSON line:
 
@@ -37,7 +38,24 @@ Phases, each printing one JSON line:
    version, and every served token of the 16 requests against the
    unrolled forward over prompt + output (teacher forcing).
 
-5. moe    — one compression job at the published Qwen3-30B-A3B widths
+5. quant  — quantised artifacts and int8 serving of the compressed model
+   the main phase reloaded: int8, int4 and nf4 artifacts saved and
+   reloaded dequantised (bytes on disk, save and reload seconds), each
+   evaluated through K1 (its launches equal to one evaluation of the
+   main job; int8 perplexity within 1% of the float32 artifact's); the
+   int8 and int4 artifacts reloaded resident (``resident_int8``: int8
+   codes, int4 packed two a byte), their device bytes, one B=2, T=2048
+   forward each through K1 against the dequantised reload's (1e-3); the
+   decode step's dequantised weight copies timed alone; then the serve
+   phase's 16 requests three times through K3: float32, int8 weights
+   (`quantize_padded`: teacher forcing against the unrolled int8
+   forward, K3 against its plain version) and int8 with W8A8 prefill
+   (each first token within 1e-2 of the unrolled W8A8 forward's row max
+   at the last prompt position), K3's launches equal to the layers times
+   each round's dispatches. With --profile the two int8 rounds are
+   traced, with the dequantised copies and the int8 GEMMs as ranges.
+
+6. moe    — one compression job at the published Qwen3-30B-A3B widths
    (hidden 2048, 32 heads over 4 kv heads, head_dim 128, 128 experts of
    width 768, top 8 renormalised, every layer MoE, vocab 151936, qk norm,
    untied head), 48 -> 2 layers, random f32 weights from a seed, with the
@@ -50,8 +68,12 @@ Phases, each printing one JSON line:
    held against the plain version, dispatch's decode logits against
    dense's, every dense-round token against the unrolled forward
    (teacher forcing), and dispatch's tokens are counted against dense's.
+   Then the padded model quantised to int8 serves 4 of the requests with
+   W8A8 prefill, dense and by dispatch at E / k (per-expert int8 GEMMs),
+   with the same checks: K3's launches, dispatch's decode logits against
+   dense's (1e-3), dispatch's tokens against dense's.
 
-6. long   — one compression job at the published Meta-Llama-3.1-8B
+7. long   — one compression job at the published Meta-Llama-3.1-8B
    widths (the main phase's, plus llama3 rope scaling to 131072
    positions), 4 layers, at seq_len=16384, so that every forward (both
    evals and calibration) takes the long-context kernel K2; then the
@@ -62,7 +84,7 @@ Phases, each printing one JSON line:
    attention and against the padded stack, and the CLI's perplexity
    against the job's compressed perplexity.
 
-7. archs  — the dense archs beyond llama and opt. At the published
+8. archs  — the dense archs beyond llama and opt. At the published
    Gemma-2-9B widths (hidden 3584, intermediate 14336, 16 heads over 8 kv
    heads of 256, vocab 256000 tied, query_pre_attn_scalar 256, score cap
    50, final cap 30, a 4096 window on alternate layers), 42 -> 4 layers,
@@ -241,6 +263,7 @@ LLAMA31_8B = dict(  # meta-llama/Llama-3.1-8B config.json
 LONG = dict(seq_len=16384, calib_size=4, calibs_batch_size=1, eval_batch_size=1, eval_max_samples=2)
 
 MOE_LAYERS = 2  # Qwen3-30B-A3B's 48 layers cut to 2: 2.49 GB of f32 weights a layer
+MOE_INT8_REQUESTS = 4  # the moe phase's int8 rounds (W8A8 prefill, dense and dispatch)
 QWEN3_30B_A3B = dict(  # Qwen/Qwen3-30B-A3B config.json
     model_type="qwen3_moe", vocab_size=151936, hidden_size=2048, intermediate_size=6144,
     moe_intermediate_size=768, num_hidden_layers=48, num_attention_heads=32, num_key_value_heads=4,
@@ -748,6 +771,7 @@ def phase_main(records: dict, profile: bool = False) -> dict:
         )
         expected = N_LAYERS * n_batches
         cspec = results["compressed_spec"]
+        artifact_bytes = os.path.getsize(os.path.join(results["artifact_dir"], "params.npz"))
         # reload the artifact once more: its shapes validate against the spec
         spec2, params2, _ = load_compressed_model(results["artifact_dir"], device="cuda")
         # the compressed model's logits through the kernel agree with the
@@ -783,6 +807,7 @@ def phase_main(records: dict, profile: bool = False) -> dict:
         "launches": {"flash_attention": launches}, "expected_launches": {"flash_attention": expected},
         "compressed_logits_max_abs_err": logit_err,
         "padded_vs_unrolled_logits_max_abs_err": padded_err,
+        "artifact_bytes": artifact_bytes,
         "peak_memory_gib": torch.cuda.max_memory_allocated() / 2**30,
     }
     emit(line)
@@ -804,7 +829,15 @@ def phase_main(records: dict, profile: bool = False) -> dict:
         problems.append(f"compressed logits: forward_padded vs unrolled forward differ by {padded_err}")
     if problems:
         raise AssertionError("; ".join(problems))
-    return {"spec": spec2, "params": params2, "pm": pm}
+    job = dict(
+        seq_len=config.seq_len, eval_max_samples=config.eval_max_samples,
+        eval_batch_size=config.eval_batch_size, compressed_exec=config.compressed_exec,
+        compressed_ppl=results["compressed_ppl"], artifact_bytes=artifact_bytes,
+        save_seconds=results["step_seconds"]["save_artifact"],
+        reload_seconds=results["step_seconds"]["reload_artifact"],
+        k1_per_eval=N_LAYERS * math.ceil(n_eval / config.eval_batch_size),
+    )
+    return {"spec": spec2, "params": params2, "pm": pm, "job": job}
 
 
 def _clone_state(state):
@@ -1010,6 +1043,225 @@ def phase_serve(records: dict, main_out: dict, profile: bool = False) -> dict:
     return line
 
 
+DEQUANT_RANGE = "dequantised weight copy (forward._dequant)"
+INT_MM_RANGE = "int8 GEMM (forward._int_mm, torch._int_mm)"
+
+
+def _tree_bytes(tree) -> int:
+    """Device bytes of a parameter tree's tensors."""
+    if isinstance(tree, dict):
+        return sum(_tree_bytes(v) for v in tree.values())
+    if isinstance(tree, (list, tuple)):
+        return sum(_tree_bytes(v) for v in tree)
+    return tree.numel() * tree.element_size() if tree is not None else 0
+
+
+def _leaves_named(tree, name: str):
+    """Every leaf called `name` in a parameter tree."""
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            if k == name and not isinstance(v, (dict, list)):
+                yield v
+            else:
+                yield from _leaves_named(v, name)
+    elif isinstance(tree, (list, tuple)):
+        for v in tree:
+            yield from _leaves_named(v, name)
+
+
+def phase_quant(records: dict, main_out: dict, profile: bool = False) -> dict:
+    """Quantised artifacts and int8 serving of the main phase's compressed
+    model: int8, int4 and nf4 artifacts saved, reloaded dequantised and
+    evaluated (K1); int8 and int4 resident forwards (K1) against the
+    dequantised ones; then the serve phase's 16 requests three times,
+    f32, int8 weight-only and int8 with W8A8 prefill (K3). With
+    `profile`, the two int8 rounds run under torch.profiler with the
+    dequantised copies and the int8 GEMMs as ranges."""
+    import torch
+
+    from modegpt_tpu_torch.calib.data import load_eval_tokens
+    from modegpt_tpu_torch.compress.artifact import load_compressed_model, save_compressed_model
+    from modegpt_tpu_torch.evals.perplexity import compute_perplexity
+    from modegpt_tpu_torch.kernels import flash_attention as fa_mod
+    from modegpt_tpu_torch.kernels import ragged_decode as rd_mod
+    from modegpt_tpu_torch.models import serving
+    from modegpt_tpu_torch.models.forward import forward
+    from modegpt_tpu_torch.models.quantize import quantize_padded, quantize_params, with_act_quant
+
+    cspec, cparams, pm, job = main_out["spec"], main_out["params"], main_out["pm"], main_out["job"]
+    eval_tokens = load_eval_tokens(None, "synthetic", job["seq_len"], job["eval_max_samples"],
+                                   vocab_size=cspec.vocab_size)
+    problems, k1_total = [], 0
+
+    # ---- artifacts: save, reload dequantised, evaluate through K1 ----
+    artifacts, resident = {}, {}
+    with tempfile.TemporaryDirectory(prefix="modegpt_smoke_quant_") as tmp:
+        dequantised = {}
+        for dtype in ("int8", "int4", "nf4"):
+            path = os.path.join(tmp, dtype)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            save_compressed_model(path, cspec, cparams, dtype=dtype)
+            save_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            _, params, _ = load_compressed_model(path, device="cuda")
+            torch.cuda.synchronize()
+            reload_s = time.perf_counter() - t0
+            fa_mod.flash_attention.launches = 0
+            ppl = compute_perplexity(cspec, params, eval_tokens, job["eval_batch_size"], progress=False,
+                                     exec_mode=job["compressed_exec"])
+            k1 = fa_mod.flash_attention.launches
+            k1_total += k1
+            artifacts[dtype] = dict(bytes=os.path.getsize(os.path.join(path, "params.npz")), save_seconds=save_s,
+                                    reload_seconds=reload_s, compressed_ppl=ppl, k1_launches=k1)
+            if k1 != job["k1_per_eval"]:
+                problems.append(f"{dtype} eval launched K1 {k1} times, expected {job['k1_per_eval']}")
+            if not math.isfinite(ppl):
+                problems.append(f"{dtype} perplexity is not finite")
+            if dtype == "nf4":
+                del params
+            else:
+                dequantised[dtype] = params
+        rel = abs(artifacts["int8"]["compressed_ppl"] / job["compressed_ppl"] - 1.0)
+        if rel > 0.01:
+            problems.append(f"int8 perplexity {artifacts['int8']['compressed_ppl']} is {rel:.4f} "
+                            f"from the float32 artifact's {job['compressed_ppl']}")
+
+        # ---- resident int8 / int4: one B=2, T=2048 forward through K1 ----
+        ids = torch.as_tensor(eval_tokens[:2], device="cuda")
+        for dtype, want in (("int8", torch.int8), ("int4", torch.uint8)):
+            _, rp, _ = load_compressed_model(os.path.join(tmp, dtype), device="cuda", resident_int8=True)
+            codes = list(_leaves_named(rp, "kernel_q"))
+            fa_mod.flash_attention.launches = 0
+            with torch.no_grad():
+                lr, _ = forward(cspec, rp, ids, attn_impl="flash")
+                k1_total += fa_mod.flash_attention.launches
+                ld, _ = forward(cspec, dequantised[dtype], ids, attn_impl="flash")
+            err = float((lr - ld).abs().max())
+            resident[dtype] = dict(
+                device_bytes=_tree_bytes(rp), dequantised_device_bytes=_tree_bytes(dequantised[dtype]),
+                kernel_q_leaves=len(codes), logits_max_abs_err=err,
+            )
+            if not codes or any(c.dtype != want for c in codes) or any(True for _ in _leaves_named(rp, "kernel")):
+                problems.append(f"{dtype} resident tree: kernels not all {want} kernel_q")
+            if not torch.allclose(lr, ld, rtol=1e-3, atol=1e-3):
+                problems.append(f"{dtype} resident logits differ from the dequantised ones by {err}")
+            del rp, lr, ld
+        del dequantised
+    torch.cuda.empty_cache()
+
+    # ---- one decode step's dequantised copies, timed alone ----
+    pmq = quantize_padded(pm)
+    qleaves = list(_leaves_named(pmq.layers, "kernel_q")) + [pmq.other["lm_head"]["kernel_q"]]
+    n_q = sum(q.numel() for q in qleaves)
+    convert_ms = cuda_ms(lambda: [q.to(torch.float32) for q in qleaves], iters=10)
+
+    # ---- three serve rounds of the serve phase's 16 requests ----
+    n, new = SERVE["requests"], SERVE["max_new_tokens"]
+    prompts, lens = _serve_prompts(cspec.vocab_size, n)
+    kw = dict(slots=SERVE["slots"], max_len=SERVE["max_len"], prefill_bucket=SERVE["prefill_bucket"],
+              temperature=0.0, decode_attn="auto")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    rounds, checks, k3_total = {}, {}, 0
+    for name, model, extra, ranges in (("float32", pm, {}, ()),
+                                       ("int8", pmq, {}, (("_dequant", DEQUANT_RANGE),)),
+                                       ("int8_a8_prefill", pmq, {"a8_prefill": True}, (("_int_mm", INT_MM_RANGE),))):
+        b = serving.ContinuousBatcher(model, **kw, **extra)
+
+        def on_step(step, b=b, name=name):
+            """Once slots decode in the int8 round: K3 against its plain
+            version on one decode step's logits."""
+            if name != "int8" or name in checks or not any(_decoding(b)):
+                return
+            lk, lp = (_decode_logits(pmq, b.state, attn) for attn in ("ragged", "xla"))
+            checks[name] = dict(step=step, err=float((lk - lp).abs().max()),
+                                ok=bool(torch.allclose(lk, lp, rtol=1e-3, atol=1e-3)))
+
+        traced = profile and bool(ranges)
+        torch.cuda.reset_peak_memory_stats()
+        rd_mod.ragged_gqa_attend.launches = 0
+        with contextlib.ExitStack() as stack:
+            counts, seconds = stack.enter_context(_counted_dispatches())
+            prof = stack.enter_context(_profiler()) if traced else None
+            for fn, range_name in ranges if traced else ():
+                stack.enter_context(_annotated(fn, range_name))
+            done, rids, wall = _serve_round(b, prompts, gen, on_step=on_step)
+        launches = rd_mod.ragged_gqa_attend.launches
+        k3_total += launches
+        if traced:
+            emit(_profile_line(prof, wall, f"quant {name} round", ranges=tuple(r for _, r in ranges)))
+        dispatches = counts["prefill"] + counts["decode"]
+        rounds[name] = dict(
+            done=done, rids=rids, wall_seconds=wall, generated_tokens_per_s=n * new / wall,
+            dispatches=dict(counts),
+            mean_prefill_dispatch_ms=1e3 * seconds["prefill"] / max(counts["prefill"], 1),
+            mean_decode_dispatch_ms=1e3 * seconds["decode"] / max(counts["decode"], 1),
+            k3_launches=launches, k3_expected=cspec.n_layers * dispatches,
+            peak_memory_gib=torch.cuda.max_memory_allocated() / 2**30,
+        )
+        if launches != cspec.n_layers * dispatches:
+            problems.append(f"ragged_gqa_attend launched {launches} times in the {name} round, "
+                            f"expected {cspec.n_layers * dispatches}")
+        if not all(len(done.get(r, [])) == len(p) + new for r, p in zip(rids, prompts)):
+            problems.append(f"a request of the {name} round did not return prompt + {new} tokens")
+
+    # teacher forcing of the int8 round against the unrolled int8 forward
+    qparams = quantize_params(cparams)
+    wo = rounds["int8"]
+    exact, max_gap = _teacher_forcing(cspec, qparams, wo["done"], wo["rids"], prompts, new)
+    if max_gap > 1e-3:
+        problems.append(f"an int8-served token is {max_gap} below its row's max logit ({exact} of {n * new} exact)")
+    if not checks.get("int8", {}).get("ok"):
+        problems.append(f"int8 round: decode logits K3 vs plain: {checks.get('int8')}")
+    # W8A8 prefill: each first token against the unrolled W8A8 forward
+    # (K1) at the last prompt position. An activation code on a rounding
+    # boundary flips with float noise, so the bound is 1e-2 or twice the
+    # noise floor (the same forward through K1 against the plain
+    # attention), whichever is larger: rows that differ by at most eps
+    # put each other's argmax within 2 eps of the row max.
+    a8, a8_params = rounds["int8_a8_prefill"], with_act_quant(qparams)
+    first = dict(max_gap=0.0, noise_floor=0.0, max_rank=0, row_std=0.0)
+    for rid, prompt in zip(a8["rids"], prompts):
+        ids = torch.as_tensor(prompt[None], device="cuda")
+        with torch.no_grad():
+            rk = forward(cspec, a8_params, ids, attn_impl="flash")[0][0, -1]
+            rp = forward(cspec, a8_params, ids, attn_impl="xla")[0][0, -1]
+        served = rk[a8["done"][rid][len(prompt)]]
+        first["max_gap"] = max(first["max_gap"], float(rk.max() - served))
+        first["noise_floor"] = max(first["noise_floor"], float((rk - rp).abs().max()))
+        first["max_rank"] = max(first["max_rank"], int((rk > served).sum()))
+        first["row_std"] = max(first["row_std"], float(rk.std()))
+    if first["max_gap"] > max(1e-2, 2 * first["noise_floor"]):
+        problems.append(f"a W8A8-prefilled first token is below the W8A8 forward's row max: {first}")
+    same_new = sum(int(x == y) for r_a, r_w, p in zip(a8["rids"], wo["rids"], prompts)
+                   for x, y in zip(a8["done"][r_a][len(p):], wo["done"][r_w][len(p):]))
+
+    records["flash_attention"]["launches_by_phase"]["quant"] = k1_total
+    records["ragged_gqa_attend"]["launches_by_phase"]["quant"] = k3_total
+    line = {
+        "phase": "quant", "model": "Meta-Llama-3-8B widths", "n_layers": cspec.n_layers,
+        "float32_artifact": {"bytes": job["artifact_bytes"], "save_seconds": job["save_seconds"],
+                             "reload_seconds": job["reload_seconds"], "compressed_ppl": job["compressed_ppl"]},
+        "artifacts": artifacts,
+        "resident": resident, "float32_device_bytes": _tree_bytes(cparams),
+        "decode_step_dequant_copy": {"ms": convert_ms, "int8_weights": n_q,
+                                     "bound_ms": 1e3 * 5 * n_q / HBM_BYTES_PER_S, "bound_by": "bytes"},
+        "serve": {
+            "requests": n, "max_new_tokens": new, "prompt_lengths": lens.tolist(),
+            **{name: {k: v for k, v in rd.items() if k not in ("done", "rids")} for name, rd in rounds.items()},
+            "int8_decode_check": checks.get("int8"),
+            "int8_teacher_forcing": {"exact_argmax": exact, "of": n * new, "max_gap_to_row_max": max_gap},
+            "a8_prefill_first_token": first,
+            "a8_prefill_tokens_equal_weight_only": {"equal": same_new, "of": n * new},
+        },
+        "launches": {"flash_attention": k1_total, "ragged_gqa_attend": k3_total},
+    }
+    emit(line)
+    if problems:
+        raise AssertionError("; ".join(problems))
+    return line
+
+
 def phase_long(records: dict, profile: bool = False) -> dict:
     """A compression job and the eval CLI at 16384 tokens (Llama-3.1-8B
     widths, 4 layers): every forward takes K2, none K1."""
@@ -1167,6 +1419,7 @@ def phase_moe(records: dict, profile: bool = False) -> dict:
     from modegpt_tpu_torch.models.forward import forward
     from modegpt_tpu_torch.models.init import init_params
     from modegpt_tpu_torch.models.padded import forward_padded, pad_to_uniform, padding_overhead
+    from modegpt_tpu_torch.models.quantize import quantize_padded
     from modegpt_tpu_torch.models.spec import spec_from_hf_config
 
     spec = spec_from_hf_config(SimpleNamespace(**{**QWEN3_30B_A3B, "num_hidden_layers": MOE_LAYERS}))
@@ -1257,6 +1510,42 @@ def phase_moe(records: dict, profile: bool = False) -> dict:
             peak_memory_gib=torch.cuda.max_memory_allocated() / 2**30,
         )
     dense, disp = rounds["dense"], rounds["dispatch"]
+
+    # int8 weights with W8A8 prefill: 4 of the requests, dense then by
+    # dispatch at E / k (per-expert int8 GEMMs over each expert's slots)
+    pmq, nq = quantize_padded(pm), MOE_INT8_REQUESTS
+    q_rounds, q_checks = {}, {}
+    for moe in ("dense", "dispatch"):
+        b = serving.ContinuousBatcher(pmq, moe=moe, moe_capacity=capacity, a8_prefill=True, **kw)
+
+        def on_step(step, b=b, moe=moe):
+            """Once slots decode in the dispatch round: dispatch against
+            dense on the decoding rows of one (weight-only) decode step."""
+            active = _decoding(b)
+            if moe != "dispatch" or moe in q_checks or not any(active):
+                return
+            a = _decode_logits(pmq, b.state, "ragged", "dispatch", capacity, active)[active]
+            c = _decode_logits(pmq, b.state, "ragged", "dense", capacity, active)[active]
+            q_checks[moe] = dict(step=step, err=float((a - c).abs().max()),
+                                 ok=bool(torch.allclose(a, c, rtol=1e-3, atol=1e-3)))
+
+        rd_mod.ragged_gqa_attend.launches = 0
+        with _counted_dispatches() as (counts, seconds):
+            done, rids, wall = _serve_round(b, prompts[:nq], gen, on_step=on_step)
+        q_rounds[moe] = dict(
+            done=done, rids=rids, wall_seconds=wall, generated_tokens_per_s=nq * new / wall,
+            dispatches=dict(counts),
+            mean_prefill_dispatch_ms=1e3 * seconds["prefill"] / max(counts["prefill"], 1),
+            mean_decode_dispatch_ms=1e3 * seconds["decode"] / max(counts["decode"], 1),
+            k3_launches=rd_mod.ragged_gqa_attend.launches,
+            k3_expected=cspec.n_layers * (counts["prefill"] + counts["decode"]),
+        )
+    q_same = sum(int(a == c) for r_d, r_x in zip(q_rounds["dense"]["rids"], q_rounds["dispatch"]["rids"])
+                 for a, c in zip(q_rounds["dense"]["done"][r_d], q_rounds["dispatch"]["done"][r_x]))
+    q_total = sum(len(q_rounds["dense"]["done"][r]) for r in q_rounds["dense"]["rids"])
+    q_lengths_ok = all(len(rd["done"].get(r, [])) == len(p) + new
+                       for rd in q_rounds.values() for r, p in zip(rd["rids"], prompts[:nq]))
+
     exact, max_gap = _teacher_forcing(spec2, params2, dense["done"], dense["rids"], prompts, new)
     same = sum(
         int(a == c)
@@ -1268,7 +1557,8 @@ def phase_moe(records: dict, profile: bool = False) -> dict:
                      for rd in rounds.values() for r, p in zip(rd["rids"], prompts))
 
     records["flash_attention"]["launches_by_phase"]["moe"] = k1_launches
-    records["ragged_gqa_attend"]["launches_by_phase"]["moe"] = dense["k3_launches"] + disp["k3_launches"]
+    records["ragged_gqa_attend"]["launches_by_phase"]["moe"] = sum(
+        rd["k3_launches"] for rd in list(rounds.values()) + list(q_rounds.values()))
     line = {
         "phase": "moe", "model": "Qwen3-30B-A3B widths", "n_layers": MOE_LAYERS,
         "compressed_eval_path": resolve_exec_mode(cspec, config.compressed_exec),
@@ -1291,6 +1581,12 @@ def phase_moe(records: dict, profile: bool = False) -> dict:
             "decode_checks": checks,
             "teacher_forcing": {"exact_argmax": exact, "of": n * new, "max_gap_to_row_max": max_gap},
             "dispatch_tokens_equal_dense": {"equal": same, "of": total},
+        },
+        "serve_int8_a8_prefill": {
+            "requests": nq,
+            **{moe: {k: v for k, v in rd.items() if k not in ("done", "rids")} for moe, rd in q_rounds.items()},
+            "decode_check": q_checks.get("dispatch"),
+            "dispatch_tokens_equal_dense": {"equal": q_same, "of": q_total},
         },
     }
     emit(line)
@@ -1321,6 +1617,16 @@ def phase_moe(records: dict, profile: bool = False) -> dict:
         problems.append(f"a served token is {max_gap} below its row's max logit ({exact} of {n * new} exact)")
     if same != total:
         problems.append(f"dispatch served {total - same} tokens other than dense's")
+    for moe, rd in q_rounds.items():
+        if rd["k3_launches"] != rd["k3_expected"]:
+            problems.append(f"ragged_gqa_attend launched {rd['k3_launches']} times in the int8 {moe} round, "
+                            f"expected {rd['k3_expected']}")
+    if not q_lengths_ok:
+        problems.append(f"an int8 request did not return prompt + {new} tokens")
+    if not q_checks.get("dispatch", {}).get("ok"):
+        problems.append(f"int8 decode logits, dispatch vs dense: {q_checks.get('dispatch')}")
+    if q_same != q_total:
+        problems.append(f"int8 dispatch with W8A8 prefill served {q_total - q_same} tokens other than dense's")
     if problems:
         raise AssertionError("; ".join(problems))
     return line
@@ -1564,10 +1870,10 @@ def card_line() -> str:
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--phases", default="build,kernel,main,serve,moe,long,archs")
+    ap.add_argument("--phases", default="build,kernel,main,serve,quant,moe,long,archs")
     ap.add_argument("--profile", action="store_true",
-                    help="trace the main job, the serve round, the moe job, the long job and "
-                    "the archs job with torch.profiler; print their device busy time")
+                    help="trace the main job, the serve round, the quant phase's int8 rounds, the moe "
+                    "job, the long job and the archs job with torch.profiler; print their device busy time")
     args = ap.parse_args(argv)
     phases = args.phases.split(",")
 
@@ -1590,12 +1896,16 @@ def main(argv=None) -> int:
         emit(phase_build())
     if "kernel" in phases:
         phase_kernel(records)
-    if {"main", "serve", "moe", "long", "archs"} & set(phases) and "kernel" not in phases:
-        raise SystemExit("chip_smoke: the main, serve, moe, long and archs phases need the kernel phase's records")
-    if "main" in phases or "serve" in phases:
+    if {"main", "serve", "quant", "moe", "long", "archs"} & set(phases) and "kernel" not in phases:
+        raise SystemExit("chip_smoke: the main, serve, quant, moe, long and archs phases need the kernel "
+                         "phase's records")
+    if {"main", "serve", "quant"} & set(phases):
         main_out = phase_main(records, args.profile)
         if "serve" in phases:
             phase_serve(records, main_out, args.profile)
+        if "quant" in phases:
+            torch.cuda.empty_cache()
+            phase_quant(records, main_out, args.profile)
         del main_out
     if "moe" in phases:
         torch.cuda.empty_cache()

@@ -15,10 +15,14 @@ the mixture-of-experts mixtral, qwen3_moe and qwen2_moe; a mixed
 dense/MoE stack calibrates every layer in one pass (`calib.engine`). The compressed evaluation runs unrolled or padded
 (`evals.perplexity.resolve_exec_mode`).
 
+A quantised ``artifact_dtype`` (int8, int4, nf4) saves the artifact in
+that format; the job reloads it dequantised and evaluates that, as the
+JAX pipeline does.
+
 Paths of the JAX pipeline that this port does not have raise
 NotImplementedError up front: fused compression, windowed and streamed
 calibration, meshes (data/model parallel, pipeline and ring),
-qk_method=svd, quantised or orbax artifacts and profiler traces.
+qk_method=svd, orbax artifacts and profiler traces.
 """
 
 from __future__ import annotations
@@ -64,7 +68,6 @@ def _check_ported(config: CompressionConfig) -> None:
         "shard_sequence": config.shard_sequence,
         "shard_stats": config.shard_stats,
         f"qk_method={config.qk_method}": config.qk_method != "cr",
-        f"artifact_dtype={config.artifact_dtype}": config.artifact_dtype not in ("", "float32", "bfloat16"),
         f"artifact_backend={config.artifact_backend}": config.artifact_backend != "npz",
         "profile_dir": bool(config.profile_dir),
     }

@@ -3,8 +3,11 @@
 The JAX package's parameters, fetched to the host (``jax.device_get``
 gives numpy leaves, bfloat16 as ml_dtypes' numpy type), have the same
 dict/list layout as the port's; `params_from_numpy` rebuilds that tree
-with torch tensors on ``device``. Integer leaves (rotary masks) keep
-their integer dtype.
+with torch tensors on ``device``. Integer leaves (rotary masks, int8
+``kernel_q`` codes) keep their integer dtype. The JAX package's resident
+int4 codes (``jnp.int4``, ml_dtypes' int4 on the host, told apart by
+``dtype.name`` without importing ml_dtypes) become the port's packed
+uint8 form (`models.quantize`).
 """
 
 from __future__ import annotations
@@ -14,6 +17,7 @@ from typing import Any, Optional
 import numpy as np
 import torch
 
+from modegpt_tpu_torch.models.forward import pack_int4
 from modegpt_tpu_torch.utils.device import DeviceLike, resolve_device
 
 __all__ = ["params_from_numpy", "to_tensor", "to_numpy"]
@@ -56,6 +60,8 @@ def params_from_numpy(tree: Any, device: DeviceLike = "cuda", dtype: Optional[to
             return {k: conv(v) for k, v in node.items()}
         if isinstance(node, (list, tuple)):
             return [conv(v) for v in node]
+        if getattr(getattr(node, "dtype", None), "name", "") == "int4":
+            return pack_int4(torch.from_numpy(np.asarray(node).astype(np.int8))).to(dev)
         return to_tensor(node, dev, dtype)
 
     return conv(tree)

@@ -33,6 +33,14 @@ Routing is a float32 softmax over all experts, then the top k with ties
 to the lower expert index (a stable sort, as ``lax.top_k`` breaks them),
 renormalised when ``norm_topk_prob``.
 
+Projections take the three forms of `models.quantize` (`_linear`):
+float ``kernel``, weight-only ``kernel_q`` + ``scale`` (int8, or
+resident int4 packed two codes a byte) and the W8A8 view's
+``kernel_qa``, whose int8 x int8 products accumulate in int32 through
+``torch._int_mm`` (`_int_mm`, zero-padded to the shapes the card's call
+takes; never a float fallback). The MoE forms take the same three
+(`_expert_mm`, `_expert_down_sum`).
+
 Attention at ``128 <= T <= 8192`` goes through the hand-written CUDA
 kernel K1 and at ``T > 8192`` through the long-context kernel K2
 (``kernels/flash_attention.py``) on the card, the route the JAX forward
@@ -116,12 +124,114 @@ def _norm(x: torch.Tensor, p: Dict, kind: str, eps: float) -> torch.Tensor:
     raise NotImplementedError(f"modegpt_tpu_torch.models.forward: norm {kind!r} is not ported")
 
 
+def pack_int4(codes: torch.Tensor) -> torch.Tensor:
+    """Resident int4 (see `models.quantize`): codes in [-8, 7] of any
+    integer dtype [..., out] -> uint8 [..., ceil(out / 2)], each code
+    stored as code + 8, column 2j in the low nibble and 2j + 1 in the high
+    one (an odd last column pairs with a zero nibble)."""
+    n = (codes.to(torch.int16) + 8).to(torch.uint8)
+    if n.shape[-1] % 2:
+        n = torch.cat([n, torch.zeros_like(n[..., :1])], dim=-1)
+    return n[..., 0::2] | (n[..., 1::2] << 4)
+
+
+def unpack_int4(packed: torch.Tensor, out: int) -> torch.Tensor:
+    """`pack_int4`'s inverse: uint8 [..., ceil(out / 2)] -> int8 codes
+    [..., out]."""
+    n = torch.stack([packed & 0x0F, packed >> 4], dim=-1).flatten(-2)[..., :out]
+    return n.to(torch.int8) - 8
+
+
+def _dequant(p: Dict, dtype: torch.dtype, row_major: bool = False) -> torch.Tensor:
+    """A weight-only leaf's codes (``kernel_q``: int8, or resident int4
+    unpacked to its true width ``scale.shape[-1]``) converted to
+    ``dtype``: the copy torch writes on every call, where XLA fuses the
+    convert into the product. It keeps the codes' layout (the products
+    take either), or is laid out row-major with ``row_major``."""
+    q = p["kernel_q"]
+    if q.dtype == torch.uint8:
+        q = unpack_int4(q, p["scale"].shape[-1])
+    return q.to(dtype, memory_format=torch.contiguous_format if row_major else torch.preserve_format)
+
+
+def true_div(x: torch.Tensor, c: float) -> torch.Tensor:
+    """x / c, correctly rounded on every device. On the card a Python
+    number as the divisor becomes a product with its reciprocal, which
+    differs in the last bit; a tensor divisor keeps the division, so the
+    quantisers' codes and scales are the JAX package's (numpy's) bit for
+    bit."""
+    return x / torch.full((), c, dtype=x.dtype, device=x.device)
+
+
+def _act_quant(x: torch.Tensor):
+    """Dynamic symmetric per-token int8 quantisation of the last axis:
+    x [..., d] -> (codes int8 [..., d], scale float32 [..., 1]); an
+    all-zero row gets scale 1 (JAX forward.py:83)."""
+    xf = x.to(torch.float32)
+    amax = torch.amax(torch.abs(xf), dim=-1, keepdim=True)
+    s = torch.where(amax == 0.0, torch.ones_like(amax), true_div(amax, 127.0))
+    q = torch.clamp(torch.round(xf / s), -127, 127).to(torch.int8)
+    return q, s
+
+
+INT_MM_MIN_ROWS = 17  # the card's torch._int_mm takes M > 16 rows ...
+INT_MM_ALIGN = 8  # ... and K and N multiples of 8
+
+
+def column_major(q: torch.Tensor) -> torch.Tensor:
+    """The same [..., in, out] values laid out column-major (each output
+    column's codes contiguous), the layout `_int_mm` takes without a copy;
+    the quantisers store int8 codes so."""
+    return q.transpose(-1, -2).contiguous().transpose(-1, -2)
+
+
+def _int_mm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """int8 a [M, K] @ int8 b [K, N] -> int32 [M, N], exact, through
+    ``torch._int_mm`` (on the card, cuBLASLt's int8 tensor-core GEMM).
+    The card's call takes M > 16 and K and N multiples of 8, so a and b
+    are zero-padded to that (zero codes add exactly zero) and the result
+    sliced. It also refuses many shapes (M = 24 or 48 with K = 64 and
+    N = 56, for one) with a row-major b, and took every shape tried with
+    a row-major a and a column-major b (cuBLAS's "TN" form): b is used as
+    it is when it is column-major and aligned (`column_major`, as the
+    quantisers store it), else copied into a column-major buffer with its
+    padding. The CPU takes the same path. There is no float fallback: a
+    product the call refuses raises. The int32 sum cannot overflow for
+    K <= 133 000 (K * 127^2 < 2^31)."""
+    M, K = a.shape
+    N = b.shape[1]
+    Mp = max(M, INT_MM_MIN_ROWS)
+    Kp, Np = -(-K // INT_MM_ALIGN) * INT_MM_ALIGN, -(-N // INT_MM_ALIGN) * INT_MM_ALIGN
+    if (Mp, Kp) != (M, K):
+        a = F.pad(a, (0, Kp - K, 0, Mp - M))
+    if (Kp, Np) != (K, N) or not b.t().is_contiguous():
+        bt = b.new_zeros((Np, Kp))
+        bt[:N, :K] = b.t()
+        b = bt.t()
+    return torch._int_mm(a.contiguous(), b)[:M, :N]
+
+
+def _dot_w8a8(x: torch.Tensor, kq: torch.Tensor, wscale: torch.Tensor) -> torch.Tensor:
+    """W8A8 product (JAX forward.py:94): per-token int8 activations times
+    int8 weights, accumulated in int32, rescaled ``acc * x_scale *
+    w_scale`` in float32 (the JAX order)."""
+    xq, xs = _act_quant(x)
+    acc = _int_mm(xq.reshape(-1, x.shape[-1]), kq).reshape(*x.shape[:-1], kq.shape[-1])
+    return (acc.to(torch.float32) * xs * wscale.to(torch.float32)).to(x.dtype)
+
+
 def _linear(x: torch.Tensor, p: Dict) -> torch.Tensor:
-    if "kernel" not in p:
-        raise NotImplementedError(
-            "modegpt_tpu_torch.models.forward: quantised kernels are not ported"
-        )
-    y = x @ p["kernel"]
+    """``x @ kernel (+ bias)`` for the three forms of a projection
+    (JAX forward.py:108): float ``kernel``; weight-only ``kernel_q`` +
+    ``scale`` (int8, or packed int4), the codes converted to x's dtype
+    and the per-out-channel scale applied to the output (`_dequant`);
+    and the W8A8 view's ``kernel_qa`` (`_dot_w8a8`)."""
+    if "kernel_qa" in p:
+        y = _dot_w8a8(x, p["kernel_qa"], p["scale"])
+    elif "kernel_q" in p:
+        y = (x @ _dequant(p, x.dtype)) * p["scale"].to(x.dtype)
+    else:
+        y = x @ p["kernel"]
     if "bias" in p:
         y = y + p["bias"]
     return y
@@ -295,6 +405,63 @@ def _route(spec: ModelSpec, p: Dict, x: torch.Tensor):
     return w, idx
 
 
+def _expert_scale(s: torch.Tensor) -> torch.Tensor:
+    """An expert stack's scale aligned to an [E, rows, out] product:
+    [E, out] from the quantisers, or a flat [out] (older artifacts)."""
+    return s[:, None, :] if s.dim() == 2 else s
+
+
+def _expert_mm(xx: torch.Tensor, ep: Dict) -> torch.Tensor:
+    """xx [N, d] (every token to every expert) or [E, C, d] (dispatch)
+    against the expert stack ``ep`` [E, d, f] -> [E, N or C, f], for each
+    form of the stack (JAX forward.py:222, :356). W8A8: the activation
+    codes of [N, d] are shared by every expert, so the product is one
+    int8 GEMM over the flattened (expert, column) axis; [E, C, d] takes
+    one per expert (torch has no batched int8 product on the card)."""
+    if "kernel" in ep:
+        return torch.matmul(xx, ep["kernel"])
+    if "kernel_q" in ep:
+        out = torch.matmul(xx, _dequant(ep, xx.dtype))
+        return out * _expert_scale(ep["scale"]).to(xx.dtype)
+    kq = ep["kernel_qa"]
+    E, d, f = kq.shape
+    xq, xs = _act_quant(xx)
+    if xx.dim() == 2:  # [d, E * f], column-major (a view of column-major codes)
+        kcat = kq.transpose(1, 2).reshape(E * f, d).t()
+        acc = _int_mm(xq, kcat).reshape(-1, E, f).transpose(0, 1)
+        xs = xs[None]
+    else:
+        acc = torch.stack([_int_mm(xq[e], kq[e]) for e in range(E)])
+    return (acc.to(torch.float32) * xs * _expert_scale(ep["scale"]).to(torch.float32)).to(xx.dtype)
+
+
+def _expert_down_sum(h: torch.Tensor, ep: Dict, w_full: torch.Tensor) -> torch.Tensor:
+    """sum_e w_full[:, e] * (h[e] @ down[e]) for h [E, N, D] and the
+    down stack ``ep`` [E, D, d] -> [N, d], without an [E, N, d] tensor.
+    Float and weight-only stacks fold the sum into one product over the
+    flattened (expert, column) axis, a weight-only stack dequantised once
+    per call (its per-(expert, out-channel) scale sits on the output
+    axis, so it cannot follow the sum). W8A8 scales each activation row
+    per (token, expert), so the exact int32 products are taken expert by
+    expert."""
+    E, N, D = h.shape
+    if "kernel_qa" in ep:
+        hq, hs = _act_quant(h)
+        kq, s = ep["kernel_qa"], ep["scale"].to(torch.float32)
+        y = None
+        for e in range(E):
+            ye = (_int_mm(hq[e], kq[e]).to(torch.float32) * hs[e] * (s[e] if s.dim() == 2 else s)).to(h.dtype)
+            ye = ye * w_full[:, e : e + 1]
+            y = ye if y is None else y + ye
+        return y
+    if "kernel_q" in ep:
+        kd = _dequant(ep, h.dtype, row_major=True).mul_(_expert_scale(ep["scale"]).to(h.dtype))
+    else:
+        kd = ep["kernel"]
+    hw = (h * w_full.T[..., None]).transpose(0, 1).reshape(N, E * D)
+    return hw @ kd.reshape(E * D, -1)
+
+
 def _moe_mlp(spec: ModelSpec, p: Dict, x: torch.Tensor, collect: bool):
     """Sparse-MoE MLP with every expert on every token (HF semantics,
     modeling_mixtral.MixtralSparseMoeBlock; JAX forward.py:186): the
@@ -317,13 +484,11 @@ def _moe_mlp(spec: ModelSpec, p: Dict, x: torch.Tensor, collect: bool):
     x2 = x.reshape(N, d)
     w, idx = _route(spec, p, x2)
     ek = p["experts"]
-    h = _act(torch.matmul(x2, ek["gate"]["kernel"]), spec.act)
-    h = h.mul_(torch.matmul(x2, ek["up"]["kernel"]))  # [E, N, D]
+    h = _act(_expert_mm(x2, ek["gate"]), spec.act)
+    h = h.mul_(_expert_mm(x2, ek["up"]))  # [E, N, D]
     D = h.shape[-1]
     w_full = torch.zeros((N, E), dtype=torch.float32, device=x.device).scatter_(-1, idx, w)
-    hw = (h * w_full.to(x.dtype).T[..., None]).transpose(0, 1).reshape(N, E * D)
-    y = (hw @ ek["down"]["kernel"].reshape(E * D, d)).view(B, T, d)
-    del hw
+    y = _expert_down_sum(h, ek["down"], w_full.to(x.dtype)).view(B, T, d)
     h_routed = h_shared = None
     if collect:
         routed = torch.zeros((N, E), dtype=h.dtype, device=x.device).scatter_(-1, idx, 1.0)
@@ -407,8 +572,8 @@ def _moe_mlp_dispatch(
     buf.index_put_((e_ix, s_ix), vals, accumulate=True)  # dropped ones add zeros
 
     ek = p["experts"]
-    h = _act(torch.bmm(buf, ek["gate"]["kernel"]), spec.act) * torch.bmm(buf, ek["up"]["kernel"])
-    y_e = torch.bmm(h, ek["down"]["kernel"])  # [E, C, d]
+    h = _act(_expert_mm(buf, ek["gate"]), spec.act) * _expert_mm(buf, ek["up"])
+    y_e = _expert_mm(h, ek["down"])  # [E, C, d]
 
     # each assignment's weighted output back at its unsorted place, then
     # summed over the token's k assignments (no atomics)

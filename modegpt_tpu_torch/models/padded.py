@@ -39,6 +39,15 @@ host, and only the surviving (row, position) pairs are written, because
 an out-of-range index on a CUDA tensor is a device-side assert and a
 clamped write would overwrite a live position.
 
+A quantised stack is quantised AFTER padding
+(`models.quantize.quantize_padded`), as in the JAX package. Zero pads
+change no column's max-abs, so ``quantize_padded(pad_to_uniform(p))``
+equals ``pad_to_uniform(p)`` with ``quantize_params(p)``'s codes laid
+into its true positions (the pads zero codes, the pad columns' scale 1);
+each per-layer view ``layers[...][l]`` hands `forward._linear` layer l's
+own [out] (experts: [E, out]) scale. A quantised tree is padded through
+this order only: `pad_to_uniform` reads float kernels.
+
 MoE layers run every expert on every token (``moe="dense"``) or by
 capacity-based token dispatch (``moe="dispatch"``, with ``token_valid``
 marking the rows whose tokens may claim expert capacity). Tensor
@@ -142,6 +151,9 @@ def pad_to_uniform(spec: ModelSpec, params: Dict) -> PaddedModel:
     """Zero-pad every layer to the stack-wide max rank per module and
     stack the layer params into [L, ...] leaves, on the params' device."""
     check_supported(spec)
+    if any("kernel" not in lp["q"] for lp in params["layers"]):
+        raise ValueError("pad_to_uniform pads float kernels: pad first, then quantise "
+                         "(models.quantize.quantize_padded)")
     H, Hk, L = spec.n_heads, spec.n_kv_heads, spec.n_layers
     rope = spec.uses_rope
     device = params["embed_tokens"].device

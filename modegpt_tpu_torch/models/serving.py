@@ -32,11 +32,16 @@ through capacity-based token dispatch (``moe="dispatch"`` at
 capacity (a prefill chunk's real positions; the decode-active slots), as
 the JAX step functions do.
 
+An int8 model (`models.quantize.quantize_padded`) serves weight-only;
+with ``a8_prefill`` the prefill chunks run on its W8A8 view
+(`models.quantize.with_act_quant`: per-token int8 activations, int8 x
+int8 -> int32 products), while decode keeps the weight-only model. On an
+unquantised model the view changes nothing.
+
 Options of the JAX batcher that this port does not have yet (speculative
 decoding, batched and mixed prefill, fused multi-step decode, prefix
 caching, per-request sampling, logprobs, guided decoding, logit bias,
-min_tokens, repetition penalty, meshes, W8A8 prefill) raise
-NotImplementedError.
+min_tokens, repetition penalty, meshes) raise NotImplementedError.
 """
 
 from __future__ import annotations
@@ -48,6 +53,7 @@ import torch
 
 from modegpt_tpu_torch.models.generate import _sample
 from modegpt_tpu_torch.models.padded import PaddedModel, _model_step_padded
+from modegpt_tpu_torch.models.quantize import with_act_quant
 
 __all__ = [
     "ServeState",
@@ -232,6 +238,8 @@ class ContinuousBatcher:
     ``moe``: "dense" (every expert on every token; exact) or "dispatch"
     (capacity-based token dispatch at ``moe_capacity``; nothing is
     dropped at moe_capacity >= n_experts / experts_per_tok).
+    ``a8_prefill``: prefill chunks run W8A8 on an int8 model (see the
+    module docstring).
     """
 
     def __init__(self, pm: PaddedModel, slots: int = 8, max_len: int = 512,
@@ -266,9 +274,13 @@ class ContinuousBatcher:
             ("per_request_sampling", per_request_sampling),
             ("repetition_penalty", repetition_penalty not in (None, 1.0)),
             ("mesh", mesh is not None),
-            ("a8_prefill", a8_prefill),
         ) if on])
         self.pm = pm
+        # W8A8 prefill: the prefill dispatches run on the int8 model's
+        # W8A8 view (it shares every tensor with pm); decode stays
+        # weight-only (JAX serving.py:1036-1047)
+        self.a8_prefill = bool(a8_prefill)
+        self.pm_pf = with_act_quant(pm) if self.a8_prefill else pm
         self.device = _device(pm)
         self.slots = slots
         self.max_len = max_len
@@ -429,7 +441,7 @@ class ContinuousBatcher:
                     break
                 piece, pos0, is_last = self.slot_chunks[s].pop(0)
                 tok = _prefill_chunk(
-                    self.pm, self.state, s, piece, pos0, self.bucket, is_last,
+                    self.pm_pf, self.state, s, piece, pos0, self.bucket, is_last,
                     self.temperature, generator, top_p=self.top_p, min_p=self.min_p,
                     decode_attn=self.decode_attn, moe=self.moe, moe_capacity=self.moe_capacity,
                 )

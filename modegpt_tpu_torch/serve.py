@@ -14,9 +14,11 @@ artifact names) with ``transformers``.
 
 A MoE artifact serves with every expert on every token (``--moe_exec
 dense``) or by capacity-based token dispatch (``--moe_exec dispatch``
-at ``--moe_capacity``). Flags for features this port does not have yet
-raise NotImplementedError: int8 weights, speculative decoding, fused
-decode, prefix caching, batched prefill, W8A8 prefill, in-memory
+at ``--moe_capacity``). ``--quantize_int8`` quantises the padded model's
+projections to int8 weights (`models.quantize.quantize_padded`), and
+``--a8_prefill`` then runs the prefill chunks W8A8. Flags for features
+this port does not have yet raise NotImplementedError: speculative
+decoding, fused decode, prefix caching, batched prefill, in-memory
 compression, and a plain HF checkpoint as --model.
 """
 
@@ -39,7 +41,8 @@ def _parser() -> argparse.ArgumentParser:
     p.add_argument("--max_len", type=int, default=1024)
     p.add_argument("--prefill_bucket", type=int, default=128)
     p.add_argument("--temperature", type=float, default=0.0)
-    p.add_argument("--quantize_int8", action="store_true", help="int8 weights (not ported)")
+    p.add_argument("--quantize_int8", action="store_true",
+                   help="int8-resident projection weights (per-out-channel scales)")
     p.add_argument("--moe_exec", choices=("dense", "dispatch"), default="dense")
     p.add_argument("--moe_capacity", type=float, default=2.0)
     p.add_argument("--kv_dtype", choices=("model", "int8"), default="model",
@@ -51,7 +54,8 @@ def _parser() -> argparse.ArgumentParser:
     p.add_argument("--steps_per_dispatch", type=int, default=1)
     p.add_argument("--prefix_cache", action="store_true")
     p.add_argument("--prefill_exec", choices=("per_slot", "batched"), default="per_slot")
-    p.add_argument("--a8_prefill", action="store_true")
+    p.add_argument("--a8_prefill", action="store_true",
+                   help="W8A8 prefill (per-token int8 activations) on an int8 model")
     p.add_argument("--compress_ratio", type=float, default=None,
                    help="in-memory compression before serving (not ported)")
     p.add_argument("--compress_dataset", default="wikitext")
@@ -86,14 +90,12 @@ def main(argv=None):
 
     args = _parser().parse_args(argv)
     unported = [name for name, on in (
-        ("--quantize_int8", args.quantize_int8),
         ("--compress_ratio (in-memory compression)", args.compress_ratio is not None),
         (f"--spec_decode {args.spec_decode}", args.spec_decode != "off"),
         ("--draft_model", bool(args.draft_model)),
         ("--steps_per_dispatch > 1", args.steps_per_dispatch > 1),
         ("--prefix_cache", args.prefix_cache),
         ("--prefill_exec batched", args.prefill_exec != "per_slot"),
-        ("--a8_prefill", args.a8_prefill),
     ) if on]
     if unported:
         raise NotImplementedError("modegpt_tpu_torch.serve: not ported: " + ", ".join(unported))
@@ -119,6 +121,11 @@ def main(argv=None):
     tokenizer = _load_tokenizer(args.model, tok_src)
     pm = pad_to_uniform(spec, params)
     del params
+    if args.quantize_int8:
+        from modegpt_tpu_torch.models.quantize import quantize_padded
+
+        pm = quantize_padded(pm)
+        logger.info("int8-resident weights enabled")
     logger.info(
         "serving %s on %s: %d layers, %d slots x %d tokens, bucket %d",
         args.model, args.device, spec.n_layers, args.slots, args.max_len, args.prefill_bucket,
@@ -127,6 +134,7 @@ def main(argv=None):
         pm, slots=args.slots, max_len=args.max_len, prefill_bucket=args.prefill_bucket,
         eos_token_id=getattr(tokenizer, "eos_token_id", None), temperature=args.temperature,
         moe=args.moe_exec, moe_capacity=args.moe_capacity, kv_dtype=args.kv_dtype,
+        a8_prefill=args.a8_prefill,
     )
     rid_to_idx, prompt_lens = {}, {}
     for i, text in enumerate(texts):

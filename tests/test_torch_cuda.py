@@ -450,3 +450,142 @@ def _tree_to(tree, device):
     if isinstance(tree, list):
         return [_tree_to(v, device) for v in tree]
     return None if tree is None else tree.to(device)
+
+
+# ---- quantised products (torch._int_mm and the dequantised copy) ----
+
+QUANT_MOE = SimpleNamespace(
+    model_type="qwen2_moe", vocab_size=256, hidden_size=64, intermediate_size=96,
+    moe_intermediate_size=50, shared_expert_intermediate_size=80, num_hidden_layers=2,
+    num_attention_heads=4, num_key_value_heads=2, max_position_embeddings=512, rms_norm_eps=1e-6,
+    rope_theta=10000.0, hidden_act="silu", tie_word_embeddings=False, num_experts=8,
+    num_experts_per_tok=2, norm_topk_prob=False, decoder_sparse_step=1, mlp_only_layers=[],
+    rope_scaling=None,
+)
+
+
+def _normal(shape, seed):
+    return torch.from_numpy(np.random.default_rng(seed).standard_normal(shape).astype(np.float32))
+
+
+@pytest.mark.parametrize("form", ["int8", "int4"])
+def test_weight_only_linear_on_the_card_matches_the_cpu(cuda_device, form):
+    """Weight-only ``_linear`` (the codes converted to the activation's
+    dtype, the scale on the output) at unaligned widths, int8 codes and
+    packed int4, with a bias."""
+    from modegpt_tpu_torch.models.forward import _linear, pack_int4
+    from modegpt_tpu_torch.models.quantize import quantize_linear
+
+    p = quantize_linear({"kernel": _normal((126, 250), 0), "bias": _normal((250,), 1)})
+    if form == "int4":
+        p = dict(p, kernel_q=pack_int4(torch.clamp(p["kernel_q"], -7, 7)))
+    x = _normal((3, 7, 126), 2)
+    got = _linear(x.to(cuda_device), {k: v.to(cuda_device) for k, v in p.items()})
+    torch.testing.assert_close(got.cpu(), _linear(x, p), rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("mkn", [(24, 64, 56), (48, 56, 80), (130, 56, 32), (130, 64, 400), (1, 126, 250),
+                                 (8, 4096, 1008)], ids=str)
+def test_int_mm_takes_every_shape(cuda_device, mkn):
+    """Shapes the card's ``torch._int_mm`` refuses with a row-major
+    weight (M = 24 and 48 at K = 56/64, M = 130 at K = 56/64) or at all
+    (M < 17, K or N not a multiple of 8): exact all the same."""
+    from modegpt_tpu_torch.models.forward import _int_mm
+
+    M, K, N = mkn
+    rng = np.random.default_rng(8)
+    a, b = (torch.from_numpy(rng.integers(-127, 128, s).astype(np.int8)) for s in ((M, K), (K, N)))
+    got = _int_mm(a.to(cuda_device), b.to(cuda_device))
+    assert got.dtype == torch.int32 and torch.equal(got.cpu(), a.int() @ b.int())
+
+
+@pytest.mark.parametrize("rows", [1, 8, 16, 17, 130])
+def test_w8a8_dot_on_the_card_is_exact(cuda_device, rows):
+    """``_dot_w8a8`` at unaligned K = 126 and N = 250 and at row counts
+    below the 17 that the card's ``torch._int_mm`` takes: codes, scales,
+    the int32 accumulator and the rescaled output equal the CPU's bit for
+    bit (zero padding adds exact zeros)."""
+    from modegpt_tpu_torch.models.forward import _act_quant, _dot_w8a8, _int_mm
+    from modegpt_tpu_torch.models.quantize import quantize_linear
+
+    p = quantize_linear({"kernel": _normal((126, 250), 3)})
+    pc = {k: v.to(cuda_device) for k, v in p.items()}
+    for name in ("kernel_q", "scale"):  # the quantiser on the card: the CPU's codes and scales
+        assert torch.equal(quantize_linear({"kernel": _normal((126, 250), 3).to(cuda_device)})[name].cpu(), p[name])
+    x = _normal((rows, 126), 4)
+    xq, xs = _act_quant(x)
+    gq, gs = _act_quant(x.to(cuda_device))
+    assert torch.equal(gq.cpu(), xq) and torch.equal(gs.cpu(), xs)
+    acc = _int_mm(gq, pc["kernel_q"])
+    assert acc.dtype == torch.int32 and acc.shape == (rows, 250)
+    assert torch.equal(acc.cpu(), xq.int() @ p["kernel_q"].int())
+    assert torch.equal(_dot_w8a8(x.to(cuda_device), pc["kernel_q"], pc["scale"]).cpu(),
+                       _dot_w8a8(x, p["kernel_q"], p["scale"]))
+
+
+@pytest.mark.parametrize("moe", ["dense", "dispatch"])
+def test_w8a8_moe_on_the_card_matches_the_cpu(cuda_device, moe):
+    """The W8A8 view of a quantised MoE layer (expert width 50: unaligned)
+    through the all-experts form (one int8 GEMM over the (expert, column)
+    axis for gate and up, the down products expert by expert) and through
+    dispatch (one int8 GEMM per expert), against the CPU."""
+    from modegpt_tpu_torch.models.forward import _moe_mlp, _moe_mlp_dispatch
+    from modegpt_tpu_torch.models.quantize import quantize_params, with_act_quant
+
+    spec = spec_from_hf_config(QUANT_MOE)
+    cpu = with_act_quant(quantize_params(init_params(spec, torch.Generator().manual_seed(5), scale=0.1,
+                                                     device="cpu")))["layers"][0]
+    assert "kernel_qa" in cpu["experts"]["down"] and "kernel_qa" in cpu["shared"]["up"]
+    card = _tree_to(cpu, cuda_device)
+    x = _normal((2, 12, 64), 6)
+    if moe == "dense":
+        got, want = _moe_mlp(spec, card, x.to(cuda_device), False)[0], _moe_mlp(spec, cpu, x, False)[0]
+    else:
+        cap = spec.n_experts / spec.experts_per_tok
+        got, want = _moe_mlp_dispatch(spec, card, x.to(cuda_device), cap), _moe_mlp_dispatch(spec, cpu, x, cap)
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-3, atol=1e-3)
+
+
+def _nf4_numpy(a):
+    """The one-shot NF4 quantiser in numpy, as the JAX package writes it
+    (modegpt_tpu/compress/artifact.py::_quantize_nf4)."""
+    from modegpt_tpu_torch.compress.artifact import _NF4_BLOCK, _NF4_CODE
+
+    flat = a.reshape(-1)
+    pad = (-flat.size) % _NF4_BLOCK
+    if pad:
+        flat = np.concatenate([flat, np.zeros(pad, np.float32)])
+    blocks = flat.reshape(-1, _NF4_BLOCK)
+    absmax = np.max(np.abs(blocks), axis=1, keepdims=True)
+    absmax = np.where(absmax == 0.0, 1.0, absmax)
+    codes = np.argmin(np.abs((blocks / absmax)[..., None] - _NF4_CODE), axis=-1).astype(np.uint8)
+    flat = codes.reshape(-1)
+    if flat.size % 2:
+        flat = np.concatenate([flat, np.zeros(1, np.uint8)])
+    return (flat[0::2] | (flat[1::2] << 4)).astype(np.uint8), absmax.reshape(-1).astype(np.float32)
+
+
+def test_artifact_quantisers_on_the_card_match_numpy(cuda_device):
+    """The artifact's quantisers on the card: NF4 in chunks of blocks
+    against the one-shot numpy form, int8 and int4 against the CPU's, all
+    byte for byte."""
+    from modegpt_tpu_torch.compress import artifact
+
+    from modegpt_tpu_torch.compress.artifact import _NF4_CODE
+
+    a = _normal((3, 257, 130), 7).numpy()
+    a[0, :, :5] = 0.0
+    block = a.reshape(-1)[640:704]  # one 64-value block, a view
+    block[:] = 0.0
+    block[:15] = (_NF4_CODE[:-1] + _NF4_CODE[1:]) / 2  # exact ties between two levels ...
+    block[15] = 1.0  # ... at a max-abs of 1
+    card = torch.from_numpy(a).to(cuda_device)
+    packed, scale, shape = artifact._quantize_nf4(card, chunk_blocks=100)
+    want_packed, want_scale = _nf4_numpy(a)
+    np.testing.assert_array_equal(packed.cpu().numpy(), want_packed)
+    np.testing.assert_array_equal(scale.cpu().numpy(), want_scale)
+    assert shape == a.shape
+    for fn in (artifact._quantize_int8, artifact._quantize_int4):
+        for got, want in zip(fn(card), fn(torch.from_numpy(a))):
+            if isinstance(got, torch.Tensor):
+                assert torch.equal(got.cpu(), want), fn.__name__

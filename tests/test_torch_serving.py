@@ -253,7 +253,7 @@ def test_sampling_is_seeded_and_filtered(models):
 CTOR_UNPORTED = [
     dict(spec_decode="prompt_lookup"), dict(prefill_exec="batched"), dict(mixed_prefill_decode=True),
     dict(steps_per_dispatch=4), dict(prefix_cache=True), dict(per_request_sampling=True),
-    dict(repetition_penalty=1.2), dict(mesh=object()), dict(a8_prefill=True), dict(draft_pm=object()),
+    dict(repetition_penalty=1.2), dict(mesh=object()), dict(draft_pm=object()),
 ]
 SUBMIT_UNPORTED = [
     dict(logprobs=True), dict(top_logprobs=2), dict(seed=1), dict(guide=object()),
