@@ -6,6 +6,7 @@
     python3 chip_smoke.py --phases build,kernel,long
     python3 chip_smoke.py --phases build,kernel,moe
     python3 chip_smoke.py --phases build,kernel,archs
+    python3 chip_smoke.py --phases build,kernel,big
     python3 chip_smoke.py --phases build,kernel,main,quant
 
 Phases, each printing one JSON line:
@@ -99,6 +100,16 @@ Phases, each printing one JSON line:
    launches each) against the plain attention, and one decode step of
    each padded model through K3 against its plain version (multi-head
    G*S = 1, and groups of 4, 7 and 9).
+9. big    — a random bf16 safetensors checkpoint at Qwen3-32B widths
+   (64 -> 4 layers), compressed host-staged through the streamed sweep
+   (job A, from disk, loaded through the safetensors path, every layer
+   leaf left on the host) and resident through the windowed calibration
+   (job B, same weights): ranks, factor stores and perplexities equal,
+   A's device peak, over the whole job and over its calibrate + solve
+   steps, a dense layer below B's; K1's launches per job as counted in
+   the code, and every shape K1 ran at one of the kernel phase's cases.
+   Then the staging, prepass-probe and async-off measurements, and the
+   fused job against the chunked one at Llama-3-8B widths (job C).
 
 Then a `{"kernels": [...]}` line (each kernel's launches summed over the
 paths that ran it, and by path), the card's name and power limit as
@@ -114,6 +125,7 @@ import contextlib
 import json
 import math
 import os
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -151,6 +163,11 @@ KERNEL_CASES = [
     dict(name="qwen2_G7", B=1, H=28, Hk=4, T=2048, hd=128, hd_v=128, dtype="float32", window=None),
     dict(name="starcoder2_G9_window4096", B=1, H=36, Hk=4, T=2048, hd=128, hd_v=128, dtype="float32",
          window=4096),
+    # the big phase at Qwen3-32B widths (64 heads over 8 kv heads): its
+    # calibration forwards, and its compressed evaluation, padded to the
+    # widest layer's 126 dims a head
+    dict(name="qwen3_32b_f32", B=2, H=64, Hk=8, T=2048, hd=128, hd_v=128, dtype="float32", window=None),
+    dict(name="qwen3_32b_padded_f32", B=2, H=64, Hk=8, T=2048, hd=126, hd_v=126, dtype="float32", window=None),
 ]
 # K2 (flash_attention_hbm) cases. The first is the long phase's shape: one
 # 16384-token window (eval and calibration batches of 1) at 32 heads over
@@ -1857,6 +1874,411 @@ def phase_archs(records: dict, profile: bool = False) -> dict:
     return line
 
 
+QWEN3_32B = dict(  # Qwen/Qwen3-32B config.json
+    model_type="qwen3", architectures=["Qwen3ForCausalLM"], vocab_size=151936, hidden_size=5120,
+    intermediate_size=25600, num_hidden_layers=64, num_attention_heads=64, num_key_value_heads=8, head_dim=128,
+    max_position_embeddings=40960, rms_norm_eps=1e-6, rope_theta=1000000.0, hidden_act="silu",
+    tie_word_embeddings=False, attention_bias=False, rope_scaling=None, use_sliding_window=False,
+    sliding_window=None, max_window_layers=64, torch_dtype="bfloat16",
+)
+BIG_LAYERS = 4  # Qwen3-32B's 64 layers cut to 4: 1.95 GB of f32 weights a layer, 14 GB with the embeddings
+BIG_SEQ_LEN = 2048  # the main phase's sequence length
+# Jobs A and B save int8 artifacts (f32 ones are 11.7 GB each): a card
+# machine's disk takes 45 GiB of writes a run, freed blocks included
+BIG_ARTIFACT_DTYPE = "int8"
+FUSED_LAYERS = 2  # job C: Meta-Llama-3-8B widths cut to 2 layers
+BIG_FACTOR_TOL = dict(rtol=2e-3, atol=2e-4)
+
+
+# bench.py's big presets (bench.py:43-79) at full depth, as HF configs
+BIG_PRESETS = {
+    "large13B": dict(model_type="llama", vocab_size=32000, hidden_size=5120, intermediate_size=13824,
+                     num_hidden_layers=40, num_attention_heads=40, num_key_value_heads=40, head_dim=128,
+                     max_position_embeddings=4096, rms_norm_eps=1e-5, hidden_act="silu", tie_word_embeddings=False),
+    "moe8": dict(model_type="mixtral", vocab_size=32000, hidden_size=4096, intermediate_size=14336,
+                 num_hidden_layers=8, num_attention_heads=32, num_key_value_heads=8, head_dim=128,
+                 max_position_embeddings=32768, rms_norm_eps=1e-5, hidden_act="silu", tie_word_embeddings=False,
+                 num_local_experts=8, num_experts_per_tok=2),
+    "large32B": QWEN3_32B,
+}
+
+
+def _param_count(spec) -> int:
+    """Parameters of a dense or MoE spec's tree, counted from its widths."""
+    D = spec.d_model
+    n = spec.vocab_size * D * (1 if spec.tie_word_embeddings else 2) + D
+    for l in range(spec.n_layers):
+        n += 2 * D + D * (spec.q_ranks[l] + spec.k_ranks[l] + spec.v_ranks[l]) + spec.o_ranks[l] * D
+        n += 2 * spec.head_dim if spec.qk_norm else 0
+        mlp = 3 * D * spec.gate_ranks[l]
+        n += spec.n_experts * mlp + D * spec.n_experts if spec.is_moe_layer(l) else mlp
+    return n
+
+
+def _preset_sizes() -> dict:
+    """Bytes of each big preset's weights in f32 and bf16 against one
+    card's 80 GB, with the widest layer's f32 cov_mlp and the Type-I
+    selection's workspace beside it (2 x cov_mlp, `offload._flush_hbm_estimate`)."""
+    from modegpt_tpu_torch.models.spec import spec_from_hf_config
+
+    out = {}
+    for name, cfg in BIG_PRESETS.items():
+        spec = spec_from_hf_config(SimpleNamespace(**cfg))
+        n = _param_count(spec)
+        out[name] = {"params": n, "f32_bytes": 4 * n, "bf16_bytes": 2 * n,
+                     "cov_mlp_bytes": 4 * spec.d_int ** 2, "type1_workspace_bytes": 8 * spec.d_int ** 2}
+    return out
+
+
+def _write_qwen3_checkpoint(path: str, spec, seed: int) -> dict:
+    """A random-weight Qwen3 checkpoint under HF names: bf16 safetensors,
+    one shard a layer plus the embeddings' and the head's, with an index
+    and ``config.json``, weights from a seeded generator on the card at
+    the port's init scale. Returns its bytes and seconds."""
+    import torch
+    from safetensors.torch import save_file
+
+    from modegpt_tpu_torch.models.init import init_params
+
+    t0 = time.perf_counter()
+    params = init_params(spec, torch.Generator(device="cuda").manual_seed(seed), dtype=torch.bfloat16)
+    with open(os.path.join(path, "config.json"), "w") as f:
+        json.dump({**QWEN3_32B, "num_hidden_layers": spec.n_layers}, f, indent=2)
+
+    def hf(kernel):  # [in, out] -> HF [out, in] on the host
+        return kernel.T.contiguous().cpu()
+
+    shards = {"model-embed.safetensors": {"model.embed_tokens.weight": params["embed_tokens"].cpu(),
+                                          "model.norm.weight": params["final_norm"]["scale"].cpu()},
+              "model-head.safetensors": {"lm_head.weight": hf(params["lm_head"]["kernel"])}}
+    for l, lp in enumerate(params["layers"]):
+        b = f"model.layers.{l}."
+        shard = {b + "input_layernorm.weight": lp["attn_norm"]["scale"].cpu(),
+                 b + "post_attention_layernorm.weight": lp["mlp_norm"]["scale"].cpu(),
+                 b + "self_attn.q_norm.weight": lp["q_norm"]["scale"].cpu(),
+                 b + "self_attn.k_norm.weight": lp["k_norm"]["scale"].cpu()}
+        shard.update({f"{b}self_attn.{n}_proj.weight": hf(lp[n]["kernel"]) for n in "qkvo"})
+        shard.update({f"{b}mlp.{n}_proj.weight": hf(lp[n]["kernel"]) for n in ("gate", "up", "down")})
+        shards[f"model-layer{l:02d}.safetensors"] = shard
+    del params
+    weight_map, total = {}, 0
+    for name, tensors in shards.items():
+        save_file(tensors, os.path.join(path, name), metadata={"format": "pt"})
+        for key, t in tensors.items():
+            weight_map[key] = name
+            total += t.numel() * t.element_size()
+    with open(os.path.join(path, "model.safetensors.index.json"), "w") as f:
+        json.dump({"metadata": {"total_size": total}, "weight_map": weight_map}, f)
+    disk = sum(os.path.getsize(os.path.join(path, n)) for n in os.listdir(path))
+    return {"bytes_on_disk": disk, "tensor_bytes": total, "seconds": time.perf_counter() - t0}
+
+
+def _factor_store_diff(dir_a: str, dir_b: str, layers: int) -> dict:
+    """Every factor file of two stores: selections (idx, rotary masks)
+    equal, the rest within BIG_FACTOR_TOL."""
+    import numpy as np
+
+    from modegpt_tpu_torch.compress.artifact import load_layer_factors
+
+    worst, unequal, files = 0.0, [], 0
+    for l in range(layers):
+        for s in ("mlp", "qk", "vo"):
+            fa, fb = load_layer_factors(dir_a, l, s), load_layer_factors(dir_b, l, s)
+            files += 1
+            if fa is None or fb is None or sorted(fa) != sorted(fb):
+                unequal.append(f"layer {l} {s}: files differ")
+                continue
+            for k in fa:
+                a, b = np.asarray(fa[k]), np.asarray(fb[k])
+                if a.shape != b.shape:
+                    unequal.append(f"layer {l} {s}.{k}: shapes {a.shape} vs {b.shape}")
+                elif np.array_equal(a, b):
+                    continue
+                elif k in ("idx", "rotary_mask"):
+                    unequal.append(f"layer {l} {s}.{k} differs")
+                else:
+                    worst = max(worst, float(np.abs(a.astype(np.float64) - b).max()) if a.size else 0.0)
+                    if not np.allclose(a, b, **BIG_FACTOR_TOL):
+                        unequal.append(f"layer {l} {s}.{k} beyond {BIG_FACTOR_TOL}")
+    return {"files": files, "max_abs_err": worst, "problems": unequal}
+
+
+@contextlib.contextmanager
+def _spied_loader():
+    """Record what `run_compression`'s loader returns and whether the
+    safetensors path built it (the loader falls back to AutoModel
+    otherwise)."""
+    from modegpt_tpu_torch.models import hf as hf_mod
+    from modegpt_tpu_torch.models import safetensors_io
+
+    seen: dict = {"safetensors": 0}
+    load, direct = hf_mod.load_hf_model, safetensors_io.load_hf_checkpoint_safetensors
+
+    def spy_direct(*args, **kwargs):
+        out = direct(*args, **kwargs)
+        seen["safetensors"] += 1
+        return out
+
+    def spy_load(path, *args, **kwargs):
+        out = load(path, *args, **kwargs)
+        seen.update(spec=out[0], params=out[1], device=str(kwargs.get("device")))
+        return out
+
+    hf_mod.load_hf_model, safetensors_io.load_hf_checkpoint_safetensors = spy_load, spy_direct
+    try:
+        yield seen
+    finally:
+        hf_mod.load_hf_model, safetensors_io.load_hf_checkpoint_safetensors = load, direct
+
+
+@contextlib.contextmanager
+def _k1_shapes():
+    """Record the shape of every K1 call the forward makes (B, H, Hk, T,
+    hd, hd_v, dtype, window), so a phase can hold each one to a kernel
+    case."""
+    from modegpt_tpu_torch.models import forward as fwd
+
+    seen: set = set()
+    kernel = fwd.flash_attention
+
+    def spy(q, k, v, scale=None, window=None):
+        seen.add((*q.shape[:2], k.shape[1], q.shape[2], q.shape[3], v.shape[3], str(q.dtype).split(".")[-1], window))
+        return kernel(q, k, v, scale=scale, window=window)
+
+    fwd.flash_attention = spy
+    try:
+        yield seen
+    finally:
+        fwd.flash_attention = kernel
+
+
+@contextlib.contextmanager
+def _step_peaks():
+    """`run_compression`'s steps, each with its own peak device bytes: the
+    peak counter is read and reset at every step's end. Yields the
+    ``{step: bytes}`` dict of the run in progress (a step that repeats,
+    such as a window's calibrate, keeps its largest)."""
+    import torch
+
+    from modegpt_tpu_torch.compress import pipeline
+
+    peaks: dict = {}
+    steps = pipeline._Steps
+
+    class PeakSteps(steps):
+        def __call__(self, name, t0):
+            now = super().__call__(name, t0)
+            peaks[name] = max(peaks.get(name, 0), torch.cuda.max_memory_allocated())
+            torch.cuda.reset_peak_memory_stats()
+            return now
+
+    pipeline._Steps = PeakSteps
+    try:
+        yield peaks
+    finally:
+        pipeline._Steps = steps
+
+
+CALIB_SOLVE_STEPS = ("stream", "calibrate", "allocate", "solve", "factor_store")
+
+
+def phase_big(records: dict, profile: bool = False) -> dict:
+    """Big-model compression at Qwen3-32B widths (4 layers) from a bf16
+    safetensors checkpoint: the host-staged streamed job (A) against the
+    resident windowed one (B) on the same weights, the staging and flush
+    measurements, then the fused job against the chunked one at
+    Meta-Llama-3-8B widths (C). K1 in every forward."""
+    import numpy as np
+    import torch
+
+    from modegpt_tpu_torch.calib.data import load_calibration_batches
+    from modegpt_tpu_torch.compress import offload
+    from modegpt_tpu_torch.compress.pipeline import compress_in_memory, run_compression
+    from modegpt_tpu_torch.config import CompressionConfig
+    from modegpt_tpu_torch.kernels import flash_attention as fa_mod
+    from modegpt_tpu_torch.models.init import init_params
+    from modegpt_tpu_torch.models.spec import spec_from_hf_config
+    from modegpt_tpu_torch.ops.allocation import allocate_keep_ratios
+
+    ckpt_spec = spec_from_hf_config(SimpleNamespace(**{**QWEN3_32B, "num_hidden_layers": BIG_LAYERS}))
+    job = dict(seq_len=BIG_SEQ_LEN, calib_size=8, calibs_batch_size=2, eval_batch_size=2, eval_max_samples=4,
+               compression_ratio=0.3, dataset="synthetic", solver_precision="f32_device", layers_per_step=1,
+               skip_baseline_eval=True, device="cuda", artifact_dtype=BIG_ARTIFACT_DTYPE)
+    n_batches = math.ceil(job["calib_size"] / job["calibs_batch_size"])
+    k1_eval = BIG_LAYERS * math.ceil(job["eval_max_samples"] / job["eval_batch_size"])
+    expected = {"A": 2 * BIG_LAYERS * n_batches + k1_eval,
+                "B": (BIG_LAYERS // job["layers_per_step"]) * n_batches * BIG_LAYERS + k1_eval}
+    line: dict = {"phase": "big", "model": "Qwen3-32B widths", "n_layers": BIG_LAYERS,
+                  "presets_full_depth": _preset_sizes()}
+    launches: dict = {}
+    problems = []
+
+    def run(name, tmp, **kw):
+        config = CompressionConfig(**{**job, **kw}, output_dir=os.path.join(tmp, name, "out"),
+                                   temp_storage_dir=os.path.join(tmp, name, "layers"),
+                                   metrics_dir=os.path.join(tmp, name, "metrics")).validate()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        fa_mod.flash_attention.launches = 0
+        t0 = time.perf_counter()
+        with _step_peaks() as peaks:
+            results = run_compression(
+                config, **({"spec": spec, "params": kw_params[name]} if name in kw_params else {})
+            )
+        seconds = time.perf_counter() - t0
+        launches[name] = fa_mod.flash_attention.launches
+        # the whole job's peak, and its calibrate + solve steps' alone
+        return results, {"seconds": seconds, "step_seconds": results["step_seconds"],
+                         "peak_bytes": max([torch.cuda.max_memory_allocated(), *peaks.values()]),
+                         "calib_solve_peak_bytes": max(v for k, v in peaks.items() if k in CALIB_SOLVE_STEPS),
+                         "step_peak_bytes": peaks,
+                         "compressed_ppl": results.get("compressed_ppl"), "k1_launches": launches[name]}
+
+    with tempfile.TemporaryDirectory(prefix="modegpt_smoke_big_") as tmp, _k1_shapes() as k1_shapes:
+        ckpt = os.path.join(tmp, "ckpt")
+        os.makedirs(ckpt)
+        line["checkpoint"] = _write_qwen3_checkpoint(ckpt, ckpt_spec, seed=0)
+        kw_params: dict = {}
+
+        # ---- job A: streamed, host-staged, from the checkpoint on disk ----
+        with _spied_loader() as seen:
+            res_a, line["A"] = run("A", tmp, model=ckpt, calib_exec="stream", bi_stage_dtype="bf16")
+        shutil.rmtree(os.path.join(tmp, "A", "out"))  # only A's factor store is read again
+        # A's reloaded compressed model would sit on the card through the
+        # measurements and job B below, inflating their peaks
+        del res_a["compressed_params"]
+        spec, host = seen["spec"], seen["params"]
+        stats = res_a["stream_stats"]
+        line["A"]["stream_stats"] = {k: v for k, v in stats.items() if not isinstance(v, dict)}
+        line["loader"] = {"safetensors_path": seen["safetensors"] == 1, "device": seen["device"]}
+        host_leaves = [t for lp in host["layers"] for t in offload._leaves(lp)]
+        layer_bytes = sum(t.numel() * t.element_size() for t in offload._leaves(host["layers"][0]))
+        line["host_tree_bytes"] = sum(t.numel() * t.element_size() for t in offload._leaves(host))
+        line["dense_layer_bytes"] = layer_bytes
+        if spec != ckpt_spec:
+            problems.append("the checkpoint's spec differs from the one it was written from")
+        if not line["loader"]["safetensors_path"]:
+            problems.append("the loader did not take the safetensors path")
+        if any(t.device.type != "cpu" for t in host_leaves):
+            problems.append("job A moved layer leaves off the host")
+
+        # ---- staging both ways, the adaptive probe, async off ----
+        lp1 = host["layers"][1]
+        stage = {}
+        for way in ("pageable", "pinned", "pageable ", "pinned "):
+            stager = offload._PinnedStager(torch.device("cuda"), None)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            staged = ({k: {kk: t.to("cuda") for kk, t in v.items()} for k, v in lp1.items()}
+                      if way.strip() == "pageable" else offload._ready(stager(lp1), torch.device("cuda")))
+            torch.cuda.synchronize()
+            stage.setdefault(way.strip() + "_s", []).append(time.perf_counter() - t0)
+            del staged, stager
+        line["stage_one_layer"] = stage
+        batches = load_calibration_batches(None, "synthetic", job["calib_size"], job["calibs_batch_size"],
+                                           job["seq_len"], vocab_size=spec.vocab_size)
+        fa_mod.flash_attention.launches = 0
+        probe: dict = {}
+        bi = offload.stream_bi_sweep(spec, host, batches, stats_out=probe, stage_dtype="int8", adaptive=True,
+                                     device="cuda")
+        launches["probe"] = fa_mod.flash_attention.launches
+        line["adaptive_probe"] = {**probe, "bi": bi}
+        keep, _ = allocate_keep_ratios(bi, job["compression_ratio"], 0.015, 0.8)
+        fa_mod.flash_attention.launches = 0
+        off: dict = {}
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        resident = torch.cuda.memory_allocated()
+        offload.stream_calibrate_solve(
+            spec, host, batches, CompressionConfig(**job, stream_async_flush="off"), keep_ratios=keep,
+            stats_out=off,
+        )
+        launches["async_off"] = fa_mod.flash_attention.launches
+        line["async_off_stats"] = {k: v for k, v in off.items() if not isinstance(v, dict)}
+        # the synchronous sweep's own peak, above what was on the card before it
+        line["async_off_stats"]["peak_bytes"] = torch.cuda.max_memory_allocated() - resident
+        line["async_off_stats"]["resident_bytes"] = resident
+        torch.cuda.empty_cache()
+
+        # ---- job B: windowed, resident, on the same weights ----
+        kw_params["B"] = {k: offload._tree_map(lambda t: t.to("cuda"), v) for k, v in host.items()}
+        res_b, line["B"] = run("B", tmp, model="random-qwen3-32b-widths", calib_exec="window")
+        del kw_params["B"], res_b["compressed_params"]
+        line["A_vs_B"] = _factor_store_diff(os.path.join(tmp, "A", "layers"), os.path.join(tmp, "B", "layers"),
+                                            BIG_LAYERS)
+        ca, cb = res_a["compressed_spec"], res_b["compressed_spec"]
+        line["ranks"] = {"gate": list(ca.gate_ranks), "q": list(ca.q_ranks), "v": list(ca.v_ranks)}
+        if ca != cb:
+            problems.append(f"job A's ranks differ from job B's: {line['ranks']} vs {list(cb.gate_ranks)}")
+        problems += line["A_vs_B"]["problems"][:5]
+        for sub in ("A", "B", "ckpt"):
+            shutil.rmtree(os.path.join(tmp, sub))
+        ppl_rel = abs(res_a["compressed_ppl"] - res_b["compressed_ppl"]) / abs(res_b["compressed_ppl"])
+        line["ppl_rel_diff"] = ppl_rel
+        if not (math.isfinite(res_a["compressed_ppl"]) and ppl_rel <= 1e-3):
+            problems.append(f"compressed perplexities: A {res_a['compressed_ppl']} vs B {res_b['compressed_ppl']}")
+        for key in ("peak_bytes", "calib_solve_peak_bytes"):
+            if line["A"][key] + layer_bytes > line["B"][key]:
+                problems.append(f"job A's {key} {line['A'][key]} is not a dense layer ({layer_bytes}) below "
+                                f"job B's {line['B'][key]}")
+        del res_a, res_b, host, seen
+        torch.cuda.empty_cache()
+
+        # ---- job C: fused against chunked, Meta-Llama-3-8B widths ----
+        spec = spec_from_hf_config(SimpleNamespace(**{**LLAMA3_8B, "num_hidden_layers": FUSED_LAYERS}))
+        kw_params["C"] = init_params(spec, torch.Generator(device="cuda").manual_seed(0))
+        c_job = dict(model="random-llama3-8b-widths", skip_final_eval=True, layers_per_step=48, artifact_dtype="")
+        res_c, line["C"] = run("C", tmp, **c_job)
+        # the fused job in memory (`compress_in_memory` with fused=True), as
+        # JAX test_fused.py holds `fused_compress` against `run_compression`
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        fa_mod.flash_attention.launches = 0
+        t0 = time.perf_counter()
+        fs, fused_params = compress_in_memory(spec, kw_params.pop("C"), CompressionConfig(**{**job, **c_job}, fused=True))
+        torch.cuda.synchronize()
+        launches["C_fused"] = fa_mod.flash_attention.launches
+        line["C_fused"] = {"seconds": time.perf_counter() - t0, "peak_bytes": torch.cuda.max_memory_allocated(),
+                           "k1_launches": launches["C_fused"]}
+        cmp_c = {"max_abs_err": {}}
+        rs = res_c["compressed_spec"]
+        if rs != fs:
+            problems.append(f"fused ranks {list(fs.gate_ranks)} differ from chunked {list(rs.gate_ranks)}")
+        else:
+            for l in range(FUSED_LAYERS):
+                r, f = res_c["compressed_params"]["layers"][l], fused_params["layers"][l]
+                if not torch.equal(r["rotary_mask"], f["rotary_mask"]):
+                    problems.append(f"fused rotary mask of layer {l} differs")
+                for key in ("up", "gate", "q", "k", "down", "v", "o"):
+                    a, b = f[key]["kernel"], r[key]["kernel"]
+                    err = float((a - b).abs().max())
+                    cmp_c["max_abs_err"][f"{l}.{key}"] = err
+                    ok = torch.equal(a, b) if key in ("up", "gate", "q", "k") else torch.allclose(
+                        a, b, rtol=2e-3, atol=2e-4)
+                    if not ok:
+                        problems.append(f"fused {key} of layer {l} differs from chunked by {err}")
+        line["C_vs_fused"] = cmp_c
+        del res_c, fused_params
+    torch.cuda.empty_cache()
+
+    line["k1_launches"] = launches
+    line["expected_k1_launches"] = expected
+    # every shape K1 ran at in this phase is one the kernel phase held
+    # against the plain version
+    cased = {(c["B"], c["H"], c["Hk"], c["T"], c["hd"], c["hd_v"], c["dtype"], c["window"]) for c in KERNEL_CASES}
+    line["k1_shapes"] = sorted(map(list, k1_shapes), key=str)
+    for shape in sorted(k1_shapes - cased, key=str):
+        problems.append(f"K1 ran at {shape} (B, H, Hk, T, hd, hd_v, dtype, window), which no kernel case checks")
+    for name in ("A", "B"):
+        if launches[name] != expected[name]:
+            problems.append(f"job {name}: flash_attention launched {launches[name]} times, expected {expected[name]}")
+    records["flash_attention"]["launches_by_phase"]["big"] = sum(launches.values())
+    emit(line)
+    if problems:
+        raise AssertionError("; ".join(problems))
+    return line
+
+
 def card_line() -> str:
     try:
         out = subprocess.run(
@@ -1870,12 +2292,15 @@ def card_line() -> str:
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--phases", default="build,kernel,main,serve,quant,moe,long,archs")
+    ap.add_argument("--phases", default="build,kernel,main,serve,quant,moe,long,archs,big")
     ap.add_argument("--profile", action="store_true",
                     help="trace the main job, the serve round, the quant phase's int8 rounds, the moe "
                     "job, the long job and the archs job with torch.profiler; print their device busy time")
     args = ap.parse_args(argv)
     phases = args.phases.split(",")
+    # every model and tokenizer here is local or made in code: never ask the hub
+    os.environ.setdefault("HF_HUB_OFFLINE", "1")
+    os.environ.setdefault("TRANSFORMERS_OFFLINE", "1")
 
     import torch
 
@@ -1896,8 +2321,8 @@ def main(argv=None) -> int:
         emit(phase_build())
     if "kernel" in phases:
         phase_kernel(records)
-    if {"main", "serve", "quant", "moe", "long", "archs"} & set(phases) and "kernel" not in phases:
-        raise SystemExit("chip_smoke: the main, serve, quant, moe, long and archs phases need the kernel "
+    if {"main", "serve", "quant", "moe", "long", "archs", "big"} & set(phases) and "kernel" not in phases:
+        raise SystemExit("chip_smoke: the main, serve, quant, moe, long, archs and big phases need the kernel "
                          "phase's records")
     if {"main", "serve", "quant"} & set(phases):
         main_out = phase_main(records, args.profile)
@@ -1915,6 +2340,9 @@ def main(argv=None) -> int:
     if "archs" in phases:
         torch.cuda.empty_cache()
         phase_archs(records, args.profile)
+    if "big" in phases:
+        torch.cuda.empty_cache()
+        phase_big(records, args.profile)
     for rec in records.values():  # each path's launches, read just after it ran
         rec["launches"] = sum(rec["launches_by_phase"].values())
     emit({"kernels": list(records.values())})

@@ -16,7 +16,9 @@ a mixed dense/MoE stack, whose layers' ``cov_mlp`` differ in shape
 (``[D', D']`` dense, ``[E, D, D]`` MoE), calibrates in one pass over the
 batches where the JAX pipeline runs one pass per kind (the same sums).
 
-The windowed and streamed calibrations of the JAX package are not ported.
+`calibrate_window` is the JAX package's windowed calibration (taps for
+one layer window, BI for every layer, float32 on the device); the
+streamed calibration is `compress.offload`.
 """
 
 from __future__ import annotations
@@ -34,7 +36,7 @@ from modegpt_tpu_torch.models.spec import ModelSpec
 
 logger = logging.getLogger("modegpt_tpu_torch")
 
-__all__ = ["CalibrationResult", "calibrate"]
+__all__ = ["CalibrationResult", "calibrate", "calibrate_window"]
 
 
 @dataclass
@@ -66,6 +68,7 @@ def calibrate(
     target_layers: Sequence[int],
     accumulate: str = "host",
     gram_precision: str = "highest",
+    attn_impl: str = "auto",
 ) -> CalibrationResult:
     """Run calibration forwards and accumulate statistics.
 
@@ -76,6 +79,8 @@ def calibrate(
       target_layers: layers whose Grams are collected.
       accumulate: "host" (float64 on the CPU) or "device" (float32 on
         the model's device).
+      attn_impl: the forward's attention ("auto": the CUDA kernel on the
+        card, the plain version elsewhere).
     """
     if accumulate not in ("host", "device"):
         raise ValueError(f"accumulate must be host or device, got {accumulate!r}")
@@ -92,7 +97,7 @@ def calibrate(
         n_sequences += int(batch.shape[0])
         ids = torch.as_tensor(np.asarray(batch), device=device)
         _, taps, bi_acc = forward_taps(
-            spec, params, ids, stats_layers=stats_layers,
+            spec, params, ids, stats_layers=stats_layers, attn_impl=attn_impl,
             gram_precision=gram_precision, want_logits=False,
         )
         for l, layer_taps in taps.items():
@@ -126,4 +131,37 @@ def calibrate(
         bi_scores=bi.tolist(),
         n_sequences=n_sequences,
         total_tokens=total_tokens,
+    )
+
+
+def calibrate_window(
+    spec: ModelSpec,
+    params: Dict,
+    batches: Sequence[np.ndarray],
+    start: int,
+    width: int,
+    attn_impl: str = "auto",
+    gram_precision: str = "highest",
+) -> CalibrationResult:
+    """`calibrate` for the layer window ``[start, start+width)``, float32
+    sums on the model's device (JAX ``calib/engine.py:432-488``): every
+    batch runs the forward over every layer, taps only the window's
+    layers and takes BI for all of them. Dense, MoE and mixed stacks.
+
+    The JAX version is one compiled program for every window: a traced
+    ``start``, a ``lax.cond`` that skips the Grams outside the window and
+    an ``optimization_barrier`` that retires each layer's temporaries
+    before the next layer runs. The eager loop here taps only the
+    window's layers and frees each layer's temporaries as it goes, so it
+    needs none of the three; the same uniformity checks are kept.
+    """
+    if len(set(spec.q_ranks)) != 1:
+        raise ValueError("calibrate_window needs uniform attention ranks")
+    dense_gates = {spec.gate_ranks[l] for l in range(spec.n_layers) if not spec.is_moe_layer(l)}
+    if len(dense_gates) > 1:
+        raise ValueError("calibrate_window needs uniform dense MLP widths")
+    layers = [l for l in range(start, start + width) if l < spec.n_layers]
+    return calibrate(
+        spec, params, batches, layers, accumulate="device",
+        gram_precision=gram_precision, attn_impl=attn_impl,
     )

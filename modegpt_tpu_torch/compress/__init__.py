@@ -1,1 +1,2 @@
-"""The compression job: layer solves, surgery, artifacts and the pipeline driver."""
+"""The compression job: layer solves, surgery, artifacts, the streamed and
+fused jobs and the pipeline's entry point."""

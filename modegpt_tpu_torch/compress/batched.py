@@ -24,14 +24,29 @@ the experts would have to carry per matrix.
 Precision follows ``config.solver_precision``: ``f64_cpu`` solves in
 float64 on the CPU (VO whitening by eigh, the reference's); ``f32_device``
 solves in float32 on the model's device (VO whitening by the escalated
-Cholesky). Factors come back as host numpy arrays in HF layout, ready
-for the factor store.
+Cholesky).
+
+Where the factors land (``fetch``, JAX ``batched.py:1033-1073``):
+``"host"`` gives numpy arrays in HF layout, ready for the factor store,
+and counts the bytes the solve's factors moved to the host in
+`FETCHED_BYTES`; ``"device"`` keeps the kernel factors as tensors on the
+solve's device in the model's dtype, for surgery with no copy (the
+selection metadata, ``idx``, rotary masks and biases, is numpy either
+way). ``host_params`` (per-layer trees on the CPU, the streamed sweep's
+host-staged weights) gathers the selection-type factors, the Type-I
+up/gate rows and the Type-II q/k rows, from those trees by index: they
+are row slices of the dense kernels, so they come out bit-identical to
+the device's slices and never cross from the device. ``scratch_params``
+lets the solve pop a layer's projection leaves from ``params`` once all
+its factors are solved (the streamed sweep's disposable staged window),
+freeing device memory for the next layer's solve.
 """
 
 from __future__ import annotations
 
 import logging
-from typing import Dict, List, Sequence
+import threading
+from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -41,13 +56,54 @@ from modegpt_tpu_torch.compress.surgery import compress_ranks_for_layer
 from modegpt_tpu_torch.config import CompressionConfig
 from modegpt_tpu_torch.models.convert import to_numpy
 from modegpt_tpu_torch.models.spec import ModelSpec
-from modegpt_tpu_torch.ops.mlp import nystrom_mlp
-from modegpt_tpu_torch.ops.qk import compress_qk_layer_opt, compress_qk_layer_rope
+from modegpt_tpu_torch.ops.mlp import nystrom_down, nystrom_mlp, nystrom_scores, nystrom_select
+from modegpt_tpu_torch.ops.qk import (
+    compress_qk_layer_opt,
+    compress_qk_layer_rope,
+    gather_heads,
+    qk_opt_mask,
+    qk_rope_mask,
+)
 from modegpt_tpu_torch.ops.vo import vo_factors_from_full, vo_full_factors
 
 logger = logging.getLogger("modegpt_tpu_torch")
 
-__all__ = ["solve_chunk_batched", "solver_placement"]
+__all__ = ["solve_chunk_batched", "solver_placement", "FETCHED_BYTES"]
+
+class _FetchCounter:
+    """Bytes of solved factors moved to host numpy (`_fetch`). The
+    streamed sweep reads the difference across a run for its
+    ``fetched_bytes``. Thread-safe: async window flushes solve on a worker
+    thread."""
+
+    def __init__(self):
+        self._lock = threading.Lock()
+        self.total = 0
+
+    def add(self, n: int) -> None:
+        with self._lock:
+            self.total += n
+
+
+FETCHED_BYTES = _FetchCounter()
+
+
+def _fetch(t: torch.Tensor) -> np.ndarray:
+    out = to_numpy(t)
+    FETCHED_BYTES.add(out.nbytes)
+    return out
+
+
+def _tree_device(tree) -> torch.device:
+    """The device of a parameter tree's first tensor leaf."""
+    if isinstance(tree, torch.Tensor):
+        return tree.device
+    children = tree.values() if isinstance(tree, dict) else tree if isinstance(tree, (list, tuple)) else ()
+    for child in children:
+        dev = _tree_device(child)
+        if dev is not None:
+            return dev
+    return None
 
 
 def solver_placement(config: CompressionConfig, model_device: torch.device):
@@ -67,66 +123,113 @@ def solve_chunk_batched(
     calib: CalibrationResult,
     config: CompressionConfig,
     order: str,
-) -> Dict[str, Dict[int, Dict[str, np.ndarray]]]:
+    fetch: str = "host",
+    scratch_params: bool = False,
+    host_params: Optional[Dict[int, Dict]] = None,
+) -> Dict[str, Dict[int, Dict]]:
     """Solve every requested suffix (mlp, qk, vo) for ``target_layers``.
 
-    Returns ``{suffix: {layer: {name: numpy array}}}`` in HF layout —
-    the factor store's contents.
+    Returns ``{suffix: {layer: {name: array}}}`` in HF layout: numpy
+    under ``fetch="host"`` (the factor store's contents), device tensors
+    for the kernel factors under ``fetch="device"``. ``params`` needs
+    only ``params["layers"]``; the solves run on its layers' device (or
+    the CPU under ``f64_cpu``). See the module docstring for
+    ``scratch_params`` and ``host_params``.
     """
+    if fetch not in ("host", "device"):
+        raise ValueError(f"fetch must be host or device, got {fetch!r}")
     if config.qk_method != "cr" and "qk" in order:
         raise NotImplementedError(
             f"modegpt_tpu_torch.compress.batched: qk_method {config.qk_method!r} is not ported"
         )
     layers = list(target_layers)
-    dev, dt = solver_placement(config, params["embed_tokens"].device)
+    dev, dt = solver_placement(config, _tree_device(params["layers"][layers[0]]))
     whiten = "eigh" if config.solver_precision == "f64_cpu" else "cholesky"
     H, Hk = spec.n_heads, spec.n_kv_heads
+    if fetch == "device" or not host_params or not all(l in host_params for l in layers):
+        host_params = None
 
     def hf(lp, name):  # forward kernel [in, out] -> HF [out, in] in the solve's place
         return lp[name]["kernel"].to(device=dev, dtype=dt).T
 
-    def stat(covs, l):
-        return covs[l].to(device=dev, dtype=dt)
+    def host_rows(lp, name, idx):
+        """HF rows ``idx`` of a host-tree kernel, in the solve's dtype:
+        the same values the solve's device would slice."""
+        kernel = lp[name]["kernel"]  # [in, out] (MoE: one expert's)
+        rows = torch.index_select(kernel, kernel.dim() - 1, idx.cpu().long()).transpose(-1, -2)
+        return to_numpy(rows.to(dt).contiguous())
 
-    def type_one(C, mp, keep, rank, gated=True):
-        """One Type-I solve of the MLP ``mp`` (forward-layout kernels)."""
-        return nystrom_mlp(
-            C.to(device=dev, dtype=dt), hf(mp, "up"), hf(mp, "gate") if gated else None, hf(mp, "down"),
-            keep, config.nystrom_ridge, rank=rank,
-        )
+    # device-fetched factors in the model's dtype where it is bfloat16
+    # (JAX `_fetch_dtype`), else in the solve's
+    fdt = torch.bfloat16 if config.model_dtype == "bfloat16" else None
 
-    out: Dict[str, Dict[int, Dict[str, np.ndarray]]] = {s: {} for s in ("mlp", "qk", "vo") if s in order}
+    def out_factor(t):
+        if fetch == "host":
+            return _fetch(t)
+        return t.to(fdt) if fdt is not None else t
+
+    def meta(t):  # selection metadata: numpy on both fetch modes
+        return to_numpy(t) if isinstance(t, torch.Tensor) else t
+
+    def type_one(C, mp, keep, rank, gated, host_mp):
+        """One Type-I solve of the MLP ``mp`` (forward-layout kernels):
+        {"up", "gate"?, "down", "idx"}, up/gate from ``host_mp`` when given."""
+        C = C.to(device=dev, dtype=dt)
+        if host_mp is None:
+            f = nystrom_mlp(C, hf(mp, "up"), hf(mp, "gate") if gated else None, hf(mp, "down"), keep,
+                            config.nystrom_ridge, rank=rank)
+            fd = {"up": out_factor(f.up), "down": out_factor(f.down), "idx": meta(f.idx)}
+            if gated:
+                fd["gate"] = out_factor(f.gate)
+            return fd
+        idx = nystrom_select(nystrom_scores(C, config.nystrom_ridge), rank)
+        fd = {"down": _fetch(nystrom_down(C, hf(mp, "down"), idx)), "idx": meta(idx),
+              "up": host_rows(host_mp, "up", idx)}
+        if gated:
+            fd["gate"] = host_rows(host_mp, "gate", idx)
+        return fd
+
+    def stack(arrs):
+        return torch.stack(arrs) if isinstance(arrs[0], torch.Tensor) else np.stack(arrs)
+
+    out: Dict[str, Dict[int, Dict]] = {s: {} for s in ("mlp", "qk", "vo") if s in order}
+    # the leaves each solved suffix makes dead (scratch_params)
+    dead = [key for s, keys in (("mlp", ("up", "gate", "down", "experts", "shared")), ("qk", ("q", "k")),
+                                ("vo", ("v", "o"))) if s in order for key in keys]
     for l in layers:
         lp = params["layers"][l]
+        src = host_params[l] if host_params is not None else lp  # biases and host-sliced rows
         if "mlp" in order and spec.is_moe_layer(l):
             rank = compress_ranks_for_layer(spec, keep_ratios[l], "mlp", layer=l)
             ek, cov = lp["experts"], calib.cov_mlp[l]
+            hek = host_params[l]["experts"] if host_params is not None else None
             experts = [
-                type_one(cov[e], {name: {"kernel": ek[name]["kernel"][e]} for name in ek}, keep_ratios[l], rank)
+                type_one(
+                    cov[e], {name: {"kernel": ek[name]["kernel"][e]} for name in ek}, keep_ratios[l], rank, True,
+                    {name: {"kernel": hek[name]["kernel"][e]} for name in hek} if hek is not None else None,
+                )
                 for e in range(spec.n_experts)
             ]
-            fd = {name: to_numpy(torch.stack([getattr(f, name) for f in experts]))
-                  for name in ("up", "gate", "down", "idx")}
+            fd = {name: stack([f[name] for f in experts]) for name in ("up", "gate", "down", "idx")}
             del experts
             if spec.has_shared_expert(l):
                 s_rank = compress_ranks_for_layer(spec, keep_ratios[l], "shared")
-                f = type_one(calib.cov_shared[l], lp["shared"], keep_ratios[l], s_rank)
-                fd.update({"shared_" + name: to_numpy(getattr(f, name)) for name in ("up", "gate", "down", "idx")})
+                f = type_one(calib.cov_shared[l], lp["shared"], keep_ratios[l], s_rank, True,
+                             host_params[l]["shared"] if host_params is not None else None)
+                fd.update({"shared_" + name: v for name, v in f.items()})
                 logger.info("[MLP-shared] layer %d: shared expert compressed to rank %d", l, s_rank)
             out["mlp"][l] = fd
             logger.info("[MLP-MoE] layer %d: %d experts compressed to rank %d", l, spec.n_experts, rank)
         elif "mlp" in order:
             rank = compress_ranks_for_layer(spec, keep_ratios[l], "mlp", layer=l)
-            f = type_one(calib.cov_mlp[l], lp, keep_ratios[l], rank, spec.gated_mlp)
-            fd = {"up": to_numpy(f.up), "down": to_numpy(f.down), "idx": to_numpy(f.idx)}
-            if spec.gated_mlp:
-                fd["gate"] = to_numpy(f.gate)
-            elif "bias" in lp["up"]:
+            fd = type_one(calib.cov_mlp[l], lp, keep_ratios[l], rank, spec.gated_mlp,
+                          src if host_params is not None else None)
+            if not spec.gated_mlp and "bias" in src["up"]:
                 # OPT fc1/fc2 biases: keep the kept-row fc1 bias and the
                 # rank-independent fc2 bias (the reference's surgery drops
                 # them, model_adapter.py:199-207).
-                fd["up_bias"] = to_numpy(lp["up"]["bias"])[fd["idx"]]
-                fd["down_bias"] = to_numpy(lp["down"]["bias"])
+                fd["up_bias"] = to_numpy(src["up"]["bias"])[fd["idx"]]
+                fd["down_bias"] = to_numpy(src["down"]["bias"])
             out["mlp"][l] = fd
             logger.info("[MLP] layer %d compressed to rank %d", l, rank)
 
@@ -135,46 +238,67 @@ def solve_chunk_batched(
             # scores read only the covariance diagonals: float64 on the host
             cov_q = calib.cov_q[l].to(device="cpu", dtype=torch.float64)
             cov_k = calib.cov_k[l].to(device="cpu", dtype=torch.float64)
-            if spec.uses_rope:
+            if host_params is not None:
+                # the rows of the host tree's kernels, by the same masks
+                mask = (qk_rope_mask if spec.uses_rope else qk_opt_mask)(cov_q, cov_k, rank, config.ridge_qk)
+                q_mask = torch.repeat_interleave(mask, spec.group_size, dim=0) if spec.uses_rope else mask
+                n_k = Hk if spec.uses_rope else H
+
+                def host_heads(name, n_h, m):
+                    w = src[name]["kernel"].T  # [n_h*hd, d] HF rows, a view
+                    return to_numpy(gather_heads(w, n_h, m).to(dt))
+
+                fd = {"q": host_heads("q", H, q_mask), "k": host_heads("k", n_k, mask)}
+                if spec.uses_rope:
+                    fd["rotary_mask"] = to_numpy(mask.to(torch.int32))
+                else:
+                    fd["q_bias"] = to_numpy(gather_heads(src["q"]["bias"][:, None], H, mask)[:, 0].to(dt))
+                    fd["k_bias"] = to_numpy(gather_heads(src["k"]["bias"][:, None], H, mask)[:, 0].to(dt))
+            elif spec.uses_rope:
                 f = compress_qk_layer_rope(cov_q, cov_k, hf(lp, "q"), hf(lp, "k"), rank, config.ridge_qk)
-                fd = {"q": to_numpy(f.q), "k": to_numpy(f.k), "rotary_mask": to_numpy(f.rotary_mask)}
-                if "bias" in lp["q"]:
-                    # qkv biases on a RoPE arch (qwen2, starcoder2,
-                    # qwen2_moe): the kept coordinates of each head,
-                    # through the same mask
-                    masks = fd["rotary_mask"]
-                    bq = to_numpy(lp["q"]["bias"]).reshape(H, -1)
-                    bk = to_numpy(lp["k"]["bias"]).reshape(Hk, -1)
-                    mq = np.repeat(masks, spec.group_size, axis=0)
-                    fd["q_bias"] = np.concatenate([bq[h][mq[h]] for h in range(H)])
-                    fd["k_bias"] = np.concatenate([bk[h][masks[h]] for h in range(Hk)])
+                fd = {"q": out_factor(f.q), "k": out_factor(f.k), "rotary_mask": meta(f.rotary_mask)}
             else:
                 f = compress_qk_layer_opt(
                     cov_q, cov_k, hf(lp, "q"), hf(lp, "k"),
                     lp["q"]["bias"].to(device=dev, dtype=dt), lp["k"]["bias"].to(device=dev, dtype=dt),
                     rank, config.ridge_qk,
                 )
-                fd = {"q": to_numpy(f.q), "k": to_numpy(f.k),
-                      "q_bias": to_numpy(f.q_bias), "k_bias": to_numpy(f.k_bias)}
+                fd = {"q": out_factor(f.q), "k": out_factor(f.k),
+                      "q_bias": meta(f.q_bias), "k_bias": meta(f.k_bias)}
+            if spec.uses_rope and "bias" in src["q"]:
+                # qkv biases on a RoPE arch (qwen2, starcoder2,
+                # qwen2_moe): the kept coordinates of each head,
+                # through the same mask
+                masks = fd["rotary_mask"]
+                bq = to_numpy(src["q"]["bias"]).reshape(H, -1)
+                bk = to_numpy(src["k"]["bias"]).reshape(Hk, -1)
+                mq = np.repeat(masks, spec.group_size, axis=0)
+                fd["q_bias"] = np.concatenate([bq[h][mq[h]] for h in range(H)])
+                fd["k_bias"] = np.concatenate([bk[h][masks[h]] for h in range(Hk)])
             out["qk"][l] = fd
             logger.info("[QK] layer %d compressed to rank %d per head", l, rank)
 
         if "vo" in order:
             rank = compress_ranks_for_layer(spec, keep_ratios[l], "vo")
             v_full, o_full = vo_full_factors(
-                stat(calib.cov_x, l), hf(lp, "v"), hf(lp, "o"), H, Hk, config.ridge_vo, whiten
+                calib.cov_x[l].to(device=dev, dtype=dt), hf(lp, "v"), hf(lp, "o"), H, Hk, config.ridge_vo, whiten
             )
             f = vo_factors_from_full(v_full, o_full, rank, H, Hk)
-            fd = {"v": to_numpy(f.v), "o": to_numpy(f.o)}
-            if "bias" in lp["v"]:
+            fd = {"v": out_factor(f.v), "o": out_factor(f.o)}
+            if "bias" in src["v"]:
                 # v bias folds exactly into the o bias (attention weights
                 # sum to 1); GQA repeats each kv head's bias over its group.
-                b_v = to_numpy(lp["v"]["bias"]).astype(np.float64)
+                b_v = to_numpy(src["v"]["bias"]).astype(np.float64)
                 if Hk != H:
                     b_v = np.repeat(b_v.reshape(Hk, -1), spec.group_size, axis=0).reshape(-1)
-                W_o = to_numpy(lp["o"]["kernel"]).T.astype(np.float64)
-                b_o = to_numpy(lp["o"]["bias"]).astype(np.float64) if "bias" in lp["o"] else np.zeros(spec.d_model)
+                W_o = to_numpy(src["o"]["kernel"]).T.astype(np.float64)
+                b_o = to_numpy(src["o"]["bias"]).astype(np.float64) if "bias" in src["o"] else np.zeros(spec.d_model)
                 fd["o_bias"] = b_o + W_o @ b_v
             out["vo"][l] = fd
             logger.info("[VO] layer %d compressed to rank %d per head", l, rank)
+        if scratch_params:
+            # only once the whole layer is solved: a solve retried after
+            # running out of memory finds the layer's leaves whole
+            for key in dead:
+                lp.pop(key, None)
     return out

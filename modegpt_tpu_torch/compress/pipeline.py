@@ -19,14 +19,35 @@ A quantised ``artifact_dtype`` (int8, int4, nf4) saves the artifact in
 that format; the job reloads it dequantised and evaluates that, as the
 JAX pipeline does.
 
+Calibration and solve run one of four ways (JAX
+``pipeline.py:441-538``):
+
+* chunked (default): per ``layers_per_step`` chunk, `calib.engine.calibrate`
+  then `compress.batched.solve_chunk_batched`;
+* ``calib_exec="window"``: the same chunks through
+  `calib.engine.calibrate_window`;
+* ``calib_exec="stream"``: `compress.offload.stream_calibrate_solve`, one
+  forward for the whole job with the weights staged per layer. Layer
+  leaves stay where they are: a model loaded from disk is loaded to the
+  CPU and host-staged, leaves on the card stay resident. A host-staged
+  model's baseline evaluation runs on the card from a temporary device
+  copy (beyond the card's memory, pass ``skip_baseline_eval``); its
+  compressed model is assembled and saved on the CPU, and the compressed
+  evaluation reloads it onto the card;
+* ``fused``: `compress.fused.fused_compress` (dense uniform RoPE stacks;
+  no factor store).
+
+`compress_in_memory` is the compress-then-serve handoff: no disk, and no
+factor copy to the host.
+
 Paths of the JAX pipeline that this port does not have raise
-NotImplementedError up front: fused compression, windowed and streamed
-calibration, meshes (data/model parallel, pipeline and ring),
-qk_method=svd, orbax artifacts and profiler traces.
+NotImplementedError up front: meshes (data/model parallel, pipeline and
+ring), qk_method=svd, orbax artifacts and profiler traces.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import gc
 import json
 import logging
@@ -37,7 +58,8 @@ from typing import Dict, Optional
 import torch
 
 from modegpt_tpu_torch.calib.data import load_calibration_batches, load_eval_tokens
-from modegpt_tpu_torch.calib.engine import calibrate
+from modegpt_tpu_torch.calib.engine import calibrate, calibrate_window
+from modegpt_tpu_torch.compress import offload
 from modegpt_tpu_torch.compress.artifact import (
     load_compressed_model,
     load_layer_factors,
@@ -56,14 +78,12 @@ from modegpt_tpu_torch.utils.metrics import MetricsRegistry
 
 logger = logging.getLogger("modegpt_tpu_torch")
 
-__all__ = ["run_compression"]
+__all__ = ["run_compression", "compress_in_memory"]
 
 
 def _check_ported(config: CompressionConfig) -> None:
     """Raise for a knob that selects a path this port does not have."""
     unported = {
-        "fused": config.fused,
-        f"calib_exec={config.calib_exec}": config.calib_exec in ("window", "stream"),
         f"mesh_shape={config.mesh_shape!r} (modegpt_tpu_torch.parallel)": bool(config.mesh_shape),
         "shard_sequence": config.shard_sequence,
         "shard_stats": config.shard_stats,
@@ -131,14 +151,16 @@ def count_params(params) -> int:
     return int(params.numel()) if isinstance(params, torch.Tensor) else 0
 
 
-def _to_device(tree, device: torch.device, dtype: Optional[torch.dtype] = None):
+def _to_device(tree, device: Optional[torch.device], dtype: Optional[torch.dtype] = None):
+    """The tree on ``device`` (None: each leaf where it is), floating
+    leaves cast to ``dtype`` when given."""
     if isinstance(tree, dict):
         return {k: _to_device(v, device, dtype) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
         return [_to_device(v, device, dtype) for v in tree]
     if isinstance(tree, torch.Tensor):
         cast = dtype if (dtype is not None and tree.is_floating_point()) else None
-        return tree.to(device=device, dtype=cast)
+        return tree.to(device=device if device is not None else tree.device, dtype=cast)
     return tree
 
 
@@ -184,13 +206,16 @@ def run_compression(
     steps = _Steps(dev)
 
     t0 = time.perf_counter()
+    # the streamed sweep stages layer leaves from wherever they are
+    stream = config.calib_exec == "stream" and not config.fused
     if spec is None or params is None:
         from modegpt_tpu_torch.models.hf import load_hf_model
 
-        spec, params, tokenizer = load_hf_model(config.model, device=dev)
+        spec, params, tokenizer = load_hf_model(config.model, device="cpu" if stream else dev)
     check_supported(spec)
     model_dtype = torch.bfloat16 if config.model_dtype == "bfloat16" else None
-    params = _to_device(params, dev, model_dtype)
+    params = _to_device(params, None if stream else dev, model_dtype)
+    host_staged = stream and offload._host_staged(params, dev)
     order = config.order or "mlp,qk,vo"
     # Cap sequence length by the model's positional capacity
     # (reference: eval.py:127 min(2048, max_position_embeddings)).
@@ -206,9 +231,13 @@ def run_compression(
     attn_impl = "auto" if config.use_flash_attention else "xla"
     t = steps("load", t0)
     if not config.skip_baseline_eval:
+        # a host-staged model evaluates on the card from a temporary copy
+        # (what the JAX jit does with host numpy), never on the CPU
+        eval_params = _to_device(params, dev) if host_staged else params
         baseline_ppl = compute_perplexity(
-            spec, params, eval_tokens, config.eval_batch_size, metrics=metrics.run, attn_impl=attn_impl
+            spec, eval_params, eval_tokens, config.eval_batch_size, metrics=metrics.run, attn_impl=attn_impl
         )
+        del eval_params
         logger.info("Baseline ppl: %s", baseline_ppl)
         metrics["baseline-ppl"] = baseline_ppl
         results["baseline_ppl"] = baseline_ppl
@@ -220,13 +249,53 @@ def run_compression(
             vocab_size=spec.vocab_size,
         )
 
-    # ---- layer-chunked calibrate + solve (reference: run_modegpt.py:107-156) ----
+    # ---- calibrate + solve (reference: run_modegpt.py:107-156) ----
     t_compress = time.perf_counter()
     _check_factor_store(config, spec, order)
     suffixes = _suffixes(order)
     factors: Dict[str, Dict[int, Dict]] = {s: {} for s in suffixes}
     accumulate = "device" if config.solver_precision == "f32_device" else "host"
-    for start in range(0, spec.n_layers, config.layers_per_step):
+    fused_result = None
+    t = time.perf_counter()
+    if config.fused:
+        # the whole calibrate -> allocate -> solve -> surgery job at once;
+        # bypasses the factor store and resume
+        from modegpt_tpu_torch.compress.fused import fused_compress
+
+        fused_result = fused_compress(spec, params, calib_batches, config)
+        t = steps("fused", t)
+    elif stream:
+        # one forward for the whole job, weights staged per layer; the
+        # factors persist window by window, so the sweep resumes like the
+        # chunked loop below (which then only loads them)
+        pending_all = [
+            l for l in range(spec.n_layers)
+            if not all(load_layer_factors(config.temp_storage_dir, l, s) is not None for s in suffixes)
+        ]
+        if pending_all:
+
+            def persist(layers_done, chunk):
+                for s, by_layer in chunk.items():
+                    for l, f in by_layer.items():
+                        save_layer_factors(config.temp_storage_dir, l, s, f)
+
+            stream_stats: Dict = {}
+            _, bi_scores, _ = offload.stream_calibrate_solve(
+                spec, params, calib_batches, config, order,
+                on_window=persist, target_layers=pending_all, stats_out=stream_stats, device=dev,
+            )
+            metrics["stream_async_flush"] = bool(stream_stats["async_flush"])
+            metrics["stream_flush_wait_s"] = stream_stats["flush_wait_s"]
+            results["stream_stats"] = stream_stats
+            _, max_sp = allocate_keep_ratios(
+                bi_scores, config.compression_ratio,
+                smoothing=config.sparsity_smoothing, max_sparsity=config.max_sparsity,
+            )
+            metrics["max_layer_sparsity"] = max_sp
+            metrics["smoothing"] = config.sparsity_smoothing
+            gc.collect()
+            t = steps("stream", t)
+    for start in range(0, 0 if fused_result else spec.n_layers, config.layers_per_step):
         target_layers = list(range(start, min(spec.n_layers, start + config.layers_per_step)))
         # Resume: skip layers whose factors are all on disk already.
         pending = [
@@ -235,10 +304,18 @@ def run_compression(
         ]
         t = time.perf_counter()
         if pending:
-            calib = calibrate(
-                spec, params, calib_batches, pending,
-                accumulate=accumulate, gram_precision=config.gram_precision,
-            )
+            if config.calib_exec == "window":
+                # taps for the window only, BI for every layer, one forward
+                # over every layer a batch (the weights stay in place)
+                calib = calibrate_window(
+                    spec, params, calib_batches, start, config.layers_per_step,
+                    gram_precision=config.gram_precision,
+                )
+            else:
+                calib = calibrate(
+                    spec, params, calib_batches, pending,
+                    accumulate=accumulate, gram_precision=config.gram_precision,
+                )
             t = steps("calibrate", t)
             keep_ratios, max_sp = allocate_keep_ratios(
                 calib.bi_scores, config.compression_ratio,
@@ -266,11 +343,16 @@ def run_compression(
     # Count BEFORE surgery: release_dense pops replaced projections.
     t = time.perf_counter()
     n_before = count_params(params)
-    comp_spec, comp_params = apply_factors(
-        spec, params,
-        mlp_factors=factors.get("mlp"), qk_factors=factors.get("qk"), vo_factors=factors.get("vo"),
-        release_dense=config.release_dense,
-    )
+    if fused_result is not None:
+        comp_spec, comp_params = fused_result
+    else:
+        # lands where the embedding is: a host-staged model is assembled
+        # on the CPU (the compressed weights may not fit the card either)
+        comp_spec, comp_params = apply_factors(
+            spec, params,
+            mlp_factors=factors.get("mlp"), qk_factors=factors.get("qk"), vo_factors=factors.get("vo"),
+            release_dense=config.release_dense,
+        )
     del factors
     n_after = count_params(comp_params)
     metrics["params_before"] = n_before
@@ -327,3 +409,46 @@ def run_compression(
     metrics["total_seconds"] = results["total_seconds"]
     metrics.save()
     return results
+
+
+def compress_in_memory(
+    spec: ModelSpec,
+    params: Dict,
+    config: CompressionConfig,
+    tokenizer=None,
+    device: Optional[DeviceLike] = None,
+):
+    """Dense model in memory -> compressed model in memory, with no disk
+    (JAX ``pipeline.py:54-110``): the compress-then-serve handoff. The
+    reference has no such flow; it round-trips save_pretrained and a
+    reload (run_modegpt.py:158-183).
+
+    ``config.fused`` takes `compress.fused.fused_compress`; otherwise the
+    layer-streamed sweep runs with device-fetched factors
+    (``stream_fetch="device"``), releasing each dense projection as its
+    factors land, and surgery consumes the factors on the card
+    (``apply_factors(release_dense=True)``), so no factor is copied to
+    the host. The tree is placed on ``device`` (default ``config.device``)
+    first; the caller's tree is not mutated. Returns (compressed_spec,
+    compressed_params).
+    """
+    dev = resolve_device(config.device if device is None else device)
+    batches = load_calibration_batches(
+        tokenizer, config.dataset, config.calib_size, config.calibs_batch_size,
+        min(config.seq_len, spec.max_position_embeddings), vocab_size=spec.vocab_size,
+    )
+    # device-resident weights are the prerequisite for device fetch
+    params = _to_device(params, dev)
+    if config.fused:
+        from modegpt_tpu_torch.compress.fused import fused_compress
+
+        return fused_compress(spec, params, batches, config)
+
+    model_dtype = "bfloat16" if params["embed_tokens"].dtype == torch.bfloat16 else "float32"
+    cfg = dataclasses.replace(config, stream_fetch="device", model_dtype=model_dtype)
+    factors, _, _ = offload.stream_calibrate_solve(
+        spec, params, batches, cfg, order=config.order or "mlp,qk,vo", release_params=True, device=dev
+    )
+    return apply_factors(
+        spec, params, factors.get("mlp", {}), factors.get("qk", {}), factors.get("vo", {}), release_dense=True
+    )

@@ -10,13 +10,15 @@ rank lists, so a compressed re-import splits where the export fused.
 The norm names depend on the arch: llama's ``post_attention_layernorm``
 is the pre-MLP norm, gemma2's normalises the attention output (its MLP
 takes ``pre_feedforward_layernorm``), olmo2 has only the two post norms.
-`params_from_state_dict` is pure torch; `load_hf_model` imports
-``transformers`` when called (it is absent on the card's machine, where
-the smoke run builds its weights in code).
+`params_from_state_dict` is pure torch; `load_hf_model` reads
+safetensors shards directly (`models.safetensors_io`) and imports
+``transformers`` only for a checkpoint without them and for the
+tokenizer.
 """
 
 from __future__ import annotations
 
+import os
 from typing import Dict, Optional, Tuple
 
 import torch
@@ -216,20 +218,35 @@ def params_from_hf_model(model, dtype: torch.dtype = torch.float32, device: Devi
 
 
 def load_hf_model(model_name_or_path: str, dtype: torch.dtype = torch.float32, device: DeviceLike = "cuda"):
-    """Load a dense HF checkpoint directory; returns (spec, params, tokenizer)."""
-    from transformers import AutoModelForCausalLM, AutoTokenizer
+    """Load a dense HF checkpoint directory; returns (spec, params, tokenizer).
 
-    model = AutoModelForCausalLM.from_pretrained(
-        model_name_or_path, torch_dtype=torch.float32, low_cpu_mem_usage=True
-    )
+    The safetensors shards are read directly first
+    (`models.safetensors_io`: one pass, no torch module); a checkpoint
+    without them, or without a tensor the spec needs, goes through
+    ``AutoModelForCausalLM`` instead (JAX ``models/hf.py:285-297``). Either
+    way the tree lands on ``device``."""
+    from modegpt_tpu_torch.models.safetensors_io import load_hf_checkpoint_safetensors
+
+    local = os.path.isdir(model_name_or_path)  # a directory never asks the hub
     try:
-        tokenizer = AutoTokenizer.from_pretrained(model_name_or_path)
+        spec, params = load_hf_checkpoint_safetensors(model_name_or_path, dtype=dtype, device=device)
+    except (FileNotFoundError, KeyError):
+        from transformers import AutoModelForCausalLM
+
+        model = AutoModelForCausalLM.from_pretrained(
+            model_name_or_path, torch_dtype=torch.float32, low_cpu_mem_usage=True, local_files_only=local
+        )
+        spec, params = params_from_hf_model(model, dtype=dtype, device=device)
+        del model
+    try:
+        from transformers import AutoTokenizer
+
+        tokenizer = AutoTokenizer.from_pretrained(model_name_or_path, local_files_only=local)
         if tokenizer.pad_token is None:
             tokenizer.pad_token = tokenizer.eos_token
     except Exception:
-        # a checkpoint without tokenizer files: fine for the synthetic
-        # dataset and for pre-tokenized local corpora
+        # a checkpoint without tokenizer files (or a host without
+        # transformers): fine for the synthetic dataset and for
+        # pre-tokenized local corpora
         tokenizer = None
-    spec, params = params_from_hf_model(model, dtype=dtype, device=device)
-    del model
     return spec, params, tokenizer

@@ -19,7 +19,13 @@ import torch
 
 from modegpt_tpu_torch.ops.psd import cholesky_solve_ridged, ridge_inverse_diag
 
-__all__ = ["MLPFactors", "nystrom_scores", "nystrom_select", "nystrom_mlp"]
+__all__ = [
+    "MLPFactors",
+    "nystrom_scores",
+    "nystrom_select",
+    "nystrom_down",
+    "nystrom_mlp",
+]
 
 NYSTROM_SOLVE_RIDGE = 1e-6  # reference: src/compression/compress_mlp.py:56
 
@@ -78,7 +84,15 @@ def nystrom_mlp(
     idx = nystrom_select(nystrom_scores(C, ridge), rank)
     up = W_u[idx]
     gate = None if W_g is None else W_g[idx]
+    return MLPFactors(up=up, gate=gate, down=nystrom_down(C, W_d, idx), idx=idx)
+
+
+def nystrom_down(C: torch.Tensor, W_d: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """The down projection re-solved on the kept columns ``idx``:
+    ``W_d' = ((C_SS + eps*I)^-1 C_{S,:} W_d^T)^T``, [d_model, rank]. Needs
+    no up or gate weight, so a caller holding those elsewhere (the
+    streamed sweep's host tree) slices them there."""
     C_S = C[idx]  # [rank, D_int]
     cross = C_S @ W_d.T  # [rank, d_model]
     down_T = cholesky_solve_ridged(C_S[:, idx], cross, NYSTROM_SOLVE_RIDGE)
-    return MLPFactors(up=up, gate=gate, down=down_T.T, idx=idx)
+    return down_T.T

@@ -34,6 +34,9 @@ __all__ = [
     "QKFactors",
     "qk_rope_pair_scores",
     "qk_opt_scores",
+    "qk_rope_mask",
+    "qk_opt_mask",
+    "gather_heads",
     "compress_qk_layer_rope",
     "compress_qk_layer_opt",
 ]
@@ -98,7 +101,22 @@ def qk_opt_scores(cov_q: torch.Tensor, cov_k: torch.Tensor, ridge_qk: float) -> 
     )
 
 
-def _gather_heads(W: torch.Tensor, n_h: int, masks: torch.Tensor) -> torch.Tensor:
+def qk_rope_mask(cov_q: torch.Tensor, cov_k: torch.Tensor, rank: int, ridge_qk: float) -> torch.Tensor:
+    """The rotary mask [n_kv_heads, rank]: the top ``rank/2`` frequency
+    pairs of each kv head in descending-score order, then the same
+    indices + hd/2."""
+    hd = cov_q.shape[-1]
+    assert rank % 2 == 0 and 2 <= rank <= hd
+    topk = _topk_desc(qk_rope_pair_scores(cov_q, cov_k, ridge_qk, cov_k.shape[0]), rank // 2)
+    return torch.cat([topk, topk + hd // 2], dim=-1)
+
+
+def qk_opt_mask(cov_q: torch.Tensor, cov_k: torch.Tensor, rank: int, ridge_qk: float) -> torch.Tensor:
+    """OPT's kept rows per head [n_heads, rank], descending score."""
+    return _topk_desc(qk_opt_scores(cov_q, cov_k, ridge_qk), rank)
+
+
+def gather_heads(W: torch.Tensor, n_h: int, masks: torch.Tensor) -> torch.Tensor:
     """Rows ``masks[h]`` of each head block of W [n_h*hd, d] -> [n_h*r, d]."""
     hd = W.shape[0] // n_h
     rows = (torch.arange(n_h, device=W.device)[:, None] * hd + masks.to(W.device)).reshape(-1)
@@ -122,16 +140,12 @@ def compress_qk_layer_rope(
              rows are gathered on the weights' device.
       rank:  even kept dim per head (reference: compress_qk.py:180-182).
     """
-    n_heads, hd = cov_q.shape[0], cov_q.shape[-1]
-    n_kv_heads = cov_k.shape[0]
-    assert rank % 2 == 0 and 2 <= rank <= hd
-    scores = qk_rope_pair_scores(cov_q, cov_k, ridge_qk, n_kv_heads)
-    topk = _topk_desc(scores, rank // 2)
-    mask = torch.cat([topk, topk + hd // 2], dim=-1)  # [Hk, rank]
+    n_heads, n_kv_heads = cov_q.shape[0], cov_k.shape[0]
+    mask = qk_rope_mask(cov_q, cov_k, rank, ridge_qk)  # [Hk, rank]
     q_mask = torch.repeat_interleave(mask, n_heads // n_kv_heads, dim=0)
     return QKFactors(
-        q=_gather_heads(W_q, n_heads, q_mask),
-        k=_gather_heads(W_k, n_kv_heads, mask),
+        q=gather_heads(W_q, n_heads, q_mask),
+        k=gather_heads(W_k, n_kv_heads, mask),
         rotary_mask=mask.to(torch.int32),
     )
 
@@ -148,11 +162,11 @@ def compress_qk_layer_opt(
 ) -> QKFactors:
     """Type-II solve for one OPT layer (no RoPE; biases sliced too)."""
     n_heads = cov_q.shape[0]
-    topk = _topk_desc(qk_opt_scores(cov_q, cov_k, ridge_qk), rank)  # [H, rank]
+    topk = qk_opt_mask(cov_q, cov_k, rank, ridge_qk)  # [H, rank]
     return QKFactors(
-        q=_gather_heads(W_q, n_heads, topk),
-        k=_gather_heads(W_k, n_heads, topk),
+        q=gather_heads(W_q, n_heads, topk),
+        k=gather_heads(W_k, n_heads, topk),
         rotary_mask=None,
-        q_bias=_gather_heads(bias_q[:, None], n_heads, topk)[:, 0],
-        k_bias=_gather_heads(bias_k[:, None], n_heads, topk)[:, 0],
+        q_bias=gather_heads(bias_q[:, None], n_heads, topk)[:, 0],
+        k_bias=gather_heads(bias_k[:, None], n_heads, topk)[:, 0],
     )

@@ -1,1 +1,1 @@
-"""Small helpers: device selection, logging, the metrics registry."""
+"""Small helpers: device selection, device memory, logging, the metrics registry."""

@@ -589,3 +589,95 @@ def test_artifact_quantisers_on_the_card_match_numpy(cuda_device):
         for got, want in zip(fn(card), fn(torch.from_numpy(a))):
             if isinstance(got, torch.Tensor):
                 assert torch.equal(got.cpu(), want), fn.__name__
+
+
+# ---- the streamed sweep's staging and a streamed job on the card ----
+
+
+def _host_tree(seed=0):
+    g = torch.Generator().manual_seed(seed)
+    return {
+        "q": {"kernel": torch.randn(64, 96, generator=g)},
+        "down": {"kernel": torch.randn(200, 64, generator=g).to(torch.bfloat16)},
+        "norm": {"scale": torch.randn(64, generator=g)},
+        "odd": {"kernel": torch.randn(3, 5, 7, generator=g)},
+    }
+
+
+def test_pinned_staging_arrives_bit_equal(cuda_device):
+    """Host leaves staged through the pinned buffers and the copy stream
+    arrive on the card bit for bit, buffer reuse included; device leaves
+    pass through untouched."""
+    from modegpt_tpu_torch.compress import offload
+
+    stager = offload._PinnedStager(cuda_device, stats := {})
+    resident = torch.ones(8, device=cuda_device)
+    for seed in range(3):  # the third call reuses the first call's buffer
+        tree = {**_host_tree(seed), "resident": resident}
+        got = offload._ready(stager(tree), cuda_device)
+        torch.cuda.synchronize()
+        assert got["resident"] is resident
+        for name in ("q", "down", "norm", "odd"):
+            leaf = next(iter(tree[name].values()))
+            out = next(iter(got[name].values()))
+            assert out.is_cuda and out.dtype == leaf.dtype and out.shape == leaf.shape
+            assert torch.equal(out.cpu(), leaf), name
+    per_call = sum(t.numel() * t.element_size() for t in offload._leaves(_host_tree()))
+    assert stats["staged_bytes"] == 3 * per_call
+
+
+@pytest.mark.parametrize("dtype", ["int8", "int4"])
+def test_quantized_staging_dequantised_on_the_card_equals_the_cpu(cuda_device, dtype):
+    from modegpt_tpu_torch.compress import offload
+
+    tree = _host_tree(1)
+    kinds, payload = offload._quantize_host_tree(tree, dtype)
+    want = offload._dequant_staged(kinds, payload)
+    got, _ = offload._stage_quantized(tree, dtype, offload._PinnedStager(cuda_device, None))
+    for a, b in zip(offload._leaves(got), offload._leaves(want)):
+        assert a.is_cuda and torch.equal(a.cpu(), b)
+
+
+def test_streamed_job_on_the_card_equals_the_chunked_job(cuda_device):
+    """A tiny host-staged streamed job on the card (T = 128, so K1 runs)
+    gives the chunked job's ranks and factors, with K1 launched in its
+    forwards."""
+    import copy
+    import tempfile
+
+    from modegpt_tpu_torch.calib.data import load_calibration_batches
+    from modegpt_tpu_torch.calib.engine import calibrate
+    from modegpt_tpu_torch.compress.batched import solve_chunk_batched
+    from modegpt_tpu_torch.compress.offload import _tree_map, stream_calibrate_solve
+    from modegpt_tpu_torch.config import CompressionConfig
+    from modegpt_tpu_torch.kernels import flash_attention as fa_mod
+    from modegpt_tpu_torch.ops.allocation import allocate_keep_ratios
+
+    spec = spec_from_hf_config(SimpleNamespace(
+        model_type="qwen3", vocab_size=256, hidden_size=128, intermediate_size=384, num_hidden_layers=3,
+        num_attention_heads=4, num_key_value_heads=2, head_dim=32, max_position_embeddings=256,
+        rms_norm_eps=1e-6, rope_theta=1e6, hidden_act="silu", tie_word_embeddings=False,
+    ))
+    host = init_params(spec, torch.Generator().manual_seed(0), device="cpu")
+    batches = load_calibration_batches(None, "synthetic", 4, 2, 128, vocab_size=spec.vocab_size)
+    with tempfile.TemporaryDirectory() as tmp:
+        config = CompressionConfig(device="cuda", solver_precision="f32_device", layers_per_step=1,
+                                   compression_ratio=0.3, sparsity_smoothing=0.5, bi_stage_dtype="bf16",
+                                   temp_storage_dir=tmp)
+        fa_mod.flash_attention.launches = 0
+        stats = {}
+        factors, bi, keep = stream_calibrate_solve(spec, copy.deepcopy(host), batches, config, stats_out=stats)
+        assert fa_mod.flash_attention.launches == 2 * spec.n_layers * len(batches)
+    assert stats["staged_bytes"] > 0 and stats["async_flush"] is True
+    card = _tree_map(lambda t: t.to(cuda_device), host)
+    calib = calibrate(spec, card, batches, list(range(spec.n_layers)), accumulate="device")
+    want_keep, _ = allocate_keep_ratios(calib.bi_scores, 0.3, 0.5, 0.8)
+    np.testing.assert_allclose(bi, calib.bi_scores, rtol=1e-5)
+    want = solve_chunk_batched(spec, card, list(range(spec.n_layers)), want_keep, calib, config, "mlp,qk,vo")
+    for s in want:
+        for l in want[s]:
+            for k, v in want[s][l].items():
+                if k in ("idx", "rotary_mask"):
+                    np.testing.assert_array_equal(factors[s][l][k], v, err_msg=f"{s}[{l}][{k}]")
+                else:
+                    np.testing.assert_allclose(factors[s][l][k], v, rtol=2e-3, atol=2e-4, err_msg=f"{s}[{l}][{k}]")
