@@ -8,6 +8,7 @@
     python3 chip_smoke.py --phases build,kernel,archs
     python3 chip_smoke.py --phases build,kernel,big
     python3 chip_smoke.py --phases build,kernel,main,quant
+    python3 chip_smoke.py --phases build,kernel,main,serve,sched
 
 Phases, each printing one JSON line:
 
@@ -18,7 +19,9 @@ Phases, each printing one JSON line:
    ragged_gqa_attend) against its plain PyTorch version on the card at
    the paths' shapes and a few edge shapes, and time the kernel, the
    plain version and the nearest single PyTorch call (library_ms). K3's
-   row sweep covers every decode form in use (G*S = 1 to 16 rows).
+   row sweep covers every decode form in use (G*S = 1 to 16 rows), and
+   its sched cases a batched prefill round (8 slots x 128 tokens at
+   their own offsets, one past the pool) and a verify dispatch (S = 5).
 3. main   — one full compression job through
    `modegpt_tpu_torch.compress.pipeline.run_compression` at the published
    Meta-Llama-3-8B widths (hidden 4096, intermediate 14336, 32 heads,
@@ -38,6 +41,25 @@ Phases, each printing one JSON line:
    round one decode step's logits through K3 are held against its plain
    version, and every served token of the 16 requests against the
    unrolled forward over prompt + output (teacher forcing).
+4b. sched — the same model, prompts and settings through each execution
+   mode of the batcher, one round each: (a) batched prefill, (b) batched
+   with mixed prefill+decode rounds, (c) fused decode of 4 steps a
+   dispatch, (d) mixed + fused, (e) prefix caching on 16 requests that
+   share a 256-token prefix (against the same requests served uncached:
+   equal tokens, and some prefix adopted), (f) prompt lookup, (g) a draft
+   model: the dense Llama-3-8B-width target rebuilt from the main
+   phase's seed, with the compressed model as its draft, (h) int8 KV
+   with batched prefill and fused decode (4 requests), (i) mixed + fused
+   with a first request of 958 tokens that decodes within a bucket of
+   the pool's end while later ones prefill; then
+   `models.speculative.speculative_generate` (dense target, compressed
+   draft; greedy, then sampled at 0.7) and `prompt_lookup_generate` on
+   two prompts. In every round: each request returns prompt + 32 tokens,
+   every served token is within 1e-3 of its row's max logit in the
+   served model's unrolled forward (K1; for g and speculative.py the
+   dense target's; for h one padded step of the whole sequence into an
+   int8 cache, the int8-KV model's own forward), K3 launches equal the layers times the dispatches
+   counted around every step function, and "auto" resolved to K3.
 
 5. quant  — quantised artifacts and int8 serving of the compressed model
    the main phase reloaded: int8, int4 and nf4 artifacts saved and
@@ -242,6 +264,18 @@ RAGGED_CASES = [
     dict(_DECODE, name="mha_gpt2xl_H25_r64", H=25, Hk=25, Rq=64, Rv=64),
     dict(_DECODE, name="qwen2_G7", H=28, Hk=4, Rq=128, Rv=128),
     dict(_DECODE, name="starcoder2_G9", H=36, Hk=4, Rq=128, Rv=128),
+]
+# the sched phase's dispatches (32 heads over 8 kv heads at the served
+# ranks of 126): a batched or mixed prefill round is every slot's
+# 128-token chunk at its own offset ("batched": one row at 0, one within a
+# bucket of the pool's end, one past it, the rest drawn over the pool),
+# a verify dispatch is each slot's last token and 4 drafts (S = 5, 20
+# rows a kv head: the chunk form, one 64-row block 20 rows full)
+RAGGED_CASES += [
+    dict(_DECODE, name="batched_chunk_B8_S128", S=128, pos="batched"),
+    dict(_DECODE, name="batched_chunk_B8_S128_int8", S=128, pos="batched", int8=True),
+    dict(_DECODE, name="verify_B8_S5", S=5),
+    dict(_DECODE, name="verify_B8_S5_int8", S=5, int8=True),
 ]
 # the row sweep: every decode form in use (G*S = 1, 2, 3, 4, 5, 8, 12,
 # 16 query rows a kv head; 32 heads over 32 / G kv heads), so a form that
@@ -600,6 +634,9 @@ def _ragged_cases(records: dict) -> list:
         elif case["pos"] == "edge":
             pos_host = rng.integers(0, T, size=B).tolist()
             pos_host[1] = T + 5  # a masked row: at or past the pool's end
+        elif case["pos"] == "batched":
+            pos_host = rng.integers(0, T, size=B).tolist()
+            pos_host[:3] = [0, T - 60, T + 5]  # first chunk; near the end; an idle row past it
         else:
             pos_host = list(case["pos"])
 
@@ -887,31 +924,71 @@ def _serve_round(batcher, prompts, generator, on_step=None):
 
 @contextlib.contextmanager
 def _counted_dispatches():
-    """Count and time the dispatches around the port's two step functions
-    (prefill chunk, decode step); yields ({kind: count}, {kind: seconds})."""
+    """Count and time the dispatches around the port's step functions:
+    per-slot prefill chunks, single decode steps, batched and mixed
+    prefill rounds (`_prefill_slots`, told apart by the batcher's round),
+    fused decode (`_decode_slots_multi`, one dispatch of n steps), draft
+    steps (`_draft_slots`, k + 1 dispatches) and verify dispatches, and
+    `models.speculative`'s model steps. Yields ({kind: count}, {kind:
+    seconds}); counts["layer_dispatches"] sums each call's layers times
+    its forward dispatches: the K3 launches the calls make."""
     import torch
 
-    from modegpt_tpu_torch.models import serving
+    from modegpt_tpu_torch.models import serving, speculative
 
-    counts, seconds = {"prefill": 0, "decode": 0}, {"prefill": 0.0, "decode": 0.0}
-    originals = {"prefill": serving._prefill_chunk, "decode": serving._one_decode_step}
+    kinds = ("prefill", "decode", "batched", "mixed", "fused", "draft", "verify", "spec_step")
+    counts = dict.fromkeys(kinds, 0)
+    counts["layer_dispatches"] = 0
+    seconds = dict.fromkeys(kinds, 0.0)
+    flag = [False]  # inside a mixed round
+    steps = {  # kind -> (function name, forward dispatches of one call)
+        "prefill": ("_prefill_chunk", lambda a, kw: 1),
+        "decode": ("_one_decode_step", lambda a, kw: 1),
+        "batched": ("_prefill_slots", lambda a, kw: 1),
+        "fused": ("_decode_slots_multi", lambda a, kw: a[5]),
+        "draft": ("_draft_slots", lambda a, kw: a[3] + 1),
+        "verify": ("_verify_slots", lambda a, kw: 1),
+    }
+    originals = {kind: getattr(serving, name) for kind, (name, _) in steps.items()}
+    rounds, spec_step = serving.ContinuousBatcher._batched_rounds, speculative._Padded.step
+
+    def timed(kind, fn, layers, n, *args, **kwargs):
+        kind = "mixed" if kind == "batched" and flag[0] else kind
+        counts[kind] += 1
+        counts["layer_dispatches"] += layers * n
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn(*args, **kwargs)
+        torch.cuda.synchronize()
+        seconds[kind] += time.perf_counter() - t0
+        return out
 
     def counted(kind):
         def run(*args, **kwargs):
-            counts[kind] += 1
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            out = originals[kind](*args, **kwargs)
-            torch.cuda.synchronize()
-            seconds[kind] += time.perf_counter() - t0
-            return out
+            return timed(kind, originals[kind], args[0].spec.n_layers, steps[kind][1](args, kwargs), *args, **kwargs)
         return run
 
-    serving._prefill_chunk, serving._one_decode_step = counted("prefill"), counted("decode")
+    def counted_rounds(self, generator, mixed):
+        flag[0] = mixed
+        try:
+            return rounds(self, generator, mixed)
+        finally:
+            flag[0] = False
+
+    def counted_spec_step(self, *args, **kwargs):
+        return timed("spec_step", spec_step, self.pm.spec.n_layers, 1, self, *args, **kwargs)
+
+    for kind, (name, _) in steps.items():
+        setattr(serving, name, counted(kind))
+    serving.ContinuousBatcher._batched_rounds = counted_rounds
+    speculative._Padded.step = counted_spec_step
     try:
         yield counts, seconds
     finally:
-        serving._prefill_chunk, serving._one_decode_step = originals["prefill"], originals["decode"]
+        for kind, (name, _) in steps.items():
+            setattr(serving, name, originals[kind])
+        serving.ContinuousBatcher._batched_rounds = rounds
+        speculative._Padded.step = spec_step
 
 
 def _decode_logits(pm, state, decode_attn: str, moe: str = "dense", moe_capacity: float = 2.0, active=None):
@@ -940,19 +1017,24 @@ def _decoding(batcher) -> list:
     return [r is not None and not c for r, c in zip(batcher.slot_req, batcher.slot_chunks)]
 
 
-def _teacher_forcing(cspec, cparams, done: dict, rids, prompts, new: int):
+def _teacher_forcing(cspec, cparams, done: dict, rids, prompts, new: int, logits_of=None):
     """Every served token against the unrolled forward (K1) over prompt +
-    output: (exact argmax count, the largest gap of a served token's logit
-    below its row's max)."""
+    output, or against ``logits_of(ids [1, T]) -> [1, T, V]``: (exact
+    argmax count, the largest gap of a served token's logit below its
+    row's max)."""
     import torch
 
     from modegpt_tpu_torch.models.forward import forward
+
+    if logits_of is None:
+        def logits_of(ids):
+            return forward(cspec, cparams, ids)[0]
 
     exact, max_gap = 0, 0.0
     for rid, prompt in zip(rids, prompts):
         seq, P = done[rid], len(prompt)
         with torch.no_grad():
-            logits, _ = forward(cspec, cparams, torch.tensor([seq], device="cuda"))
+            logits = logits_of(torch.tensor([seq], device="cuda"))
         rows = logits[0, P - 1 : P - 1 + new]
         served = torch.tensor(seq[P:], device="cuda")
         gap = rows.max(dim=-1).values - rows.gather(1, served[:, None])[:, 0]
@@ -1058,6 +1140,210 @@ def phase_serve(records: dict, main_out: dict, profile: bool = False) -> dict:
     if problems:
         raise AssertionError("; ".join(problems))
     return line
+
+
+# The sched phase: the serve phase's model, prompts and SERVE settings
+# through each execution mode of the batcher, one round each.
+SCHED_ROUNDS = {
+    "a_batched": dict(prefill_exec="batched", mixed_prefill_decode=False),
+    "b_mixed": dict(prefill_exec="batched"),
+    "c_fused4": dict(steps_per_dispatch=4),
+    "d_mixed_fused4": dict(prefill_exec="batched", steps_per_dispatch=4),
+    "e_prefix_cache": dict(prefix_cache=True),
+    "f_prompt_lookup": dict(spec_decode="prompt_lookup", n_draft=4),
+    "g_draft": dict(spec_decode="draft", n_draft=4),
+    "h_int8_batched_fused4": dict(kv_dtype="int8", prefill_exec="batched", steps_per_dispatch=4),
+    "i_near_pool_end": dict(prefill_exec="batched", steps_per_dispatch=4),
+}
+# i: a first request of near_end tokens decodes within a bucket of the
+# pool's end while later requests prefill, so its mixed-round rows (and
+# its idle row once it finishes) write up to 127 positions past the pool
+SCHED = dict(prefix=256, min_tail=16, max_tail=384, int8_requests=4, spec_prompts=2, spec_prompt_len=96,
+             spec_temperature=0.7, near_end=958, near_end_requests=12)
+
+
+def _prefix_prompts(vocab_size: int, count: int):
+    """`count` prompts sharing one 256-token prefix (two buckets) from the
+    synthetic eval set, each with its own tail of 16-384 tokens."""
+    import numpy as np
+
+    from modegpt_tpu_torch.calib.data import load_eval_tokens
+
+    rng = np.random.default_rng(SERVE["seed"] + 1)
+    tails = rng.integers(SCHED["min_tail"], SCHED["max_tail"] + 1, size=count)
+    windows = load_eval_tokens(None, "synthetic", 2 * SERVE["max_prompt"], 16, vocab_size=vocab_size)
+    prefix = windows[0, : SCHED["prefix"]]
+    return [np.concatenate([prefix, windows[i % 16, SCHED["prefix"] : SCHED["prefix"] + tails[i]]])
+            for i in range(count)]
+
+
+def phase_sched(records: dict, main_out: dict) -> dict:
+    """The batcher's execution modes on the card: batched and mixed
+    prefill, fused decode, prefix caching, prompt lookup and a draft model
+    (the dense Llama-3-8B-width target, rebuilt from the main phase's seed,
+    with the compressed model as its draft), and int8 KV with batched
+    prefill and fused decode; then `speculative_generate` and
+    `prompt_lookup_generate`. Each round: K3's launches against the
+    layers times the dispatches counted, every served token against the
+    served model's unrolled forward (K1), decode_attn resolved to K3."""
+    import torch
+
+    from modegpt_tpu_torch.calib.data import load_eval_tokens
+    from modegpt_tpu_torch.kernels import flash_attention as fa_mod
+    from modegpt_tpu_torch.kernels import ragged_decode as rd_mod
+    from modegpt_tpu_torch.models import serving, speculative
+    from modegpt_tpu_torch.models.forward import FLASH_MIN_T
+    from modegpt_tpu_torch.models.init import init_params
+    from modegpt_tpu_torch.models.padded import _model_step_padded, pad_to_uniform
+    from modegpt_tpu_torch.models.spec import spec_from_hf_config
+
+    t_phase = time.perf_counter()
+    cspec, cparams, pm = main_out["spec"], main_out["params"], main_out["pm"]
+    n, new = SERVE["requests"], SERVE["max_new_tokens"]
+    prompts, _ = _serve_prompts(cspec.vocab_size, n)
+    prefix_prompts = _prefix_prompts(cspec.vocab_size, n)
+    windows = load_eval_tokens(None, "synthetic", 2 * SERVE["max_prompt"], 16, vocab_size=cspec.vocab_size)
+    dspec = spec_from_hf_config(SimpleNamespace(**{**LLAMA3_8B, "num_hidden_layers": N_LAYERS}))
+    dparams = init_params(dspec, torch.Generator(device="cuda").manual_seed(0), device="cuda")
+    dense = pad_to_uniform(dspec, dparams)
+    kw = dict(slots=SERVE["slots"], max_len=SERVE["max_len"], prefill_bucket=SERVE["prefill_bucket"],
+              temperature=0.0, decode_attn="auto")
+    rd_mod.ragged_gqa_attend.launches = fa_mod.flash_attention.launches = 0
+    k1_forwards, k3_total, problems, lines = 0, 0, [], []
+
+    def int8_kv_logits(ids):
+        """The int8-KV served model over a whole sequence: one padded step
+        into an int8 cache (the same per-position codes and scales as the
+        served dispatches), through the plain cache attention."""
+        st = serving.init_serve_state(pm, 1, ids.shape[1], kv_dtype="int8")
+        return _model_step_padded(pm.spec, pm.layers, pm.other, pm.q_hd_true, ids, st.cache_k, st.cache_v, 0,
+                                  cache_scales=st.scales, decode_attn="xla")[0]
+
+    def check_tokens(name, spec, params, done, rids, round_prompts, layers, logits_of=None):
+        nonlocal k1_forwards
+        lengths_ok = all(len(done.get(r, [])) == len(p) + new for r, p in zip(rids, round_prompts))
+        exact, gap = _teacher_forcing(spec, params, done, rids, round_prompts, new, logits_of)
+        if logits_of is None:  # the unrolled forward's K1 route
+            k1_forwards += layers * sum(len(done[r]) >= FLASH_MIN_T for r in rids)
+        if not lengths_ok:
+            problems.append(f"{name}: a request did not return prompt + {new} tokens")
+        if gap > 1e-3:
+            problems.append(f"{name}: a served token is {gap} below its row's max logit")
+        return {"exact_argmax": exact, "of": len(rids) * new, "max_gap_to_row_max": gap}
+
+    def serve(name, settings, round_prompts, target=pm, draft=None):
+        with _counted_dispatches() as (counts, seconds):
+            launches0 = rd_mod.ragged_gqa_attend.launches
+            b = serving.ContinuousBatcher(target, **kw, **settings, **({"draft_pm": draft} if draft else {}))
+            gen = torch.Generator(device="cuda").manual_seed(0)
+            done, rids, wall = _serve_round(b, round_prompts, gen)
+            launches = rd_mod.ragged_gqa_attend.launches - launches0
+        if launches != counts["layer_dispatches"]:
+            problems.append(f"{name}: K3 launched {launches} times, expected {counts['layer_dispatches']}")
+        if b.decode_attn != "ragged":
+            problems.append(f"{name}: decode_attn auto resolved to {b.decode_attn}")
+        kinds = [k for k in seconds if counts[k]]
+        line = {
+            "phase": "sched", "round": name, "settings": settings, "requests": len(round_prompts),
+            "wall_seconds": wall, "generated_tokens_per_s": len(round_prompts) * new / wall,
+            "dispatches": {k: counts[k] for k in kinds},
+            "mean_dispatch_ms": {k: 1e3 * seconds[k] / counts[k] for k in kinds},
+            "launches": {"ragged_gqa_attend": launches},
+            "expected_launches": {"ragged_gqa_attend": counts["layer_dispatches"]},
+            "decode_attn": b.decode_attn,
+        }
+        if b.prefix_cache:
+            line["prefix"] = {"hits": b.prefix_hits, "tokens_reused": b.prefix_tokens_reused}
+        if b.stats:
+            drafted = sum(st["drafted"] for st in b.stats.values())
+            accepted = sum(st["accepted"] for st in b.stats.values())
+            line["speculative"] = {"rounds": sum(st["rounds"] for st in b.stats.values()), "drafted": drafted,
+                                   "accepted": accepted, "acceptance_rate": accepted / max(drafted, 1)}
+        return b, done, rids, line, launches
+
+    for name, settings in SCHED_ROUNDS.items():
+        round_prompts = prefix_prompts if name.startswith("e_") else prompts
+        if name.startswith("h_"):
+            round_prompts = prompts[: SCHED["int8_requests"]]
+        if name.startswith("i_"):
+            round_prompts = [windows[2, : SCHED["near_end"]]] + prompts[1 : SCHED["near_end_requests"]]
+        target, draft = (dense, pm) if name.startswith("g_") else (pm, None)
+        twins = []
+        if name.startswith("e_"):  # in turns: uncached, cached, cached, uncached
+            twins.append(serve("e_uncached_twin", {}, round_prompts))
+        b, done, rids, line, launches = serve(name, settings, round_prompts, target, draft)
+        k3_total += launches
+        spec_, params_ = (dspec, dparams) if target is dense else (cspec, cparams)
+        line["teacher_forcing"] = check_tokens(name, spec_, params_, done, rids, round_prompts, spec_.n_layers,
+                                               int8_kv_logits if settings.get("kv_dtype") == "int8" else None)
+        if twins:
+            again = serve(name, settings, round_prompts)
+            twins.append(serve("e_uncached_twin", {}, round_prompts))
+            k3_total += sum(t[4] for t in twins) + again[4]
+            line["repeat_generated_tokens_per_s"] = again[3]["generated_tokens_per_s"]
+            line["uncached_twin"] = [{k: t[3][k] for k in ("generated_tokens_per_s", "dispatches", "mean_dispatch_ms")}
+                                     for t in twins]
+            if b.prefix_hits <= 0:
+                problems.append("e: no prefix was adopted")
+            for _, twin, twin_rids, _, _ in twins + [again]:
+                if [done[r] for r in rids] != [twin[r] for r in twin_rids]:
+                    problems.append("e: the prefix-cached tokens differ from the uncached round's")
+        emit(line)
+        lines.append(line)
+
+    # models.speculative: greedy and sampled, on the dense target
+    spec_prompts = windows[1 : 1 + SCHED["spec_prompts"], : SCHED["spec_prompt_len"]]
+    with _counted_dispatches() as (counts, seconds):
+        launches0 = rd_mod.ragged_gqa_attend.launches
+        runs = {}
+        for name, fn in (
+            ("speculative_generate", lambda **k: speculative.speculative_generate(pm, dense, spec_prompts, **k)),
+            ("prompt_lookup_generate", lambda **k: speculative.prompt_lookup_generate(dense, spec_prompts, **k)),
+        ):
+            t0 = time.perf_counter()
+            out, stats = fn(max_new_tokens=new, n_draft=4, return_stats=True)
+            torch.cuda.synchronize()
+            runs[name] = (out, stats, time.perf_counter() - t0)
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        sampled = speculative.speculative_generate(pm, dense, spec_prompts, max_new_tokens=new, n_draft=4,
+                                                   temperature=SCHED["spec_temperature"], generator=gen)
+        launches = rd_mod.ragged_gqa_attend.launches - launches0
+    k3_total += launches
+    if launches != counts["layer_dispatches"]:
+        problems.append(f"speculative.py: K3 launched {launches} times, expected {counts['layer_dispatches']}")
+    P = spec_prompts.shape[1]
+    if tuple(sampled.shape) != (len(spec_prompts), P + new) or not bool(
+            ((sampled >= 0) & (sampled < dspec.vocab_size)).all()):
+        problems.append(f"sampled speculative_generate: shape {tuple(sampled.shape)} or ids out of range")
+    spec_line = {"phase": "sched", "round": "speculative.py", "prompts": len(spec_prompts), "prompt_len": P,
+                 "max_new_tokens": new, "launches": {"ragged_gqa_attend": launches},
+                 "expected_launches": {"ragged_gqa_attend": counts["layer_dispatches"]},
+                 "model_steps": counts["spec_step"]}
+    for name, (out, stats, wall) in runs.items():
+        done = {i: out[i].tolist() for i in range(len(spec_prompts))}
+        spec_line[name] = {
+            "wall_seconds": wall, "generated_tokens_per_s": len(spec_prompts) * new / wall,
+            "rounds": int(stats.rounds.sum()), "drafted": int(stats.drafted.sum()),
+            "accepted": int(stats.accepted.sum()),
+            "acceptance_rate": float(stats.accepted.sum()) / max(float(stats.drafted.sum()), 1.0),
+            "teacher_forcing": check_tokens(name, dspec, dparams, done, list(done), list(spec_prompts),
+                                            dspec.n_layers),
+        }
+    emit(spec_line)
+    k1 = fa_mod.flash_attention.launches
+    if k1 != k1_forwards:
+        problems.append(f"K1 launched {k1} times in the teacher-forcing forwards, expected {k1_forwards}")
+    records["ragged_gqa_attend"]["launches_by_phase"]["sched"] = k3_total
+    records["flash_attention"]["launches_by_phase"]["sched"] = k1
+    summary = {"phase": "sched", "rounds": [ln["round"] for ln in lines] + ["speculative.py"],
+               "launches": {"ragged_gqa_attend": k3_total, "flash_attention": k1},
+               "expected_launches": {"flash_attention": k1_forwards},
+               "seconds": time.perf_counter() - t_phase}
+    emit(summary)
+    del dense, dparams
+    if problems:
+        raise AssertionError("; ".join(problems))
+    return summary
 
 
 DEQUANT_RANGE = "dequantised weight copy (forward._dequant)"
@@ -2292,7 +2578,7 @@ def card_line() -> str:
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--phases", default="build,kernel,main,serve,quant,moe,long,archs,big")
+    ap.add_argument("--phases", default="build,kernel,main,serve,sched,quant,moe,long,archs,big")
     ap.add_argument("--profile", action="store_true",
                     help="trace the main job, the serve round, the quant phase's int8 rounds, the moe "
                     "job, the long job and the archs job with torch.profiler; print their device busy time")
@@ -2321,13 +2607,16 @@ def main(argv=None) -> int:
         emit(phase_build())
     if "kernel" in phases:
         phase_kernel(records)
-    if {"main", "serve", "quant", "moe", "long", "archs", "big"} & set(phases) and "kernel" not in phases:
-        raise SystemExit("chip_smoke: the main, serve, quant, moe, long, archs and big phases need the kernel "
+    if {"main", "serve", "sched", "quant", "moe", "long", "archs", "big"} & set(phases) and "kernel" not in phases:
+        raise SystemExit("chip_smoke: the main, serve, sched, quant, moe, long, archs and big phases need the kernel "
                          "phase's records")
-    if {"main", "serve", "quant"} & set(phases):
+    if {"main", "serve", "sched", "quant"} & set(phases):
         main_out = phase_main(records, args.profile)
         if "serve" in phases:
             phase_serve(records, main_out, args.profile)
+        if "sched" in phases:
+            torch.cuda.empty_cache()
+            phase_sched(records, main_out)
         if "quant" in phases:
             torch.cuda.empty_cache()
             phase_quant(records, main_out, args.profile)

@@ -10,15 +10,19 @@ written by either package) or a dense HF checkpoint directory. Runs, in
 this order and as asked: per-sample alpaca perplexity
 (``--alpaca_per_sample``), joined-window perplexity (``--dataset``, through
 ``--compressed_exec``), zero-shot multiple-choice tasks (``--tasks``) and
-greedy generation (``--generate``, the plain KV-cache `generate`); prints
-the generated text and, last, one JSON line of results.
+greedy generation (``--generate``: the plain KV-cache `generate`, or
+with ``--prompt_lookup`` prompt-lookup decoding, or with
+``--speculative_draft <dir>`` speculative decoding with that model as
+the draft, both on the padded stacks through `models.speculative`, their
+rounds, drafted and accepted tokens in the results); prints the
+generated text and, last, one JSON line of results.
 
 ``transformers`` is imported only to read a tokenizer or a dense HF
 checkpoint, so an artifact evaluates on the offline ``synthetic`` corpus
 without it. ``--tasks``, ``--alpaca_per_sample`` and ``--generate`` need a
 tokenizer (files in the artifact directory, or the source it names).
-``--streaming_window``, ``--prompt_lookup``, ``--speculative_draft`` and a
-``--mesh_shape`` are not ported and raise NotImplementedError.
+``--streaming_window`` and a ``--mesh_shape`` are not ported and raise
+NotImplementedError.
 """
 
 from __future__ import annotations
@@ -60,6 +64,15 @@ def _load_any(path: str, device):
     return load_hf_model(path, device=device)
 
 
+def _spec_stats(stats) -> dict:
+    """A speculative run's rounds, drafted and accepted tokens and
+    acceptance rate, summed over the batch."""
+    drafted = int(stats.drafted.sum())
+    accepted = int(stats.accepted.sum())
+    return {"rounds": int(stats.rounds.sum()), "drafted": drafted, "accepted": accepted,
+            "acceptance_rate": accepted / max(float(drafted), 1.0)}
+
+
 def _parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(prog="modegpt-tpu-torch-eval")
     p.add_argument("--model", required=True, help="artifact dir or HF checkpoint dir")
@@ -74,9 +87,9 @@ def _parser() -> argparse.ArgumentParser:
                    "evaluate_perplexity_alpaca, eval.py:257-295)")
     p.add_argument("--generate", default="", help="prompt to generate from")
     p.add_argument("--max_new_tokens", type=int, default=64)
-    p.add_argument("--speculative_draft", default="", help="not ported")
+    p.add_argument("--speculative_draft", default="", help="draft model dir for speculative --generate")
     p.add_argument("--n_draft", type=int, default=4)
-    p.add_argument("--prompt_lookup", action="store_true", help="not ported")
+    p.add_argument("--prompt_lookup", action="store_true", help="prompt-lookup decoding for --generate")
     p.add_argument("--lookup_ngram", type=int, default=3)
     p.add_argument("--streaming_window", type=int, default=0, help="not ported")
     p.add_argument("--streaming_sinks", type=int, default=4)
@@ -94,8 +107,6 @@ def main(argv=None):
     args = _parser().parse_args(argv)
     unported = [name for name, on in (
         ("--streaming_window (models/streaming.py)", args.streaming_window > 0),
-        ("--prompt_lookup (models/speculative.py)", args.prompt_lookup),
-        ("--speculative_draft (models/speculative.py)", bool(args.speculative_draft)),
         ("--mesh_shape (parallel/mesh.py)", bool(args.mesh_shape)),
     ) if on]
     if unported:
@@ -143,15 +154,31 @@ def main(argv=None):
             logger.info("%s: %s", task, res)
 
     if args.generate:
+        from modegpt_tpu_torch.models import speculative
         from modegpt_tpu_torch.models.generate import generate
+        from modegpt_tpu_torch.models.padded import pad_to_uniform
 
         if tokenizer is None:
             raise SystemExit("--generate requires a tokenizer")
         ids = [tokenizer(args.generate)["input_ids"]]
-        out = generate(
-            spec, params, ids, max_new_tokens=args.max_new_tokens,
-            eos_token_id=getattr(tokenizer, "eos_token_id", None),
-        )
+        eos = getattr(tokenizer, "eos_token_id", None)
+        if args.prompt_lookup:
+            out, stats = speculative.prompt_lookup_generate(
+                pad_to_uniform(spec, params), ids, max_new_tokens=args.max_new_tokens,
+                n_draft=args.n_draft, ngram=args.lookup_ngram, eos_token_id=eos, return_stats=True,
+            )
+            results["prompt_lookup"] = _spec_stats(stats)
+            logger.info("prompt-lookup decode: %s", results["prompt_lookup"])
+        elif args.speculative_draft:
+            dspec, dparams, _ = _load_any(args.speculative_draft, device)
+            out, stats = speculative.speculative_generate(
+                pad_to_uniform(dspec, dparams), pad_to_uniform(spec, params), ids,
+                max_new_tokens=args.max_new_tokens, n_draft=args.n_draft, eos_token_id=eos, return_stats=True,
+            )
+            results["spec_decode"] = _spec_stats(stats)
+            logger.info("speculative decode: %s", results["spec_decode"])
+        else:
+            out = generate(spec, params, ids, max_new_tokens=args.max_new_tokens, eos_token_id=eos)
         text = tokenizer.decode(out[0].tolist())
         results["generation"] = text
         print(text)

@@ -37,7 +37,11 @@ write at or past ``max_len`` is dropped, as JAX's ``mode="drop"`` scatter
 drops it. The offsets are host integers: the drop mask is decided on the
 host, and only the surviving (row, position) pairs are written, because
 an out-of-range index on a CUDA tensor is a device-side assert and a
-clamped write would overwrite a live position.
+clamped write would overwrite a live position. `step_indices` builds
+those indices for one dispatch or several and uploads them in one copy
+from pinned memory, so a run of dispatches whose offsets the host knows
+ahead (fused decode, draft steps) issues without a host wait between
+them.
 
 A quantised stack is quantised AFTER padding
 (`models.quantize.quantize_padded`), as in the JAX package. Zero pads
@@ -439,6 +443,48 @@ def init_cache_padded(pm: PaddedModel, batch: int, max_len: int, dtype=torch.flo
     return k, v, 0
 
 
+def upload(a: np.ndarray, device: torch.device) -> torch.Tensor:
+    """A host array on `device`: on a CUDA device through pinned memory
+    without waiting (the stream orders it before the dispatch that reads
+    it), so an upload never stalls the host behind queued work. The
+    array is copied: the caller may reuse it."""
+    t = torch.from_numpy(np.array(a))
+    if torch.device(device).type != "cuda":
+        return t.to(device)
+    return t.pin_memory().to(device, non_blocking=True)
+
+
+class StepIndex(NamedTuple):
+    """One dispatch's host-decided indices on the device: each row's
+    offset ``pos`` [B] int32, the surviving cache writes ``write_ix`` =
+    (row, new position, pool position) and the RoPE positions [B, S]."""
+
+    pos: torch.Tensor
+    write_ix: Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
+    positions: torch.Tensor
+
+
+def step_indices(lengths: Sequence[Length], B: int, S: int, T: int, device) -> list:
+    """The `StepIndex` of each of ``len(lengths)`` dispatches of S new
+    tokens over a pool of T positions, each at its rows' offsets (a host
+    int or B ints), uploaded in one copy. Writes at or past T are dropped
+    here, on the host (the module docstring says why)."""
+    parts, sizes = [], []
+    for length in lengths:
+        pos_host = np.broadcast_to(np.asarray(length, dtype=np.int64).reshape(-1), (B,))
+        t_host = pos_host[:, None] + np.arange(S)[None, :]
+        b_ok, s_ok = np.nonzero(t_host < T)
+        arrs = (pos_host, b_ok, s_ok, t_host[b_ok, s_ok], t_host.reshape(-1))
+        parts += arrs
+        sizes += [a.shape[0] for a in arrs]
+    flat = upload(np.concatenate(parts).astype(np.int64), device)
+    views = torch.split(flat, sizes)
+    return [
+        StepIndex(pos=v[0].to(torch.int32), write_ix=(v[1], v[2], v[3]), positions=v[4].view(B, S))
+        for v in (views[i : i + 5] for i in range(0, len(views), 5))
+    ]
+
+
 @torch.no_grad()
 def _model_step_padded(
     spec: ModelSpec,
@@ -451,10 +497,11 @@ def _model_step_padded(
     length: Length,
     cache_scales: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
     decode_attn: str = "xla",
-    logits_at: Optional[int] = None,
+    logits_at=None,
     moe: str = "dense",
     moe_capacity: float = 2.0,
     token_valid: Optional[torch.Tensor] = None,
+    index: Optional[StepIndex] = None,
 ):
     """New tokens [B, S] through the padded stack with a stacked cache.
 
@@ -462,11 +509,15 @@ def _model_step_padded(
     ``cache_scales`` = (k_scale, v_scale), each [L, B, Hk, max_len]),
     updated in place; a per-row slice of a larger pool (``pool[:, s:s+1]``)
     works too. ``length``: each row's current length, a host int (every
-    row) or a host sequence of B ints. decode_attn: "xla" (masked
+    row) or a host sequence of B ints. ``index``: the dispatch's
+    `StepIndex`, when the caller built it ahead (`step_indices`, one
+    upload for several dispatches); else it is built from ``length``.
+    decode_attn: "xla" (masked
     contraction over the whole pool) or "ragged" (the CUDA kernel, whose
     reads cover each row's live keys only). ``logits_at``: None for every
-    position's logits, or one position s whose logits alone are computed
-    (a prefill chunk needs its last real position only). moe,
+    position's logits, one position s whose logits alone are computed
+    (a prefill chunk needs its last real position only), or a [B] int64
+    tensor on the device with one position per row. moe,
     moe_capacity: MoE execution (`_layer_padded`); token_valid [B, S]
     bool: the rows and positions whose tokens may claim dispatch-MoE
     expert capacity (masked slots and padded chunk tails may not).
@@ -474,30 +525,26 @@ def _model_step_padded(
     Returns (logits [B, S or 1, V], length + S as a host value)."""
     check_supported(spec)
     B, S = tokens.shape
-    T = cache_k.shape[3]
     dev = tokens.device
-    pos_host = np.broadcast_to(np.asarray(length, dtype=np.int64).reshape(-1), (B,))
-    t_host = pos_host[:, None] + np.arange(S)[None, :]
-    b_ok, s_ok = np.nonzero(t_host < T)  # writes past the pool are dropped
-    write_ix = tuple(
-        torch.from_numpy(np.ascontiguousarray(a)).to(dev) for a in (b_ok, s_ok, t_host[b_ok, s_ok])
-    )
-    pos = torch.from_numpy(pos_host.astype(np.int32)).to(dev)
-    x = _embed(spec, other, tokens, pos.long()[:, None] + torch.arange(S, device=dev)[None, :])
+    if index is None:
+        index = step_indices([length], B, S, cache_k.shape[3], dev)[0]
+    x = _embed(spec, other, tokens, index.positions)
     cos = sin = None
     if spec.uses_rope:
-        positions = torch.from_numpy(t_host.reshape(-1).astype(np.int32)).to(dev)
-        cos, sin = rope_cos_sin(positions, spec.head_dim, spec.rope_theta, dtype=x.dtype, scaling=spec.rope_scaling)
+        cos, sin = rope_cos_sin(index.positions.reshape(-1).to(torch.int32), spec.head_dim, spec.rope_theta,
+                                dtype=x.dtype, scaling=spec.rope_scaling)
         cos = cos.reshape(B, S, -1)
         sin = sin.reshape(B, S, -1)
     pools = (cache_k, cache_v) + (tuple(cache_scales) if cache_scales is not None else ())
     for l in range(spec.n_layers):
         x = _layer_padded(
             spec, _layer_params(layers, l), q_hd_true[l], x, cos, sin, decode_attn,
-            _layer_window(spec, l), cache=tuple(c[l] for c in pools), pos=pos, write_ix=write_ix,
+            _layer_window(spec, l), cache=tuple(c[l] for c in pools), pos=index.pos, write_ix=index.write_ix,
             layer=l, moe=moe, moe_capacity=moe_capacity, token_valid=token_valid,
         )
-    if logits_at is not None:
+    if isinstance(logits_at, torch.Tensor):
+        x = x[torch.arange(B, device=dev), logits_at][:, None]
+    elif logits_at is not None:
         x = x[:, logits_at : logits_at + 1]
     logits = _unembed(spec, other, x)
     if np.ndim(length) == 0:

@@ -245,6 +245,14 @@ RAGGED_CASES = {
     "softcap_r256_chunk": dict(B=2, H=4, Hk=2, T=300, S=32, Rq=256, Rv=256, softcap=5.0),
     "G7_decode": dict(B=3, H=7, Hk=1, T=300, S=1, Rq=128, Rv=128),
     "G9_decode": dict(B=3, H=9, Hk=1, T=300, S=1, Rq=128, Rv=128),
+    # the batcher's dispatches: a batched/mixed prefill round (every slot's
+    # chunk at its own offset: one at 0, one within a chunk of the pool's
+    # end, an idle row past it) and a verify dispatch (last token + 4
+    # drafts, G = 4: 20 rows a kv head)
+    "batched_chunk_B8_S128": dict(B=8, H=8, Hk=2, T=300, S=128, Rq=32, Rv=32, pos=[0, 250, 305, 17, 120, 64, 199, 3]),
+    "batched_chunk_B8_S128_int8": dict(B=8, H=8, Hk=2, T=300, S=128, Rq=32, Rv=32, int8=True,
+                                       pos=[0, 250, 305, 17, 120, 64, 199, 3]),
+    "verify_B8_S5": dict(B=8, H=8, Hk=2, T=300, S=5, Rq=32, Rv=32),
 }
 
 
@@ -334,6 +342,81 @@ def test_padded_serving_steps_go_through_the_ragged_kernel(cuda_device, kv_dtype
     np.testing.assert_array_equal(a.lengths, b.lengths)
     # int8 codes may sit one rounding step apart
     torch.testing.assert_close(a.cache_k.float(), b.cache_k.float(), rtol=1e-4, atol=1e-4 if kv_dtype == "model" else 1.0)
+
+
+def _tiny_llama_on(device):
+    spec = spec_from_hf_config(SimpleNamespace(
+        model_type="llama", vocab_size=256, hidden_size=64, intermediate_size=176,
+        num_hidden_layers=2, num_attention_heads=4, num_key_value_heads=2, head_dim=16,
+        max_position_embeddings=512, rms_norm_eps=1e-5, rope_theta=10000.0, hidden_act="silu",
+        tie_word_embeddings=False, attention_bias=False, mlp_bias=False, rope_scaling=None,
+    ))
+    return spec, init_params(spec, torch.Generator(device="cuda").manual_seed(0), device=device)
+
+
+@pytest.mark.parametrize("kv_dtype", ["model", "int8"])
+def test_fused_decode_equals_single_steps_on_the_card(cuda_device, kv_dtype):
+    """One fused 4-step decode dispatch (its indices uploaded once, no
+    host wait between the steps) gives the tokens, lengths and cache of
+    four single decode steps, with 4 K3 launches a layer."""
+    from modegpt_tpu_torch.kernels.ragged_decode import ragged_gqa_attend
+    from modegpt_tpu_torch.models.padded import pad_to_uniform
+    from modegpt_tpu_torch.models.serving import (
+        _decode_slots_multi, _one_decode_step, _prefill_chunk, init_serve_state,
+    )
+
+    spec, params = _tiny_llama_on(cuda_device)
+    pm = pad_to_uniform(spec, params)
+    states = [init_serve_state(pm, 3, 64, kv_dtype=kv_dtype) for _ in range(2)]
+    for state in states:
+        for slot, n in ((0, 13), (2, 5)):
+            _prefill_chunk(pm, state, slot, np.random.default_rng(slot).integers(0, 256, n), 0, 16, True, 0.0, None,
+                           decode_attn="ragged")
+    active = np.array([True, False, True])
+    single = np.stack([_one_decode_step(pm, states[0], active, 0.0, None, None, decode_attn="ragged").cpu().numpy()
+                       for _ in range(4)])
+    before = ragged_gqa_attend.launches
+    toks, emitted = _decode_slots_multi(pm, states[1], active, np.array([9, 0, 9]), None, 4, 0.0, None,
+                                        decode_attn="ragged")
+    assert ragged_gqa_attend.launches - before == 4 * spec.n_layers
+    assert emitted[:, 0].all() and emitted[:, 2].all() and not emitted[:, 1].any()
+    np.testing.assert_array_equal(toks[:, active], single[:, active])
+    np.testing.assert_array_equal(states[1].lengths, states[0].lengths)
+    torch.testing.assert_close(states[1].cache_k, states[0].cache_k)
+
+
+SCHED_MODES = {
+    "mixed_fused": dict(prefill_exec="batched", steps_per_dispatch=4),
+    "batched_unmixed": dict(prefill_exec="batched", mixed_prefill_decode=False),
+    "prefix_cache": dict(prefix_cache=True),
+    "prompt_lookup": dict(spec_decode="prompt_lookup", n_draft=4),
+    "self_draft": dict(spec_decode="draft", n_draft=3),
+}
+
+
+@pytest.mark.parametrize("mode", sorted(SCHED_MODES))
+def test_batcher_modes_on_the_card(cuda_device, mode):
+    """Each execution mode of the batcher through K3 on the card gives the
+    per-slot single-step batcher's greedy tokens, including a slot that
+    comes within a bucket of the pool's end."""
+    from modegpt_tpu_torch.models.padded import pad_to_uniform
+    from modegpt_tpu_torch.models.serving import ContinuousBatcher
+
+    spec, params = _tiny_llama_on(cuda_device)
+    pm = pad_to_uniform(spec, params)
+    rng = np.random.default_rng(5)
+    shared = rng.integers(1, 256, 32)
+    prompts = [np.concatenate([shared, rng.integers(1, 256, n)]) for n in (3, 20)] + [
+        rng.integers(1, 256, n) for n in (50, 7, 12)]
+    budgets = [8, 6, 5, 20, 9]
+    served = {}
+    for name, kw in (("plain", {}), (mode, SCHED_MODES[mode])):
+        extra = {"draft_pm": pm} if kw.get("spec_decode") == "draft" else {}
+        b = ContinuousBatcher(pm, slots=2, max_len=64, prefill_bucket=16, decode_attn="ragged", **kw, **extra)
+        rids = [b.submit(p, max_new_tokens=n) for p, n in zip(prompts, budgets)]
+        done = b.run()
+        served[name] = [list(map(int, done[r])) for r in rids]
+    assert served[mode] == served["plain"]
 
 
 # the decode forms in use, by rows a kv head (G*S = 1 ... 16; 8 heads)

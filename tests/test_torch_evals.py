@@ -119,8 +119,7 @@ def test_eval_clis_agree(artifact, monkeypatch, capsys):
 
 def test_eval_cli_unported_options_and_devices(artifact, monkeypatch, tmp_path):
     base = ["--model", artifact, "--dataset", "synthetic", "--seq_len", "16", "--device", "cpu"]
-    for extra in (["--streaming_window", "8"], ["--prompt_lookup"], ["--speculative_draft", artifact],
-                  ["--mesh_shape", "data:2"]):
+    for extra in (["--streaming_window", "8"], ["--mesh_shape", "data:2"]):
         with pytest.raises(NotImplementedError, match="modegpt_tpu_torch.evals.cli"):
             t_main(base + extra)
     # an artifact without tokenizer files: what needs one exits, as the JAX CLI does
@@ -134,6 +133,24 @@ def test_eval_cli_unported_options_and_devices(artifact, monkeypatch, tmp_path):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         t_main(["--model", artifact, "--dataset", "synthetic"])  # the default device is cuda
+
+
+@pytest.mark.parametrize("extra", [["--prompt_lookup", "--n_draft", "3", "--lookup_ngram", "2"],
+                                   ["--speculative_draft", "<artifact>", "--n_draft", "3"]],
+                         ids=["prompt_lookup", "speculative_draft"])
+def test_eval_cli_speculative_generation_matches_jax(artifact, extra):
+    """--generate with --prompt_lookup, and with --speculative_draft (the
+    artifact drafting for itself): the JAX CLI's text and stats."""
+    extra = [artifact if e == "<artifact>" else e for e in extra]
+    flags = ["--model", artifact, "--generate", "tok1 tok2 tok3 tok1 tok2 tok3 tok1", "--max_new_tokens", "7"] + extra
+    got = t_main(flags + ["--device", "cpu"])
+    want = j_main(flags)
+    key = "prompt_lookup" if "--prompt_lookup" in extra else "spec_decode"
+    assert got["generation"] == want["generation"]
+    assert got[key] == want[key]
+    plain = t_main(["--model", artifact, "--generate", "tok1 tok2 tok3 tok1 tok2 tok3 tok1", "--max_new_tokens", "7",
+                    "--device", "cpu"])
+    assert got["generation"] == plain["generation"]
 
 
 class ByteTokenizer:

@@ -8,7 +8,9 @@ prompt, EOS with slot reuse, a budget of one token, EOS at prefill,
 prefill overlapping decode, a compressed model, stop sequences and int8
 KV. Also: the ragged backend (the kernel's plain version on the CPU)
 gives the plain path's tokens, unported options raise, and the serve CLI
-runs on the CPU with a word-level tokenizer built offline.
+runs on the CPU with a word-level tokenizer built offline, in every
+execution mode, on an artifact or a dense HF checkpoint, with a draft
+model and with in-memory compression, as the JAX serve CLI does.
 """
 
 import json
@@ -250,11 +252,7 @@ def test_sampling_is_seeded_and_filtered(models):
     assert torch.equal(_sample(logits, None, 0.0, None), greedy)
 
 
-CTOR_UNPORTED = [
-    dict(spec_decode="prompt_lookup"), dict(prefill_exec="batched"), dict(mixed_prefill_decode=True),
-    dict(steps_per_dispatch=4), dict(prefix_cache=True), dict(per_request_sampling=True),
-    dict(repetition_penalty=1.2), dict(mesh=object()), dict(draft_pm=object()),
-]
+CTOR_UNPORTED = [dict(per_request_sampling=True), dict(repetition_penalty=1.2), dict(mesh=object())]
 SUBMIT_UNPORTED = [
     dict(logprobs=True), dict(top_logprobs=2), dict(seed=1), dict(guide=object()),
     dict(logit_bias={1: 2.0}), dict(min_tokens=2), dict(temperature=0.5),
@@ -271,22 +269,28 @@ def test_unported_options_raise(models, kw):
             TBatcher(tpm, **KW).submit(np.arange(1, 5), max_new_tokens=2, **kw)
 
 
-def test_serve_cli_on_cpu(compressed, monkeypatch, capsys):
-    """`python -m modegpt_tpu_torch.serve` with the JAX CLI's flags plus
-    --device cpu, on an artifact with a word-level tokenizer: the same
-    completions as `python -m modegpt_tpu.serve`."""
+def _word_tokenizer():
+    """A word-level tokenizer over the tiny models' vocabulary: "tokN" is
+    id N, with <eos> 126 and <unk> 127."""
     from tokenizers import Tokenizer, models as tok_models, pre_tokenizers
     from transformers import PreTrainedTokenizerFast
 
-    from modegpt_tpu.serve import main as j_serve
-    from modegpt_tpu_torch.serve import main as t_serve
-
-    _, artifact = compressed
     vocab = {f"tok{i}": i for i in range(126)}
     vocab.update({"<eos>": 126, "<unk>": 127})
     tok = Tokenizer(tok_models.WordLevel(vocab, unk_token="<unk>"))
     tok.pre_tokenizer = pre_tokenizers.Whitespace()
-    PreTrainedTokenizerFast(tokenizer_object=tok, eos_token="<eos>", unk_token="<unk>").save_pretrained(artifact)
+    return PreTrainedTokenizerFast(tokenizer_object=tok, eos_token="<eos>", unk_token="<unk>")
+
+
+def test_serve_cli_on_cpu(compressed, monkeypatch, capsys):
+    """`python -m modegpt_tpu_torch.serve` with the JAX CLI's flags plus
+    --device cpu, on an artifact with a word-level tokenizer: the same
+    completions as `python -m modegpt_tpu.serve`."""
+    from modegpt_tpu.serve import main as j_serve
+    from modegpt_tpu_torch.serve import main as t_serve
+
+    _, artifact = compressed
+    _word_tokenizer().save_pretrained(artifact)
 
     flags = ["--model", artifact, "--prompt", "tok1 tok2 tok3", "--prompt", "tok4 tok5",
              "--max_new_tokens", "5", "--slots", "2", "--max_len", "32", "--prefill_bucket", "8"]
@@ -295,8 +299,70 @@ def test_serve_cli_on_cpu(compressed, monkeypatch, capsys):
     assert len(got) == 2 and [ln["prompt"] for ln in lines] == ["tok1 tok2 tok3", "tok4 tok5"]
     assert {k: list(map(int, v)) for k, v in j_serve(flags).items()} == got
 
-    with pytest.raises(NotImplementedError, match="steps_per_dispatch"):
-        t_serve(flags + ["--device", "cpu", "--steps_per_dispatch", "3"])
+    fused = ["--steps_per_dispatch", "3"]
+    assert t_serve(flags + fused + ["--device", "cpu"]) == {
+        k: list(map(int, v)) for k, v in j_serve(flags + fused).items()}
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         t_serve(flags)  # the default device is cuda
+
+
+@pytest.fixture(scope="module")
+def cli_dirs(compressed, tmp_path_factory):
+    """(artifact dir, dense HF checkpoint dir): the compressed tiny llama
+    and the dense model it was compressed from, each with the word-level
+    tokenizer."""
+    _, artifact = compressed
+    dense = str(tmp_path_factory.mktemp("dense"))
+    _hf("llama", seed=3).save_pretrained(dense)
+    for path in (artifact, dense):
+        _word_tokenizer().save_pretrained(path)
+    return artifact, dense
+
+
+def _cli_both(flags):
+    """The port's serve CLI on the CPU and the JAX serve CLI: equal results."""
+    from modegpt_tpu.serve import main as j_serve
+    from modegpt_tpu_torch.serve import main as t_serve
+
+    got = t_serve(flags + ["--device", "cpu"])
+    assert got == {k: list(map(int, v)) for k, v in j_serve(flags).items()}
+    return got
+
+
+PROMPT_FLAGS = ["--prompt", "tok1 tok2 tok3 tok4 tok5 tok6 tok7 tok8 tok9 tok10",
+                "--prompt", "tok7 tok7 tok8 tok7 tok7 tok8 tok7", "--prompt", "tok4 tok5",
+                "--prompt", "tok1 tok2 tok3 tok4 tok5 tok6 tok7 tok8 tok20 tok21 tok22",
+                "--max_new_tokens", "6", "--slots", "2", "--max_len", "40", "--prefill_bucket", "8"]
+SERVE_MODES = {
+    "batched": ["--prefill_exec", "batched"],
+    "batched_fused_int8": ["--prefill_exec", "batched", "--steps_per_dispatch", "4", "--kv_dtype", "int8"],
+    "prefix_cache": ["--prefix_cache"],
+    "prompt_lookup": ["--spec_decode", "prompt_lookup", "--n_draft", "3", "--lookup_ngram", "2"],
+}
+
+
+@pytest.mark.parametrize("mode", sorted(SERVE_MODES))
+def test_serve_cli_modes_match_jax(cli_dirs, mode):
+    """The serve CLI's execution-mode flags on an artifact: the JAX CLI's
+    completions."""
+    got = _cli_both(["--model", cli_dirs[0]] + PROMPT_FLAGS + SERVE_MODES[mode])
+    assert len(got) == 4
+
+
+def test_serve_cli_dense_checkpoint_draft_and_compress_ratio(cli_dirs, caplog):
+    """A dense HF checkpoint as --model, alone, with its compressed child
+    as --draft_model, and compressed in memory (--compress_ratio): the
+    JAX CLI's completions; the draft run logs its acceptance."""
+    artifact, dense = cli_dirs
+    base = ["--model", dense] + PROMPT_FLAGS
+    plain = _cli_both(base)
+    caplog.set_level("INFO")
+    assert _cli_both(base + ["--spec_decode", "draft", "--draft_model", artifact, "--n_draft", "3"]) == plain
+    assert any("speculative:" in r.getMessage() for r in caplog.records)
+    _cli_both(base + ["--compress_ratio", "0.3", "--compress_dataset", "synthetic", "--compress_calib_size", "4",
+                      "--compress_seq_len", "32"])
+    with pytest.raises(SystemExit, match="needs --draft_model"):
+        from modegpt_tpu_torch.serve import main as t_serve
+
+        t_serve(base + ["--spec_decode", "draft", "--device", "cpu"])
