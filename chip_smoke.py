@@ -9,6 +9,7 @@
     python3 chip_smoke.py --phases build,kernel,big
     python3 chip_smoke.py --phases build,kernel,main,quant
     python3 chip_smoke.py --phases build,kernel,main,serve,sched
+    python3 chip_smoke.py --phases build,kernel,main,server
 
 Phases, each printing one JSON line:
 
@@ -60,6 +61,27 @@ Phases, each printing one JSON line:
    dense target's; for h one padded step of the whole sequence into an
    int8 cache, the int8-KV model's own forward), K3 launches equal the layers times the dispatches
    counted around every step function, and "auto" resolved to K3.
+4c. server — the same model behind `modegpt_tpu_torch.server` (the
+   OpenAI-style HTTP server on 127.0.0.1, per-request sampling,
+   `ContinuousBatcher(slots=8, max_len=1024, prefill_bucket=128,
+   per_request_sampling=True, decode_attn="auto")`), with an offline
+   word-level tokenizer over all 128256 ids saved into the artifact: 16
+   concurrent clients (6 greedy with logprobs and top_logprobs=5, 3 of
+   them streaming; 4 seeded sampled at temperature 0.8, top_k 50, top_p
+   0.9, min_p 0.05; 2 with repetition, presence and frequency
+   penalties; a guided_choice and a guided_json; one with logit_bias and
+   min_tokens; a streaming chat completion with n=2). Greedy and
+   penalised tokens within 1e-3 of their row's max in the unrolled
+   forward under the same penalties and bias, logprobs and top-5 within
+   2e-3 of its log-softmax, every sampled token in the kept set
+   recomputed from it, seeded requests sent again alone equal, guided
+   outputs in their grammar, K3's launches equal to the layers times the
+   dispatches counted, a cancel that frees its slot, a 429 under
+   max_queue=0, /metrics counting the round, and `python -m
+   modegpt_tpu_torch.server` as a subprocess answering /health and a
+   completion. Then the decode step timed with the knob table all
+   greedy, with the filter path on and with top_logprobs, in turns, the
+   token choice alone, and the guide rows at the full vocabulary.
 
 5. quant  — quantised artifacts and int8 serving of the compressed model
    the main phase reloaded: int8, int4 and nf4 artifacts saved and
@@ -777,7 +799,11 @@ def _annotated(name: str, range_name: str):
         setattr(forward_mod, name, original)
 
 
-def phase_main(records: dict, profile: bool = False) -> dict:
+def phase_main(records: dict, profile: bool = False, keep_artifact: bool = False) -> dict:
+    """The compression job at Llama-3-8B widths. With `keep_artifact` the
+    artifact directory outlives the phase (the server phase serves it
+    through the CLI); its temporary root is returned as ``tmp`` for the
+    caller to remove."""
     import torch
 
     from modegpt_tpu_torch.calib.data import load_eval_tokens
@@ -797,7 +823,9 @@ def phase_main(records: dict, profile: bool = False) -> dict:
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
 
-    with tempfile.TemporaryDirectory(prefix="modegpt_smoke_") as tmp:
+    root = tempfile.mkdtemp(prefix="modegpt_smoke_") if keep_artifact else None
+    tmp_dir = contextlib.nullcontext(root) if keep_artifact else tempfile.TemporaryDirectory(prefix="modegpt_smoke_")
+    with tmp_dir as tmp:
         config = CompressionConfig(
             model="random-llama3-8b-widths", device="cuda",
             seq_len=2048, calib_size=8, calibs_batch_size=2, eval_batch_size=2,
@@ -891,7 +919,8 @@ def phase_main(records: dict, profile: bool = False) -> dict:
         reload_seconds=results["step_seconds"]["reload_artifact"],
         k1_per_eval=N_LAYERS * math.ceil(n_eval / config.eval_batch_size),
     )
-    return {"spec": spec2, "params": params2, "pm": pm, "job": job}
+    return {"spec": spec2, "params": params2, "pm": pm, "job": job, "tmp": root,
+            "artifact_dir": results["artifact_dir"] if keep_artifact else None}
 
 
 def _clone_state(state):
@@ -1344,6 +1373,560 @@ def phase_sched(records: dict, main_out: dict) -> dict:
     if problems:
         raise AssertionError("; ".join(problems))
     return summary
+
+
+# The server phase: the main phase's compressed model behind the port's
+# OpenAI-style HTTP server (per-request sampling, guided decoding,
+# logit_bias and min_tokens, logprobs, streaming, cancel, back-pressure).
+SERVER = dict(
+    greedy=6, streaming=3, sampled=4, penalised=2, top_logprobs=5, seed=100,
+    sampling=dict(temperature=0.8, top_k=50, top_p=0.9, min_p=0.05),
+    penalties=dict(repetition_penalty=1.2, presence_penalty=0.5, frequency_penalty=0.5),
+    choices=["yes", "no", "maybe"],
+    schema={"type": "object", "properties": {"ok": {"type": "boolean"}, "tag": {"enum": ["a", "b"]}}},
+    logit_bias={"1": 100.0, "500": 5.0}, min_tokens=5, cancel_tokens=400, gate_requests=8,
+    timing_turns=10, lp_tol=2e-3, cli_timeout=600,
+)
+SERVER_WORDS = ["true", "false", "null", "yes", "no", "maybe", "hello", "world", "the", "quick", "brown", "fox",
+                "lazy", "dog", "user", "system", "assistant"]
+
+
+def _full_vocab_tokenizer(vocab_size: int):
+    """An offline word-level tokenizer over all `vocab_size` ids: <unk> 0,
+    <eos> 1, every printable non-space ASCII character, a few words, then
+    fillers "w<i>". No token spells whitespace, so a guided JSON output is
+    compact and its length bounded."""
+    import string
+
+    from tokenizers import Tokenizer, models, pre_tokenizers
+    from transformers import PreTrainedTokenizerFast
+
+    vocab = {"<unk>": 0, "<eos>": 1}
+    for piece in list(string.printable[:94]) + SERVER_WORDS:
+        vocab.setdefault(piece, len(vocab))
+    i = 0
+    while len(vocab) < vocab_size:
+        vocab[f"w{i}"] = len(vocab)
+        i += 1
+    tok = Tokenizer(models.WordLevel(vocab, unk_token="<unk>"))
+    tok.pre_tokenizer = pre_tokenizers.Whitespace()
+    return PreTrainedTokenizerFast(tokenizer_object=tok, unk_token="<unk>", eos_token="<eos>", pad_token="<eos>")
+
+
+def _http(port: int, method: str, path: str, body=None, timeout: float = 600.0):
+    """One request to the server on 127.0.0.1: (status, body bytes, seconds
+    to the first SSE event or None)."""
+    import http.client
+
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=timeout)
+    t0 = time.perf_counter()
+    conn.request(method, path, body=None if body is None else json.dumps(body),
+                 headers={"Content-Type": "application/json"})
+    resp = conn.getresponse()
+    first, chunks = None, []
+    if resp.getheader("Content-Type", "").startswith("text/event-stream"):
+        while True:
+            line = resp.readline()
+            if not line:
+                break
+            if first is None and line.startswith(b"data: "):
+                first = time.perf_counter() - t0
+            chunks.append(line)
+        data = b"".join(chunks)
+    else:
+        data = resp.read()
+    conn.close()
+    return resp.status, data, first
+
+
+def _sse(data: bytes):
+    return [json.loads(line[len(b"data: "):]) for line in data.split(b"\n")
+            if line.startswith(b"data: ") and b"[DONE]" not in line]
+
+
+def _served_rows(cspec, cparams, seq, P: int, n: int):
+    """The unrolled forward's (K1 at T >= 128) float32 logits rows that
+    chose a sequence's n tokens after its P prompt tokens."""
+    import torch
+
+    from modegpt_tpu_torch.models.forward import forward
+
+    with torch.no_grad():
+        logits = forward(cspec, cparams, torch.tensor([seq], device="cuda"))[0]
+    return logits[0, P - 1 : P - 1 + n].float()
+
+
+def phase_server(records: dict, main_out: dict) -> dict:
+    """The main phase's compressed model (Llama-3-8B widths, 4 layers,
+    padded, f32) behind `modegpt_tpu_torch.server`: a
+    `ContinuousBatcher(slots=8, max_len=1024, prefill_bucket=128,
+    per_request_sampling=True, decode_attn="auto")` and the HTTP server
+    on 127.0.0.1, with an offline word-level tokenizer over all 128256 ids
+    saved into the artifact. 16 concurrent clients: 6 greedy with
+    logprobs and top_logprobs (3 streaming), 4 seeded sampled, 2
+    penalised, 2 guided (a choice, a JSON schema), 1 with logit_bias and
+    min_tokens, 1 streaming chat completion with n=2. Checks: greedy and
+    penalised tokens within 1e-3 of their row's max in the unrolled
+    forward (K1) under the same penalties and bias; logprobs and top-5 to
+    `lp_tol`; seeded requests sent again alone return the same tokens;
+    every sampled token is in the kept set recomputed from the forward;
+    guided outputs are in their grammar; K3's launches equal the layers
+    times the dispatches counted; a cancel frees its slot; a 429 under
+    max_queue=0 with the scheduler held; /metrics counts the round; the
+    server CLI answers /health and a completion. Then the decode-step
+    and sampling costs, in turns, and the guide-row times at full
+    vocabulary."""
+    import threading
+
+    import numpy as np
+    import torch
+
+    from modegpt_tpu_torch import server as srv_mod
+    from modegpt_tpu_torch.kernels import flash_attention as fa_mod
+    from modegpt_tpu_torch.kernels import ragged_decode as rd_mod
+    from modegpt_tpu_torch.models import guided, serving
+    from modegpt_tpu_torch.models.forward import FLASH_MIN_T
+    from modegpt_tpu_torch.models.generate import filter_rows
+
+    t_phase = time.perf_counter()
+    cspec, cparams, pm = main_out["spec"], main_out["params"], main_out["pm"]
+    V, new, cfg = cspec.vocab_size, SERVE["max_new_tokens"], SERVER
+    problems, timings = [], {}
+    t0 = time.perf_counter()
+    tok = _full_vocab_tokenizer(V)
+    timings["tokenizer_build_s"] = time.perf_counter() - t0
+    tok.save_pretrained(main_out["artifact_dir"])
+    eos = tok.eos_token_id
+    prompts, lens = _serve_prompts(V, SERVE["requests"])
+    prompts = [list(map(int, p)) for p in prompts]
+
+    # guide rows at the full vocabulary, timed before the server builds its own
+    t0 = time.perf_counter()
+    token_bytes = guided.token_bytes_from_tokenizer(tok)
+    timings["token_bytes_s"] = time.perf_counter() - t0
+    guide_rows = {}
+    for name, pattern in (("choice", guided.regex_for_choice(cfg["choices"])),
+                          ("json", guided.regex_for_json_schema(cfg["schema"]))):
+        t0 = time.perf_counter()
+        g = guided.compile_regex(pattern, token_bytes, eos, vocab_size=V)
+        t1 = time.perf_counter()
+        g.mask_for(g.start)
+        t2 = time.perf_counter()
+        g.mask_for(g.start)
+        t3 = time.perf_counter()
+        st = g.advance(g.start, int(np.nonzero(g.mask_for(g.start))[0][0]))
+        t4 = time.perf_counter()
+        g.mask_for(st)
+        guide_rows[name] = {"compile_ms": 1e3 * (t1 - t0), "first_visit_ms": 1e3 * (t2 - t1),
+                            "cached_ms": 1e3 * (t3 - t2), "second_state_first_visit_ms": 1e3 * (time.perf_counter() - t4)}
+
+    batcher = serving.ContinuousBatcher(pm, slots=SERVE["slots"], max_len=SERVE["max_len"],
+                                        prefill_bucket=SERVE["prefill_bucket"], per_request_sampling=True,
+                                        decode_attn="auto", eos_token_id=eos)
+    server = srv_mod.InferenceServer(batcher, tokenizer=tok, model_id="llama3-8b-widths-4l")
+    httpd = srv_mod.make_http_server(server, host="127.0.0.1", port=0, default_max_tokens=new)
+    threading.Thread(target=httpd.serve_forever, daemon=True).start()
+    port = httpd.server_address[1]
+
+    messages = [{"role": "system", "content": "the quick brown fox"}, {"role": "user", "content": "hello world"}]
+    g_end = cfg["greedy"]
+    s_end = g_end + cfg["sampled"]
+    p_end = s_end + cfg["penalised"]
+    bodies = []
+    for i in range(SERVE["requests"]):
+        body = {"prompt_ids": prompts[i], "max_tokens": new}
+        if i < g_end:
+            body.update(logprobs=True, top_logprobs=cfg["top_logprobs"], stream=i < cfg["streaming"])
+        elif i < s_end:
+            body.update(cfg["sampling"], seed=cfg["seed"] + i)
+        elif i < p_end:
+            body.update(cfg["penalties"])
+        elif i == p_end:
+            body.update(guided_choice=cfg["choices"])
+        elif i == p_end + 1:
+            body.update(guided_json=cfg["schema"])
+        elif i == p_end + 2:
+            body.update(logit_bias=cfg["logit_bias"], min_tokens=cfg["min_tokens"])
+        else:
+            body = {"messages": messages, "max_tokens": new, "n": 2, "stream": True}
+        bodies.append(body)
+
+    def run_round():
+        """Every client at once; (replies, wall seconds)."""
+        replies = [None] * len(bodies)
+
+        def client(i):
+            path = "/v1/chat/completions" if "messages" in bodies[i] else "/v1/completions"
+            replies[i] = (*_http(port, "POST", path, bodies[i]), time.perf_counter())
+
+        threads = [threading.Thread(target=client, args=(i,)) for i in range(len(bodies))]
+        t_round = time.perf_counter()
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        return replies, max(r[3] for r in replies) - t_round
+
+    try:
+        with _counted_dispatches() as (counts, seconds):
+            rd_mod.ragged_gqa_attend.launches = 0
+            replies, wall = run_round()  # cold: the server builds its guides and token byte table
+            cold = {k: (counts[k], seconds[k]) for k in ("prefill", "decode")}
+            warm_replies, warm_wall = run_round()  # the same requests again, the guides cached
+            warm = {k: (counts[k] - cold[k][0], seconds[k] - cold[k][1]) for k in ("prefill", "decode")}
+            # the seeded requests again, one at a time
+            repeats = {i: _http(port, "POST", "/v1/completions", bodies[i]) for i in range(g_end, s_end)}
+            # a cancel frees its slot: a long stream, cancelled after its first event
+            import http.client
+
+            conn = http.client.HTTPConnection("127.0.0.1", port, timeout=600)
+            conn.request("POST", "/v1/completions", body=json.dumps(
+                {"prompt_ids": prompts[0][:64], "max_tokens": cfg["cancel_tokens"], "stream": True}))
+            resp = conn.getresponse()
+            first = _sse(resp.readline() + resp.readline())
+            cancel_id = first[0]["id"] if first else "cmpl-?"
+            rid = int(cancel_id.split("-")[1]) if first else -1
+            status, data, _ = _http(port, "POST", "/v1/cancel", {"id": cancel_id})
+            rest = resp.read()
+            conn.close()
+            cancel = {"status": status, "reply": json.loads(data), "slot_freed": rid not in batcher.slot_req,
+                      "stream_done": b"[DONE]" in rest, "events_before_cancel": len(first),
+                      "tokens_after_cancel": sum(len(e["token_ids"]) for e in _sse(rest))}
+            # back-pressure: scheduler held, max_queue 0, every slot's worth queued
+            held, real_step = [True], batcher.step
+
+            def gated_step(generator=None):
+                if held[0]:
+                    time.sleep(0.001)
+                    return {}, False
+                return real_step(generator)
+
+            batcher.step, server.max_queue = gated_step, 0
+            queued = [threading.Thread(target=lambda i=i: _http(port, "POST", "/v1/completions",
+                                                                {"prompt_ids": prompts[i][:32], "max_tokens": 2}))
+                      for i in range(cfg["gate_requests"])]
+            for t in queued:
+                t.start()
+            deadline = time.time() + 60
+            while len(batcher.queue) < cfg["gate_requests"] and time.time() < deadline:
+                time.sleep(0.01)
+            over = _http(port, "POST", "/v1/completions", {"prompt_ids": prompts[0][:32], "max_tokens": 2})
+            held[0] = False
+            for t in queued:
+                t.join()
+            batcher.step, server.max_queue = real_step, None
+            torch.cuda.synchronize()
+            launches = rd_mod.ragged_gqa_attend.launches
+        status, metrics_text, _ = _http(port, "GET", "/metrics")
+        health = json.loads(_http(port, "GET", "/health")[1])
+    finally:
+        httpd.shutdown()
+        server.close()
+    metrics = dict(line.split() for line in metrics_text.decode().splitlines() if not line.startswith("#"))
+    records["ragged_gqa_attend"]["launches_by_phase"]["server"] = launches
+    if launches != counts["layer_dispatches"]:
+        problems.append(f"K3 launched {launches} times, expected {counts['layer_dispatches']}")
+    if batcher.decode_attn != "ragged":
+        problems.append(f"decode_attn auto resolved to {batcher.decode_attn}")
+
+    def parse(round_replies):
+        """(tokens, logprobs, top-logprobs (ids, lps) rows, seconds to
+        each stream's first event) of a round, keyed by request (a chat
+        choice by (request, index))."""
+        outs, lps, tops, ttfe = {}, {}, {}, []
+        vocab = tok.get_vocab()
+        for i, (status, data, first, _) in enumerate(round_replies):
+            if status != 200:
+                problems.append(f"request {i}: HTTP {status}: {data[:200]!r}")
+                continue
+            if bodies[i].get("stream"):
+                events = _sse(data)
+                ttfe.append(first)
+                if "messages" in bodies[i]:
+                    for c in (0, 1):
+                        outs[(i, c)] = [t for e in events if e["choices"][0]["index"] == c
+                                        for t in e["choices"][0]["token_ids"]]
+                else:
+                    outs[i] = [t for e in events for t in e["token_ids"]]
+                    lps[i] = [x for e in events for x in e.get("logprobs", [])]
+                    tops[i] = [row for e in events for row in e.get("top_logprobs", [])]
+            else:
+                choice = json.loads(data)["choices"][0]
+                outs[i] = choice["token_ids"]
+                if "logprobs" in choice:
+                    lps[i] = choice["logprobs"]["token_logprobs"]
+                    tops[i] = [(list(map(vocab.__getitem__, row)), list(row.values()))
+                               for row in choice["logprobs"]["top_logprobs"]]
+        return outs, lps, tops, ttfe
+
+    outs, lps, tops, ttfe = parse(replies)
+    warm_outs, _, _, warm_ttfe = parse(warm_replies)
+    n_tokens = sum(len(v) for v in outs.values())
+    if warm_outs != outs:
+        problems.append("the second round (every request greedy or seeded) returned other tokens")
+    from modegpt_tpu_torch.server import _chat_prompt_ids
+
+    chat_prompt = list(_chat_prompt_ids(tok, messages))
+    prompt_of = {k: (chat_prompt if isinstance(k, tuple) else prompts[k]) for k in outs}
+
+    k1_before, k1_expected = fa_mod.flash_attention.launches, 0
+    greedy_gap, lp_err, top_err, kept_ok, checked = 0.0, 0.0, 0.0, True, 0
+    for key, out in outs.items():
+        i = key[0] if isinstance(key, tuple) else key
+        P = len(prompt_of[key])
+        if not out:
+            problems.append(f"request {key}: no tokens")
+            continue
+        if i >= p_end and i < p_end + 2:
+            continue  # guided: checked against the grammar below
+        seq = prompt_of[key] + out
+        k1_expected += cspec.n_layers * (len(seq) >= FLASH_MIN_T)
+        rows = _served_rows(cspec, cparams, seq, P, len(out))
+        served = torch.tensor(out, device="cuda")
+        checked += len(out)
+        if g_end <= i < s_end:  # sampled: each token in the kept set of its row
+            knobs = np.asarray([[cfg["sampling"]["temperature"], cfg["sampling"]["top_k"], cfg["sampling"]["top_p"],
+                                 cfg["sampling"]["min_p"], 1.0]] * len(out), np.float32)
+            scaled = rows / cfg["sampling"]["temperature"]
+            final = filter_rows(scaled, knobs)
+            thr = final.masked_fill(~torch.isfinite(final), float("inf")).amin(dim=-1)
+            kept_ok &= bool((scaled.gather(1, served[:, None])[:, 0] >= thr - 1e-3).all())
+            continue
+        if s_end <= i < p_end:  # penalised: the penalties over prompt + generated so far
+            pres = torch.zeros((V,), dtype=torch.bool, device="cuda")
+            pres[torch.tensor(prompt_of[key], device="cuda")] = True
+            cnt = torch.zeros((V,), dtype=torch.float32, device="cuda")
+            pen = cfg["penalties"]
+            for j in range(len(out)):
+                r = rows[j]
+                r = torch.where(pres, torch.where(r > 0, r / pen["repetition_penalty"],
+                                                  r * pen["repetition_penalty"]), r)
+                rows[j] = r - pen["presence_penalty"] * (cnt > 0) - pen["frequency_penalty"] * cnt
+                pres[out[j]] = True
+                cnt[out[j]] += 1
+        if i == p_end + 2:  # logit_bias, and EOS held off for min_tokens
+            bias = torch.zeros((V,), device="cuda")
+            for t, v in cfg["logit_bias"].items():
+                bias[int(t)] = v
+            rows = rows + bias
+            rows[: cfg["min_tokens"], eos] = float("-inf")
+            if len(out) != cfg["min_tokens"] + 1 or out[-1] != eos:
+                problems.append(f"logit_bias/min_tokens: {len(out)} tokens, last {out[-1]}")
+        gap = rows.max(dim=-1).values - rows.gather(1, served[:, None])[:, 0]
+        greedy_gap = max(greedy_gap, float(gap.max()))
+        if i in lps:
+            logp = torch.log_softmax(rows, dim=-1)
+            lp_err = max(lp_err, float((logp.gather(1, served[:, None])[:, 0]
+                                        - torch.tensor(lps[i], device="cuda")).abs().max()))
+            ids = torch.tensor([row[0] for row in tops[i]], device="cuda")
+            vals = torch.tensor([row[1] for row in tops[i]], device="cuda")
+            top_err = max(top_err, float((logp.gather(1, ids) - vals).abs().max()),
+                          float((logp.topk(cfg["top_logprobs"], dim=-1).values - vals).abs().max()))
+        del rows
+    k1 = fa_mod.flash_attention.launches - k1_before
+    records["flash_attention"]["launches_by_phase"]["server"] = k1
+    if k1 != k1_expected:
+        problems.append(f"K1 launched {k1} times in the teacher-forcing forwards, expected {k1_expected}")
+    guided_out = {}
+    for name, i in (("choice", p_end), ("json", p_end + 1)):
+        out = outs.get(i, [])
+        text = b"".join(token_bytes[t] for t in out[:-1]).decode(errors="replace")
+        ok = bool(out) and out[-1] == eos
+        if name == "choice":
+            ok = ok and text in cfg["choices"]
+        else:
+            try:
+                obj = json.loads(text)
+                ok = ok and set(obj) == {"ok", "tag"} and isinstance(obj["ok"], bool) and obj["tag"] in ("a", "b")
+            except ValueError:
+                ok = False
+        guided_out[name] = {"text": text, "tokens": len(out), "ok": ok}
+        if not ok:
+            problems.append(f"guided {name}: {text!r} ({len(out)} tokens) is not in the grammar")
+    seeded_same = all(repeats[i][0] == 200 and json.loads(repeats[i][1])["choices"][0]["token_ids"] == outs.get(i)
+                      for i in range(g_end, s_end))
+    lengths_ok = all(len(outs.get(i, [])) == new for i in list(range(g_end)) + list(range(g_end, p_end))) and all(
+        len(outs.get((p_end + 3, c), [])) == new for c in (0, 1))
+    if not lengths_ok:
+        problems.append(f"a request did not return {new} tokens")
+    if greedy_gap > 1e-3:
+        problems.append(f"a greedy or penalised token is {greedy_gap} below its row's max")
+    if lp_err > cfg["lp_tol"] or top_err > cfg["lp_tol"]:
+        problems.append(f"logprobs differ from the forward's by {lp_err}, top-5 by {top_err}")
+    if not kept_ok:
+        problems.append("a sampled token lies outside the kept set of its row")
+    if not seeded_same:
+        problems.append("a seeded request sent again alone returned other tokens")
+    if outs.get((p_end + 3, 0)) != outs.get((p_end + 3, 1)):
+        problems.append("the chat completion's n=2 greedy choices differ")
+    if cancel["status"] != 200 or not cancel["reply"].get("cancelled") or not cancel["slot_freed"] \
+            or not cancel["stream_done"]:
+        problems.append(f"cancel: {cancel}")
+    if over[0] != 429:
+        problems.append(f"the request over max_queue=0 got HTTP {over[0]}, not 429")
+    round_requests = 2 * (len(bodies) + 1) + cfg["sampled"] + cfg["gate_requests"]  # chat counts n=2
+    if float(metrics.get("modegpt_requests_completed_total", -1)) < round_requests:
+        problems.append(f"/metrics counts {metrics.get('modegpt_requests_completed_total')} completed requests")
+    if float(metrics.get("modegpt_generated_tokens_total", -1)) < 2 * n_tokens:
+        problems.append(f"/metrics counts {metrics.get('modegpt_generated_tokens_total')} tokens, < {2 * n_tokens}")
+
+    step_costs = _sampling_costs(batcher, prompts, eos)
+    cli = _server_cli(main_out["artifact_dir"], prompts[0][:200], cspec, cparams)
+    if not cli.get("ok"):
+        problems.append(f"server CLI: {cli}")
+    line = {
+        "phase": "server", "card": card_line(), "slots": SERVE["slots"], "max_len": SERVE["max_len"],
+        "prefill_bucket": SERVE["prefill_bucket"], "decode_attn": batcher.decode_attn,
+        "clients": len(bodies), "sequences": len(outs), "prompt_lengths": lens.tolist(), "max_new_tokens": new,
+        "round_wall_seconds": wall, "http_generated_tokens_per_s": n_tokens / wall, "generated_tokens": n_tokens,
+        "mean_time_to_first_sse_event_s": sum(ttfe) / max(len(ttfe), 1), "time_to_first_sse_event_s": ttfe,
+        "cold_round_dispatches": {k: {"count": c, "mean_ms": 1e3 * t / max(c, 1)} for k, (c, t) in cold.items()},
+        "warm_round": {"wall_seconds": warm_wall, "http_generated_tokens_per_s": n_tokens / warm_wall,
+                       "mean_time_to_first_sse_event_s": sum(warm_ttfe) / max(len(warm_ttfe), 1),
+                       "dispatches": {k: {"count": c, "mean_ms": 1e3 * t / max(c, 1)} for k, (c, t) in warm.items()}},
+        "dispatches": {k: counts[k] for k in seconds if counts[k]},
+        "mean_dispatch_ms": {k: 1e3 * seconds[k] / counts[k] for k in seconds if counts[k]},
+        "launches": {"ragged_gqa_attend": launches, "flash_attention": k1},
+        "expected_launches": {"ragged_gqa_attend": counts["layer_dispatches"], "flash_attention": k1_expected},
+        "checked_tokens": checked, "max_gap_to_row_max": greedy_gap, "logprob_max_abs_err": lp_err,
+        "top_logprob_max_abs_err": top_err, "sampled_in_kept_set": kept_ok, "seeded_repeat_same": seeded_same,
+        "guided": guided_out, "cancel": cancel, "over_max_queue_status": over[0], "health": health,
+        "metrics": {k: float(v) for k, v in metrics.items()}, "guide_rows_v128256": guide_rows,
+        "host_setup": timings, "step_costs": step_costs, "cli": cli,
+        "seconds": time.perf_counter() - t_phase,
+    }
+    emit(line)
+    if problems:
+        raise AssertionError("; ".join(problems))
+    return line
+
+
+def _sampling_costs(batcher, prompts, eos) -> dict:
+    """Decode-step ms with 8 decode-active slots, the knob table all
+    greedy, with the filter path on (every row sampled with top-k, top-p,
+    min-p and a seed) and greedy with top_logprobs, in turns; and the
+    token choice alone (`serving._pick`) on one step's [8, V] logits for
+    each. K3 launches made here are measurements, taken back off its
+    counter."""
+    import numpy as np
+    import torch
+
+    from modegpt_tpu_torch.kernels import ragged_decode as rd_mod
+    from modegpt_tpu_torch.models import serving
+    from modegpt_tpu_torch.models.generate import _inverse_cdf, filter_rows, penalize_rows, uniform_rows
+    from modegpt_tpu_torch.models.padded import _model_step_padded, upload
+
+    saved = rd_mod.ragged_gqa_attend.launches
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    for i in range(batcher.slots):
+        batcher.submit(prompts[i][:256], max_new_tokens=400, temperature=0.0)
+    while len(batcher._decode_rows()) < batcher.slots:
+        batcher.step(gen)
+    state, pm, dev = batcher.state, batcher.pm, batcher.device
+    active = np.ones((batcher.slots,), bool)
+    off = np.tile(batcher._samp_off, (batcher.slots, 1))
+    hot = off.copy()
+    hot[:, :4] = [SERVER["sampling"][k] for k in ("temperature", "top_k", "top_p", "min_p")]
+    seeds = torch.arange(batcher.slots, device=dev, dtype=torch.int64) + 7
+    variants = {
+        "all_greedy": serving.Sampling(samp=off, samp_dev=upload(off, dev), presence=batcher.presence,
+                                       gen_counts=batcher.gen_counts),
+        "filters_seeded": serving.Sampling(samp=hot, samp_dev=upload(hot, dev), presence=batcher.presence,
+                                           gen_counts=batcher.gen_counts, seeds=seeds,
+                                           counts=np.zeros((batcher.slots,), np.int64)),
+        "top_logprobs": serving.Sampling(samp=off, samp_dev=upload(off, dev), presence=batcher.presence,
+                                         gen_counts=batcher.gen_counts, want_lp=True, top_lp=True),
+    }
+    step_ms = {k: [] for k in variants}
+    for _ in range(SERVER["timing_turns"]):
+        for name, smp in variants.items():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            serving._one_decode_step(pm, state, active, 0.0, None, gen, decode_attn="ragged", sampling=smp)
+            if smp.lp is not None:
+                smp.lp.cpu()
+            torch.cuda.synchronize()
+            step_ms[name].append(1e3 * (time.perf_counter() - t0))
+    with torch.no_grad():
+        logits = _model_step_padded(pm.spec, pm.layers, pm.other, pm.q_hd_true, state.last_token[:, None],
+                                    state.cache_k, state.cache_v, state.lengths, cache_scales=state.scales,
+                                    decode_attn="ragged")[0][:, -1, :]
+    pick_ms = {}
+    zeros = torch.zeros((batcher.slots,), dtype=torch.int64, device=dev)
+    for name, smp in variants.items():
+        pick_ms[name] = cuda_ms(lambda smp=smp: serving._pick(smp, logits, gen, counts=zeros), iters=20)
+    # the filter path's parts, on the same logits
+    hot_dev = variants["filters_seeded"].samp_dev
+    parts_ms = {
+        "penalize_rows": cuda_ms(lambda: penalize_rows(logits, hot, batcher.presence, batcher.gen_counts,
+                                                       hot_dev), iters=20),
+        "filter_rows": cuda_ms(lambda: filter_rows(logits / 0.8, hot, hot_dev), iters=20),
+        "sort_only": cuda_ms(lambda: torch.sort(logits, dim=-1, descending=True), iters=20),
+        "inverse_cdf_draw": cuda_ms(lambda: _inverse_cdf(logits, uniform_rows(seeds, zeros)), iters=20),
+        "argmax": cuda_ms(lambda: torch.argmax(logits, dim=-1), iters=20),
+        "log_softmax_topk": cuda_ms(lambda: torch.topk(torch.log_softmax(logits, dim=-1), 20, dim=-1), iters=20),
+    }
+    for s in range(batcher.slots):
+        batcher.cancel(batcher.slot_req[s])
+    rd_mod.ragged_gqa_attend.launches = saved
+    return {"decode_step_ms_median": {k: float(np.median(v)) for k, v in step_ms.items()},
+            "decode_step_ms": step_ms, "pick_ms": pick_ms, "filter_path_parts_ms": parts_ms, "rows": batcher.slots,
+            "vocab": int(logits.shape[-1])}
+
+
+def _server_cli(artifact_dir: str, prompt, cspec, cparams) -> dict:
+    """`python -m modegpt_tpu_torch.server --model <artifact>` on the card,
+    as a subprocess on a free port: /health and one greedy completion,
+    its tokens within 1e-3 of their row's max in the unrolled forward;
+    then SIGINT, and kill if it does not stop."""
+    import signal
+    import socket
+
+    import torch
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = {**os.environ, "PYTHONPATH": root + os.pathsep + os.environ.get("PYTHONPATH", "")}
+    t0 = time.perf_counter()
+    proc = subprocess.Popen([sys.executable, "-m", "modegpt_tpu_torch.server", "--model", artifact_dir,
+                             "--port", str(port), "--slots", "2", "--max_len", "1024"],
+                            cwd=root, env=env, stdout=subprocess.DEVNULL, stderr=subprocess.PIPE)
+    out = {"port": port}
+    try:
+        while True:
+            if proc.poll() is not None:
+                out["error"] = proc.stderr.read().decode(errors="replace")[-1500:]
+                return out
+            if time.perf_counter() - t0 > SERVER["cli_timeout"]:
+                out["error"] = "no /health answer"
+                return out
+            try:
+                status, data, _ = _http(port, "GET", "/health", timeout=10)
+                break
+            except OSError:
+                time.sleep(0.5)
+        out["health"], out["ready_seconds"] = json.loads(data), time.perf_counter() - t0
+        t1 = time.perf_counter()
+        status, data, _ = _http(port, "POST", "/v1/completions", {"prompt_ids": prompt, "max_tokens": 8})
+        out["completion_status"], out["completion_seconds"] = status, time.perf_counter() - t1
+        if status == 200:
+            toks = json.loads(data)["choices"][0]["token_ids"]
+            rows = _served_rows(cspec, cparams, list(prompt) + toks, len(prompt), len(toks))
+            served = torch.tensor(toks, device="cuda")
+            out["tokens"] = len(toks)
+            out["max_gap_to_row_max"] = float((rows.max(dim=-1).values - rows.gather(1, served[:, None])[:, 0]).max())
+            out["ok"] = status == 200 and out["health"].get("status") == "ok" and len(toks) == 8 \
+                and out["max_gap_to_row_max"] <= 1e-3
+        return out
+    finally:
+        proc.send_signal(signal.SIGINT)
+        try:
+            proc.wait(timeout=60)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait()
 
 
 DEQUANT_RANGE = "dequantised weight copy (forward._dequant)"
@@ -2578,7 +3161,7 @@ def card_line() -> str:
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--phases", default="build,kernel,main,serve,sched,quant,moe,long,archs,big")
+    ap.add_argument("--phases", default="build,kernel,main,serve,sched,server,quant,moe,long,archs,big")
     ap.add_argument("--profile", action="store_true",
                     help="trace the main job, the serve round, the quant phase's int8 rounds, the moe "
                     "job, the long job and the archs job with torch.profiler; print their device busy time")
@@ -2607,19 +3190,27 @@ def main(argv=None) -> int:
         emit(phase_build())
     if "kernel" in phases:
         phase_kernel(records)
-    if {"main", "serve", "sched", "quant", "moe", "long", "archs", "big"} & set(phases) and "kernel" not in phases:
-        raise SystemExit("chip_smoke: the main, serve, sched, quant, moe, long, archs and big phases need the kernel "
-                         "phase's records")
-    if {"main", "serve", "sched", "quant"} & set(phases):
-        main_out = phase_main(records, args.profile)
-        if "serve" in phases:
-            phase_serve(records, main_out, args.profile)
-        if "sched" in phases:
-            torch.cuda.empty_cache()
-            phase_sched(records, main_out)
-        if "quant" in phases:
-            torch.cuda.empty_cache()
-            phase_quant(records, main_out, args.profile)
+    if {"main", "serve", "sched", "server", "quant", "moe", "long", "archs", "big"} & set(phases) \
+            and "kernel" not in phases:
+        raise SystemExit("chip_smoke: the main, serve, sched, server, quant, moe, long, archs and big phases need "
+                         "the kernel phase's records")
+    if {"main", "serve", "sched", "server", "quant"} & set(phases):
+        main_out = phase_main(records, args.profile, keep_artifact="server" in phases)
+        try:
+            if "serve" in phases:
+                phase_serve(records, main_out, args.profile)
+            if "sched" in phases:
+                torch.cuda.empty_cache()
+                phase_sched(records, main_out)
+            if "server" in phases:
+                torch.cuda.empty_cache()
+                phase_server(records, main_out)
+            if "quant" in phases:
+                torch.cuda.empty_cache()
+                phase_quant(records, main_out, args.profile)
+        finally:
+            if main_out["tmp"]:
+                shutil.rmtree(main_out["tmp"], ignore_errors=True)
         del main_out
     if "moe" in phases:
         torch.cuda.empty_cache()

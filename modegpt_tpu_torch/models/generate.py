@@ -15,23 +15,34 @@ HF `generate` over its compressed attention, LlamaRebuild.py:343-348):
 * `_sample`: greedy argmax, or temperature sampling with HF's filter
   order temperature -> top-k -> top-p (nucleus) -> min-p. The knobs are
   plain Python values fixed per call, as the JAX function's static
-  arguments are.
+  arguments are;
+* `sample_rows`: per-row sampling for serving, each row with its own
+  knobs from a ``[S, 5]`` or ``[S, 7]`` table (temperature, top_k,
+  top_p, min_p, repetition penalty[, presence and frequency penalty]),
+  in `_sample`'s order with the JAX function's tie-inclusive
+  thresholds. Where the JAX function branches on the traced table
+  (``lax.cond``), the port decides on the host copy of the table, so an
+  all-greedy step skips the sort without asking the device.
 
 The JAX ``generate_scan`` (the whole decode as one ``lax.scan``) has no
 counterpart: the Python loop of `generate` is its torch form.
-``sample_rows`` (per-request sampling in serving) is not ported yet.
 
 Random draws come from an explicit ``torch.Generator`` where the JAX
 function takes a PRNG key. The two generators give different numbers
 from the same seed, so a sampled stream here differs from the JAX
 package's by construction; greedy decoding (temperature 0) is exact and
-identical in both.
+identical in both. `sample_rows` draws each row by inverse CDF, with
+one uniform from a counter-based hash of (row seed, draw index) in
+int64 torch ops: a row's draw depends on its seed, its draw index and
+its logits only, never on its batch mates or on how steps are grouped
+into dispatches, and needs no host round trip.
 """
 
 from __future__ import annotations
 
 from typing import Dict, List, NamedTuple, Optional
 
+import numpy as np
 import torch
 
 from modegpt_tpu_torch.models.forward import (
@@ -57,6 +68,9 @@ __all__ = [
     "decode_step",
     "apply_repetition_penalty",
     "generate",
+    "penalize_rows",
+    "filter_rows",
+    "sample_rows",
     "_sample",
 ]
 
@@ -258,3 +272,151 @@ def _sample(
     probs = torch.softmax(logits, dim=-1)
     flat = probs.reshape(-1, probs.shape[-1])
     return torch.multinomial(flat, 1, generator=generator).reshape(probs.shape[:-1])
+
+
+def _knob_columns(samp: np.ndarray, samp_dev: Optional[torch.Tensor], device) -> torch.Tensor:
+    """The knob table on the logits' device (``samp_dev`` when the caller
+    keeps it resident)."""
+    if samp_dev is not None:
+        return samp_dev
+    return torch.as_tensor(np.asarray(samp, np.float32), device=device)
+
+
+def penalize_rows(
+    logits: torch.Tensor,
+    samp: np.ndarray,
+    presence: Optional[torch.Tensor] = None,
+    gen_counts: Optional[torch.Tensor] = None,
+    samp_dev: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """[S, V] float32 logits after each row's penalties: the CTRL-style
+    repetition penalty (column 4) over ``presence`` [S, V], then, with
+    the 7-column table and ``gen_counts`` [S, V] (generated tokens only),
+    the additive OpenAI penalties ``- presence_penalty * (count > 0) -
+    frequency_penalty * count``. A pass runs only when some row of the
+    host table ``samp`` enables it (the JAX function's ``lax.cond``)."""
+    samp = np.asarray(samp, np.float32)
+    x = logits.to(torch.float32)
+    knobs = None
+    if presence is not None and (samp[:, 4] != 1.0).any():
+        knobs = _knob_columns(samp, samp_dev, x.device)
+        x = apply_repetition_penalty(x, presence, knobs[:, 4:5])
+    if samp.shape[1] >= 7 and gen_counts is not None and ((samp[:, 5] != 0.0) | (samp[:, 6] != 0.0)).any():
+        knobs = _knob_columns(samp, samp_dev, x.device) if knobs is None else knobs
+        counts = gen_counts.to(torch.float32)
+        x = x - knobs[:, 5:6] * (counts > 0.0) - knobs[:, 6:7] * counts
+    return x
+
+
+def filter_rows(scaled: torch.Tensor, samp: np.ndarray, samp_dev: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Each row's top-k (column 1), top-p (2) and min-p (3) filters over
+    temperature-scaled [S, V] float32 logits: the tokens a filter drops
+    become -inf. All three keep a prefix of the descending sort, so one
+    sort serves them; every filter keeps rank 0 (HF min_tokens_to_keep=1),
+    thresholds are tie-inclusive, and the off-sentinels (top_k <= 0,
+    top_p >= 1, min_p <= 0) leave a row as it is. Without any filter on
+    in the host table ``samp`` the sort is skipped."""
+    samp = np.asarray(samp, np.float32)
+    if not ((samp[:, 1] > 0) | (samp[:, 2] < 1.0) | (samp[:, 3] > 0.0)).any():
+        return scaled
+    knobs = _knob_columns(samp, samp_dev, scaled.device)
+    top_k, top_p, min_p = knobs[:, 1:2], knobs[:, 2:3], knobs[:, 3:4]
+    V = scaled.shape[-1]
+    sorted_desc = torch.sort(scaled, dim=-1, descending=True).values
+    rank = torch.arange(V, device=scaled.device, dtype=torch.float32)[None, :]
+    first = rank == 0
+    neg_inf = torch.tensor(float("-inf"), device=scaled.device)
+    valid = torch.where(top_k > 0, (rank < top_k) | first, True)
+    probs = torch.softmax(torch.where(valid, sorted_desc, neg_inf), dim=-1)
+    cum = torch.cumsum(probs, dim=-1)
+    valid = valid & torch.where(top_p < 1.0, ((cum - probs) < top_p) | first, True)
+    probs = torch.softmax(torch.where(valid, sorted_desc, neg_inf), dim=-1)
+    # sorted descending: probs[:, :1] is each row's largest probability
+    valid = valid & torch.where(min_p > 0.0, (probs >= min_p * probs[:, :1]) | first, True)
+    thr = torch.amin(sorted_desc.masked_fill(~valid, float("inf")), dim=-1, keepdim=True)
+    return scaled.masked_fill(scaled < thr, float("-inf"))
+
+
+_M32 = 0xFFFFFFFF
+
+
+def _mul32(x: torch.Tensor, m: int) -> torch.Tensor:
+    """(x * m) mod 2**32 for int64 x in [0, 2**32): the 32-bit product in
+    16-bit halves, so no int64 product overflows (CPU and CUDA agree)."""
+    lo, hi = m & 0xFFFF, m >> 16
+    return (x * lo + (((x * hi) & 0xFFFF) << 16)) & _M32
+
+
+def _mix32(x: torch.Tensor) -> torch.Tensor:
+    """A 32-bit integer finaliser (the "lowbias32" constants) on int64
+    tensors holding values in [0, 2**32)."""
+    x = x ^ (x >> 16)
+    x = _mul32(x, 0x7FEB352D)
+    x = x ^ (x >> 15)
+    x = _mul32(x, 0x846CA68B)
+    return x ^ (x >> 16)
+
+
+def uniform_rows(seeds: torch.Tensor, counts: torch.Tensor) -> torch.Tensor:
+    """[S] float64 uniforms in (0, 1), a pure function of each row's
+    (seed, draw index): 52 bits from a counter-based hash. seeds and
+    counts are int64 [S] on the device; seeds are taken modulo 2**64 in
+    two 32-bit halves."""
+    lo, hi = seeds & _M32, (seeds >> 32) & _M32
+    key = _mix32(_mix32(_mix32(lo) ^ hi) ^ (counts & _M32))
+    top, low = _mix32(key ^ 0x68E31DA4) >> 6, _mix32(key ^ 0xB5297A4D) >> 6
+    return ((top * (1 << 26) + low).to(torch.float64) + 0.5) * (1.0 / (1 << 52))
+
+
+def _inverse_cdf(final: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
+    """The token of each row of ``final`` [S, V] (logits, -inf where
+    filtered) whose cumulative probability first reaches ``u`` [S] of the
+    row's total (float64 sums), so that token i is drawn with its softmax
+    probability and a filtered token never."""
+    cum = torch.cumsum(torch.softmax(final, dim=-1), dim=-1, dtype=torch.float64)
+    idx = torch.searchsorted(cum, (u * cum[:, -1])[:, None])[:, 0]
+    return torch.clamp(idx, max=final.shape[-1] - 1)
+
+
+def sample_rows(
+    logits: torch.Tensor,
+    samp: np.ndarray,
+    generator: Optional[torch.Generator] = None,
+    presence: Optional[torch.Tensor] = None,
+    gen_counts: Optional[torch.Tensor] = None,
+    seeds: Optional[torch.Tensor] = None,
+    counts: Optional[torch.Tensor] = None,
+    samp_dev: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """Per-row next tokens [S] (int64) from [S, V] logits, each row under
+    its own knobs (JAX ``generate.sample_rows``): ``samp`` is the host
+    knob table [S, 5] or [S, 7] float32 (temperature, top_k, top_p,
+    min_p, repetition_penalty[, presence_penalty, frequency_penalty]);
+    ``samp_dev`` its copy on the device when the caller keeps one.
+
+    Order and semantics are the JAX function's: penalties
+    (`penalize_rows`), then temperature, then the filters
+    (`filter_rows`). temperature 0 -> greedy argmax of the penalised
+    logits (ties to the lowest id). Sampled rows draw from the softmax of
+    their filtered logits by inverse CDF, at a uniform that is a function
+    of ``seeds`` [S] and ``counts`` [S] (int64 on the device: each row's
+    stream seed and draw index, `uniform_rows`).
+    Without ``seeds`` each call draws fresh row seeds from
+    ``generator``. Every decision that needs the table (any penalty, any
+    filter, any sampled row) is taken on the host copy."""
+    samp = np.asarray(samp, np.float32)
+    x = penalize_rows(logits, samp, presence, gen_counts, samp_dev)
+    greedy = torch.argmax(x, dim=-1)
+    sampled_rows = samp[:, 0] != 0.0
+    if not sampled_rows.any():
+        return greedy
+    knobs = _knob_columns(samp, samp_dev, x.device)
+    temp = knobs[:, 0:1]
+    final = filter_rows(x / torch.clamp(temp, min=1e-6), samp, knobs)
+    S = x.shape[0]
+    if seeds is None:
+        seeds = torch.randint(0, 1 << 62, (S,), generator=generator, device=x.device)
+    if counts is None:
+        counts = torch.zeros((S,), dtype=torch.int64, device=x.device)
+    sampled = _inverse_cdf(final, uniform_rows(seeds, counts))
+    return torch.where(temp[:, 0] == 0.0, greedy, sampled)

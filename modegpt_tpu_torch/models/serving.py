@@ -58,22 +58,40 @@ activations, int8 x int8 -> int32 products), while decode keeps the
 weight-only model; a draft model takes its own view. On an unquantised
 model the view changes nothing.
 
+Sampling (JAX ``serving.py:847-907``): greedy, or the constructor's
+static knobs (temperature, top_p, min_p and a CTRL-style
+``repetition_penalty``), or, with ``per_request_sampling``, each
+request's own knobs in a [slots, 7] table (`generate.sample_rows`).
+Every dispatch reads a `Sampling`: the knobs, the device-resident pools
+(``presence`` [slots, V] bool over prompt and generated tokens,
+``gen_counts`` [slots, V] int32 over generated tokens, both updated on
+the card by every dispatch that commits a token, fused steps included),
+per-row stream seeds, the guided ``allow`` rows (`models.guided`) and
+the ``logit_bias``/``min_tokens`` bias rows. The host decides what a
+dispatch needs from its own tables (which slots penalise, filter, are
+seeded, guided or biased, ask for logprobs), so no decision waits for the
+card; the host tables reach it through `models.padded.upload` and stay
+resident until a row changes. Logprobs are the raw model's, in float32,
+computed only in dispatches where some slot asks (`TOP_LP_K` = 20
+alternatives for ``top_logprobs``). A seeded request draws row by row
+from a hash of (seed, draw index), so its stream is the same alone, in
+any batch, fused or not, prefilled per slot or batched.
+
 Still raising NotImplementedError, with this module named: the
-constructor's ``per_request_sampling``, ``repetition_penalty`` and
-``mesh``; `submit`'s per-request sampling knobs (temperature, top_k,
-top_p, min_p, repetition, presence and frequency penalties), logprobs,
-top_logprobs, seed, guide, logit_bias and min_tokens.
+constructor's ``mesh`` (tensor-parallel serving comes with
+``parallel``).
 """
 
 from __future__ import annotations
 
+from dataclasses import dataclass, replace
 from typing import Dict, List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
 from numpy.lib.stride_tricks import sliding_window_view
 
-from modegpt_tpu_torch.models.generate import _sample
+from modegpt_tpu_torch.models.generate import _sample, apply_repetition_penalty, sample_rows
 from modegpt_tpu_torch.models.padded import PaddedModel, _model_step_padded, step_indices, upload
 from modegpt_tpu_torch.models.quantize import with_act_quant
 
@@ -84,6 +102,8 @@ __all__ = [
     "prefill_slot",
     "decode_slots",
     "lookup_draft",
+    "Sampling",
+    "TOP_LP_K",
     "ContinuousBatcher",
 ]
 
@@ -160,17 +180,131 @@ def _step(pm: PaddedModel, state: ServeState, tokens: torch.Tensor, length, **kw
                               state.cache_v, length, cache_scales=state.scales, **kw)[0]
 
 
+# device-side top-logprobs width: OpenAI caps top_logprobs at 20, and the
+# host slices each request's k out of the fetched rows (JAX serving.py:181)
+TOP_LP_K = 20
+
+
+def _chosen_logprob(raw_logits: torch.Tensor, nxt: torch.Tensor) -> torch.Tensor:
+    """Log-probability of the chosen tokens ``nxt`` [...] under the raw
+    model distribution ``raw_logits`` [..., V] (before the guide's mask,
+    the bias, penalties, temperature and filters: what the model
+    believed, not what the sampler drew from), in float32."""
+    lp = torch.log_softmax(raw_logits.to(torch.float32), dim=-1)
+    return lp.gather(-1, nxt[..., None])[..., 0]
+
+
+def _top_logprobs(raw_logits: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The top-`TOP_LP_K` raw-model (ids [..., K] int64, logprobs [..., K]
+    float32) at each position (OpenAI ``top_logprobs``)."""
+    k = min(TOP_LP_K, raw_logits.shape[-1])
+    lps, ids = torch.topk(torch.log_softmax(raw_logits.to(torch.float32), dim=-1), k, dim=-1)
+    return ids, lps
+
+
+@dataclass
+class Sampling:
+    """What a dispatch's token choice reads besides the logits, and the
+    raw-model logprobs it returns besides the tokens (the JAX step
+    programs' sampling operands and their lp / tids / tlps outputs).
+
+    * static knobs (the constructor's): ``temperature``, ``top_k``,
+      ``top_p``, ``min_p``, ``rep_penalty`` (over ``presence``);
+    * per-request mode: ``samp``, the host knob table [slots, 7]
+      (`generate.sample_rows`), ``samp_dev`` its resident copy;
+      ``seeds`` [slots] int64 on the device (each row's stream seed) and
+      ``counts`` [slots] on the host (each row's tokens generated so far,
+      its draw index), or None to draw fresh row seeds a dispatch;
+    * pools on the device, updated by every dispatch that commits:
+      ``presence`` [slots, V] bool, ``gen_counts`` [slots, V] int32;
+    * ``allow`` [slots, V] bool (guided rows; [slots, k+1, V] for a
+      verify): disallowed tokens become -inf; ``bias`` [slots, V]
+      float32 (logit_bias, -inf EOS under min_tokens) is added;
+    * ``want_lp`` and ``top_lp``: the chosen tokens' logprobs land in
+      ``lp``, the top-`TOP_LP_K` alternatives in ``tids``/``tlps``
+      (device tensors; a fused dispatch stacks them over its steps)."""
+
+    temperature: float = 0.0
+    top_k: Optional[int] = None
+    top_p: Optional[float] = None
+    min_p: Optional[float] = None
+    rep_penalty: Optional[float] = None
+    presence: Optional[torch.Tensor] = None
+    gen_counts: Optional[torch.Tensor] = None
+    samp: Optional[np.ndarray] = None
+    samp_dev: Optional[torch.Tensor] = None
+    seeds: Optional[torch.Tensor] = None
+    counts: Optional[np.ndarray] = None
+    allow: Optional[torch.Tensor] = None
+    bias: Optional[torch.Tensor] = None
+    want_lp: bool = False
+    top_lp: bool = False
+    lp: Optional[torch.Tensor] = None
+    tids: Optional[torch.Tensor] = None
+    tlps: Optional[torch.Tensor] = None
+
+    def rows(self, view: slice) -> "Sampling":
+        """The same sampling restricted to the slots of `view` (the pools
+        as views, so their updates land in the full tables)."""
+        def cut(a):
+            return None if a is None else a[view]
+
+        return replace(self, presence=cut(self.presence), gen_counts=cut(self.gen_counts), samp=cut(self.samp),
+                       samp_dev=cut(self.samp_dev), seeds=cut(self.seeds), counts=cut(self.counts),
+                       allow=cut(self.allow), bias=cut(self.bias), lp=None, tids=None, tlps=None)
+
+
+def _pick(smp: Sampling, logits: torch.Tensor, generator: Optional[torch.Generator],
+          commit: Optional[torch.Tensor] = None, counts: Optional[torch.Tensor] = None):
+    """The next token of each row of ``logits`` [B, V] under `smp`: the
+    guide's mask and the bias, then `sample_rows` (per-request mode) or
+    the static penalty and `_sample`. Rows with ``commit`` [B] (every row
+    when None) enter the penalty pools on the device. ``counts`` [B]
+    int64 on the device: each seeded row's draw index. Returns (tokens
+    [B], lp, tids, tlps), the last three None unless asked for."""
+    x = logits
+    if smp.allow is not None:
+        x = x.masked_fill(~smp.allow, float("-inf"))
+    if smp.bias is not None:
+        x = x + smp.bias.to(x.dtype)
+    if smp.samp is not None:
+        nxt = sample_rows(x, smp.samp, generator, smp.presence, smp.gen_counts,
+                          smp.seeds, counts if smp.seeds is not None else None, smp.samp_dev)
+    else:
+        if smp.rep_penalty is not None:
+            x = apply_repetition_penalty(x, smp.presence, smp.rep_penalty)
+        nxt = _sample(x, generator, smp.temperature, smp.top_k, top_p=smp.top_p, min_p=smp.min_p)
+    lp = _chosen_logprob(logits, nxt) if smp.want_lp else None
+    tids, tlps = _top_logprobs(logits) if smp.top_lp else (None, None)
+    rows = torch.arange(nxt.shape[0], device=nxt.device)
+    if smp.presence is not None:
+        mark = torch.ones_like(nxt, dtype=torch.bool) if commit is None else commit
+        smp.presence[rows, nxt] = smp.presence[rows, nxt] | mark
+    if smp.gen_counts is not None:
+        add = torch.ones_like(nxt, dtype=torch.int32) if commit is None else commit.to(torch.int32)
+        smp.gen_counts.index_put_((rows, nxt), add, accumulate=True)
+    return nxt, lp, tids, tlps
+
+
+def _counts_on(smp: Sampling, device) -> Optional[torch.Tensor]:
+    """The seeded rows' draw indices on the device (None when unseeded)."""
+    if smp.seeds is None:
+        return None
+    return upload(np.asarray(smp.counts, np.int64), device)
+
+
 def _prefill_chunk(pm: PaddedModel, state: ServeState, slot: int, piece: np.ndarray, pos0: int,
                    bucket: int, commit: bool, temperature: float,
                    generator: Optional[torch.Generator], top_p=None, min_p=None,
                    decode_attn: str = "xla", moe: str = "dense",
-                   moe_capacity: float = 2.0) -> Optional[int]:
+                   moe_capacity: float = 2.0, sampling: Optional[Sampling] = None) -> Optional[int]:
     """Run one prompt chunk (`piece`, at most `bucket` tokens, right-padded
     to `bucket`) through `slot` at offset pos0. The pools are read and
     written through the slot's views, never copied. When `commit` is set
-    (the prompt's last chunk) the next token is sampled from the last
-    real position and returned; else None. The padded tail claims no
-    dispatch-MoE expert capacity."""
+    (the prompt's last chunk) the next token is chosen from the last
+    real position under the slot's row of `sampling` (the static knobs
+    when None; a seeded row takes draw 0) and returned; else None. The
+    padded tail claims no dispatch-MoE expert capacity."""
     dev = _device(pm)
     real_len = piece.shape[0]
     chunk = np.zeros((1, bucket), np.int64)
@@ -189,16 +323,19 @@ def _prefill_chunk(pm: PaddedModel, state: ServeState, slot: int, piece: np.ndar
     state.lengths[slot] = pos0 + real_len
     if not commit:
         return None
-    nxt = _sample(logits[0, 0], generator, temperature, None, top_p=top_p, min_p=min_p)
-    state.last_token[slot] = nxt
-    return int(nxt)
+    smp = sampling if sampling is not None else Sampling(temperature=temperature, top_p=top_p, min_p=min_p)
+    row = smp.rows(view)
+    counts = None if row.seeds is None else torch.zeros((1,), dtype=torch.int64, device=dev)
+    nxt, smp.lp, smp.tids, smp.tlps = _pick(row, logits[:, 0], generator, counts=counts)
+    state.last_token[view] = nxt
+    return int(nxt[0])
 
 
 def _prefill_slots(pm: PaddedModel, state: ServeState, chunks: np.ndarray, pos0: np.ndarray,
                    real_len: np.ndarray, commit: np.ndarray, prefill_mask: np.ndarray,
                    temperature: float, generator: Optional[torch.Generator], top_p=None, min_p=None,
                    decode_attn: str = "xla", moe: str = "dense",
-                   moe_capacity: float = 2.0) -> torch.Tensor:
+                   moe_capacity: float = 2.0, sampling: Optional[Sampling] = None) -> torch.Tensor:
     """One chunk for every row of the slot table in a single dispatch
     (JAX ``_prefill_slots_jit``): chunks [slots, bucket] at per-row
     offsets pos0, ``prefill_mask`` selecting the rows that run a chunk.
@@ -206,8 +343,9 @@ def _prefill_slots(pm: PaddedModel, state: ServeState, chunks: np.ndarray, pos0:
     its last committed token at pos0 = its length, with commit set.
     The other rows sit at their length; their writes land at or past it
     (dropped past the pool) and are rewritten before anything attends
-    them. Rows with ``commit`` sample their next token from their last
-    real position. Returns the sampled tokens [slots] on the device
+    them. Rows with ``commit`` choose their next token from their last
+    real position under `sampling` (the static knobs when None) and
+    enter its pools. Returns the tokens [slots] on the device
     (meaningful for committed rows)."""
     dev = _device(pm)
     S = chunks.shape[1]
@@ -218,9 +356,11 @@ def _prefill_slots(pm: PaddedModel, state: ServeState, chunks: np.ndarray, pos0:
     logits = _step(pm, state, upload(chunks.astype(np.int64), dev), pos_arg, decode_attn=decode_attn,
                    logits_at=upload(np.maximum(real_len - 1, 0).astype(np.int64), dev),
                    moe=moe, moe_capacity=moe_capacity, token_valid=valid)
-    nxt = _sample(logits[:, 0], generator, temperature, None, top_p=top_p, min_p=min_p)
+    smp = sampling if sampling is not None else Sampling(temperature=temperature, top_p=top_p, min_p=min_p)
+    commit_dev = upload(commit, dev)
+    nxt, smp.lp, smp.tids, smp.tlps = _pick(smp, logits[:, 0], generator, commit_dev, _counts_on(smp, dev))
     state.lengths[:] = np.where(prefill_mask, pos0 + real_len, state.lengths)
-    state.last_token.copy_(torch.where(upload(commit, dev), nxt, state.last_token))
+    state.last_token.copy_(torch.where(commit_dev, nxt, state.last_token))
     return nxt
 
 
@@ -240,19 +380,23 @@ def _adopt_prefix(state: ServeState, src: int, dst: int, new_len: int) -> None:
 def _one_decode_step(pm: PaddedModel, state: ServeState, active: np.ndarray, temperature: float,
                      top_k, generator: Optional[torch.Generator], top_p=None, min_p=None,
                      decode_attn: str = "xla", moe: str = "dense",
-                     moe_capacity: float = 2.0) -> torch.Tensor:
+                     moe_capacity: float = 2.0, sampling: Optional[Sampling] = None) -> torch.Tensor:
     """One decode step for ALL slots from each slot's last token at its
     own length. Inactive rows run masked: their length and last token do
     not advance, their cache write lands at their current position, to
     be overwritten on reuse, and their tokens claim no dispatch-MoE
-    expert capacity. Returns the sampled tokens [slots]."""
+    expert capacity and enter no pool. Returns the tokens [slots],
+    chosen under `sampling` (the static knobs when None)."""
     active = np.asarray(active, bool)
     dev = _device(pm)
-    valid = upload(active[:, None], dev) if moe == "dispatch" else None
+    active_dev = upload(active, dev)
+    valid = active_dev[:, None] if moe == "dispatch" else None
     logits = _step(pm, state, state.last_token[:, None], state.lengths, decode_attn=decode_attn,
                    moe=moe, moe_capacity=moe_capacity, token_valid=valid)
-    nxt = _sample(logits[:, -1, :], generator, temperature, top_k, top_p=top_p, min_p=min_p)
-    state.last_token.copy_(torch.where(upload(active, dev), nxt, state.last_token))
+    smp = sampling if sampling is not None else Sampling(temperature=temperature, top_k=top_k, top_p=top_p,
+                                                         min_p=min_p)
+    nxt, smp.lp, smp.tids, smp.tlps = _pick(smp, logits[:, -1, :], generator, active_dev, _counts_on(smp, dev))
+    state.last_token.copy_(torch.where(active_dev, nxt, state.last_token))
     state.lengths[active] += 1
     return nxt
 
@@ -261,7 +405,8 @@ def _decode_slots_multi(pm: PaddedModel, state: ServeState, active: np.ndarray, 
                         eos: Optional[int], n_steps: int, temperature: float,
                         generator: Optional[torch.Generator], top_p=None, min_p=None,
                         decode_attn: str = "xla", moe: str = "dense",
-                        moe_capacity: float = 2.0) -> Tuple[np.ndarray, np.ndarray]:
+                        moe_capacity: float = 2.0,
+                        sampling: Optional[Sampling] = None) -> Tuple[np.ndarray, np.ndarray]:
     """`n_steps` decode steps for all slots, issued without a host wait
     between them (JAX ``_decode_slots_multi_jit``). A slot stops
     advancing the step it emits EOS (decided on the card) or exhausts
@@ -269,10 +414,14 @@ def _decode_slots_multi(pm: PaddedModel, state: ServeState, active: np.ndarray, 
 
     Every step's offsets come from the host plan (a row advances one a
     step while its budget lasts) and are uploaded in one copy; the
-    sampled tokens stay on the card and are fetched once, at the end. A
-    row that stopped at EOS is finished: its later writes land past its
-    committed tokens and are never read. Returns (toks [n_steps, slots],
-    emitted [n_steps, slots]): the host appends the emitted tokens."""
+    tokens stay on the card and are fetched once, at the end. A row that
+    stopped at EOS is finished: its later writes land past its committed
+    tokens and are never read. Each step chooses under `sampling` (the
+    bias constant across the steps; a seeded row's draw index advances
+    one a step), and only rows still emitting enter its pools; its
+    logprobs come back stacked [n_steps, slots, ...]. Returns (toks
+    [n_steps, slots], emitted [n_steps, slots]): the host appends the
+    emitted tokens."""
     dev = _device(pm)
     active = np.asarray(active, bool)
     budgets = np.where(active, budgets, 0)
@@ -281,18 +430,22 @@ def _decode_slots_multi(pm: PaddedModel, state: ServeState, active: np.ndarray, 
     lengths = state.lengths[None, :] + np.minimum(steps, budgets[None, :])
     index = step_indices(list(lengths), state.lengths.shape[0], 1, state.cache_k.shape[3], dev)
     plan = upload(planned, dev)
-    alive, tok, toks = plan[0], state.last_token, []
+    smp = sampling if sampling is not None else Sampling(temperature=temperature, top_p=top_p, min_p=min_p)
+    counts = _counts_on(smp, dev)
+    alive, tok, toks, extras = plan[0], state.last_token, [], []
     for i in range(n_steps):
         valid = alive[:, None] if moe == "dispatch" else None
         logits = _step(pm, state, tok[:, None], lengths[i], index=index[i], decode_attn=decode_attn,
                        moe=moe, moe_capacity=moe_capacity, token_valid=valid)
-        nxt = _sample(logits[:, -1, :], generator, temperature, None, top_p=top_p, min_p=min_p)
+        nxt, *picked = _pick(smp, logits[:, -1, :], generator, alive, None if counts is None else counts + i)
         toks.append(nxt)
+        extras.append(picked)
         tok = torch.where(alive, nxt, tok)
         if i + 1 < n_steps:
             alive = plan[i + 1] & alive
             if eos is not None:
                 alive = alive & (nxt != eos)
+    smp.lp, smp.tids, smp.tlps = (None if col[0] is None else torch.stack(col) for col in zip(*extras))
     toks = torch.stack(toks).cpu().numpy()  # the dispatch's one wait
     emitted = planned
     if eos is not None:
@@ -327,12 +480,17 @@ def _draft_slots(pm: PaddedModel, state: ServeState, active: np.ndarray, k: int,
 
 def _verify_slots(pm: PaddedModel, state: ServeState, active: np.ndarray, drafts: torch.Tensor,
                   max_adv: np.ndarray, eos: Optional[int], decode_attn: str = "xla", moe: str = "dense",
-                  moe_capacity: float = 2.0) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+                  moe_capacity: float = 2.0,
+                  sampling: Optional[Sampling] = None) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
     """One greedy verify dispatch for all slots (JAX ``_verify_slots_jit``):
     each slot's [last token, k drafts] at its length. A slot commits the
     target's tokens up to the first rejected draft plus one, cut at an
     EOS and at ``max_adv`` (its remaining budget); inactive slots commit
-    nothing, and their writes land past their length. Returns (ttoks
+    nothing, and their writes land past their length. With
+    ``sampling.allow`` [slots, k+1, V] (guided rows) position j's argmax
+    reads the mask of the automaton state the host walked for drafts[:j];
+    ``sampling.want_lp``/``top_lp`` return the raw-model logprobs of the
+    target's tokens [slots, k+1] and their alternatives. Returns (ttoks
     [slots, k+1], adv [slots], accepted drafts [slots]) on the host."""
     dev = _device(pm)
     active = np.asarray(active, bool)
@@ -341,7 +499,12 @@ def _verify_slots(pm: PaddedModel, state: ServeState, active: np.ndarray, drafts
     valid = upload(np.repeat(active[:, None], k + 1, axis=1), dev) if moe == "dispatch" else None
     logits = _step(pm, state, window, state.lengths, decode_attn=decode_attn, moe=moe,
                    moe_capacity=moe_capacity, token_valid=valid)
-    both = torch.cat([torch.argmax(logits, dim=-1), drafts], dim=1).cpu().numpy()  # the one wait
+    smp = sampling if sampling is not None else Sampling()
+    masked = logits if smp.allow is None else logits.masked_fill(~smp.allow, float("-inf"))
+    target = torch.argmax(masked, dim=-1)
+    smp.lp = _chosen_logprob(logits, target) if smp.want_lp else None
+    smp.tids, smp.tlps = _top_logprobs(logits) if smp.top_lp else (None, None)
+    both = torch.cat([target, drafts], dim=1).cpu().numpy()  # the one wait
     ttoks, drafts = both[:, : k + 1], both[:, k + 1 :]
     acc = np.cumprod(drafts == ttoks[:, :k], axis=1).sum(axis=1)
     adv = acc + 1
@@ -417,6 +580,22 @@ def _not_ported(names: List[str]) -> None:
         raise NotImplementedError(f"{_MODULE}: not ported: " + ", ".join(names))
 
 
+class _Queued(NamedTuple):
+    """A submitted request waiting for a slot."""
+
+    rid: int
+    prompt: np.ndarray
+    budget: int
+    samp_row: Optional[np.ndarray]
+    stop: Optional[List[List[int]]]
+    want_lp: bool
+    top_k_lp: int
+    seed: Optional[int]
+    guide: object
+    logit_bias: Optional[Dict[int, float]]
+    min_tokens: int
+
+
 class ContinuousBatcher:
     """Host-side continuous batching over the slot table.
 
@@ -434,11 +613,20 @@ class ContinuousBatcher:
     inside each prefill round instead.
 
     ``steps_per_dispatch=N`` fuses N decode steps whenever nothing is
-    prefilling; ``prefix_cache`` adopts shared bucket-aligned prompt
-    prefixes; ``spec_decode`` ("prompt_lookup", or "draft" with
-    ``draft_pm``) commits up to ``n_draft + 1`` verified tokens a step
-    (greedy only; prompt lookup matches ``lookup_ngram`` tokens). Greedy
-    output is the same in every mode (the module docstring).
+    prefilling, no guided request is resident and no ``min_tokens``
+    suppression could lift mid-dispatch; ``prefix_cache`` adopts shared
+    bucket-aligned prompt prefixes; ``spec_decode`` ("prompt_lookup", or
+    "draft" with ``draft_pm``) commits up to ``n_draft + 1`` verified
+    tokens a step (greedy only; prompt lookup matches ``lookup_ngram``
+    tokens). Greedy output is the same in every mode (the module
+    docstring).
+
+    Sampling: ``temperature``, ``top_p``, ``min_p`` and
+    ``repetition_penalty`` are the static knobs; ``per_request_sampling``
+    lets each `submit` carry its own (the knob table,
+    `generate.sample_rows`), a seed, and the presence and frequency
+    penalties. Any request may ask for logprobs and top_logprobs, a
+    guide, a logit_bias or min_tokens (`submit`).
 
     ``moe``: "dense" (every expert on every token; exact) or "dispatch"
     (capacity-based token dispatch at ``moe_capacity``; nothing is
@@ -462,7 +650,7 @@ class ContinuousBatcher:
                  decode_attn: str = "auto",
                  mixed_prefill_decode: bool = True,
                  a8_prefill: bool = False):
-        rep_penalty = None if repetition_penalty in (None, 1.0) else repetition_penalty
+        rep_penalty = None if repetition_penalty in (None, 1.0) else float(repetition_penalty)
         if spec_decode != "off" and (top_p or min_p or rep_penalty or per_request_sampling):
             raise ValueError("speculative serving is greedy-only: top_p/min_p/repetition_penalty/"
                              "per_request_sampling are sampling knobs it cannot honour")
@@ -483,11 +671,7 @@ class ContinuousBatcher:
             raise ValueError(f"prefill_exec must be per_slot or batched, got {prefill_exec!r}")
         if moe not in ("dense", "dispatch"):
             raise ValueError(f"moe must be dense or dispatch, got {moe!r}")
-        _not_ported([name for name, on in (
-            ("per_request_sampling", per_request_sampling),
-            ("repetition_penalty", rep_penalty is not None),
-            ("mesh", mesh is not None),
-        ) if on])
+        _not_ported(["mesh (tensor-parallel serving comes with parallel)"] if mesh is not None else [])
         self.pm = pm
         self.device = _device(pm)
         self.slots = slots
@@ -499,6 +683,30 @@ class ContinuousBatcher:
         self.moe_capacity = moe_capacity
         self.top_p = top_p
         self.min_p = min_p
+        self.rep_penalty = rep_penalty
+        V = pm.spec.vocab_size
+        self.vocab_size = V
+        # per-request sampling: each submit may carry its own knobs (the
+        # constructor's are the defaults) in a host table [slots, 7]:
+        # temperature, top_k, top_p, min_p, repetition_penalty,
+        # presence_penalty, frequency_penalty (JAX serving.py:876-891);
+        # idle slots hold the off row, so a stale sampled row never
+        # turns the filter path on for greedy steps. The table reaches
+        # the card when a row changes, and stays there.
+        self.per_request = per_request_sampling
+        self._samp_default = np.asarray(
+            [temperature, 0.0, 1.0 if top_p is None else top_p, 0.0 if min_p is None else min_p,
+             1.0 if rep_penalty is None else rep_penalty, 0.0, 0.0], np.float32)
+        self._samp_off = np.asarray([0.0, 0.0, 1.0, 0.0, 1.0, 0.0, 0.0], np.float32)
+        self.samp = np.tile(self._samp_off, (slots, 1)) if per_request_sampling else None
+        self._samp_dev: Optional[torch.Tensor] = None  # None: the host table changed since its upload
+        # the penalty pools on the card, updated inside every committing
+        # dispatch: presence (prompt + generated) for the repetition
+        # penalty, gen_counts (generated only) for the additive ones
+        self.presence = (torch.zeros((slots, V), dtype=torch.bool, device=self.device)
+                         if rep_penalty is not None or per_request_sampling else None)
+        self.gen_counts = (torch.zeros((slots, V), dtype=torch.int32, device=self.device)
+                           if per_request_sampling else None)
         self.prefill_chunks_per_step = prefill_chunks_per_step
         self.spec_decode = spec_decode
         self.n_draft = n_draft
@@ -530,8 +738,7 @@ class ContinuousBatcher:
         self.prefix_tokens_reused = 0
         # per-request speculative telemetry {rid: {rounds, drafted, accepted}}
         self.stats: Dict[int, Dict[str, int]] = {}
-        # (req_id, prompt, max_new, stop_seqs-or-None)
-        self.queue: List[Tuple] = []
+        self.queue: List[_Queued] = []
         self.slot_req: List[Optional[int]] = [None] * slots
         self.slot_out: List[List[int]] = [[] for _ in range(slots)]
         self.slot_budget = [0] * slots
@@ -541,6 +748,36 @@ class ContinuousBatcher:
         self.slot_stop: List[Optional[List[List[int]]]] = [None] * slots
         self.slot_plen = [0] * slots  # prompt length per slot
         self.slot_scanned = [0] * slots  # generated tokens already stop-scanned
+        # per-request logprobs: each generated token's raw-model logprob,
+        # and the requested top-k alternatives (0 = off) as (ids, lps)
+        # pairs; finished requests' lists move to self.logprobs and
+        # self.top_logprobs, keyed by request id
+        self.slot_want_lp = [False] * slots
+        self.slot_lp: List[List[float]] = [[] for _ in range(slots)]
+        self.slot_top_k = [0] * slots
+        self.slot_top: List[List] = [[] for _ in range(slots)]
+        self.logprobs: Dict[int, List[float]] = {}
+        self.top_logprobs: Dict[int, List] = {}
+        # per-request seed (per-request mode): the row draws from (seed,
+        # its generated count) alone, whatever else shares the batch
+        self.slot_seed: List[Optional[int]] = [None] * slots
+        # guided decoding (models.guided): each guided slot's TokenGuide
+        # and automaton state; the host recomputes the slot's allow row
+        # after every committed token
+        self.slot_guide: List[Optional[object]] = [None] * slots
+        self.slot_gstate: List[int] = [0] * slots
+        # logit_bias ({token: bias}) and min_tokens (EOS at -inf until that
+        # many tokens are generated) share one bias table, added to the
+        # logits
+        self.slot_bias: List[Optional[Dict[int, float]]] = [None] * slots
+        self.slot_min_tokens: List[int] = [0] * slots
+        # the allow and bias tables [slots, V], allocated on first use: a
+        # host copy, a resident copy on the card, and the rows changed
+        # since their last upload (sent before the next dispatch, so
+        # submit and cancel never touch the device)
+        self._tables: Dict[str, np.ndarray] = {}
+        self._tables_dev: Dict[str, torch.Tensor] = {}
+        self._dirty: Dict[str, set] = {"allow": set(), "bias": set()}
         # pending prompt chunks per slot: (piece, pos0, is_last); non-empty
         # = the slot is still prefilling (not decode-active)
         self.slot_chunks: List[List] = [[] for _ in range(slots)]
@@ -556,22 +793,35 @@ class ContinuousBatcher:
                top_logprobs: int = 0, seed: Optional[int] = None, guide=None,
                logit_bias: Optional[Dict[int, float]] = None,
                min_tokens: int = 0) -> int:
-        """Enqueue a prompt; returns its request id. `stop` is one
-        token-id sequence or a list of them: generation ends as soon as
-        the generated tail contains one, the matched tokens excluded.
-        The other keyword options are the JAX batcher's per-request
-        features and raise NotImplementedError here."""
+        """Enqueue a prompt; returns its request id (JAX ``submit``).
+
+        The sampling keywords override the constructor's knobs for this
+        request and need ``per_request_sampling=True``; so does `seed`,
+        which makes the sampled stream a function of (seed, prompt,
+        knobs) alone. `stop` is one token-id sequence or a list of them:
+        generation ends as soon as the generated tail contains one, the
+        matched tokens excluded. `logprobs` records each generated token's
+        raw-model logprob (``batcher.logprobs[rid]`` on finish);
+        `top_logprobs=k` (at most `TOP_LP_K`) also records the top-k
+        alternatives (``batcher.top_logprobs[rid]``, (ids, lps) pairs).
+        `guide` (a `models.guided.TokenGuide` over the model's
+        vocabulary, its EOS the batcher's) restricts every token to the
+        grammar; guided requests decode in single steps, compose with
+        prompt lookup (repaired drafts, per-position masks) and refuse a
+        draft model. `logit_bias` ({token_id: bias}) is added to the
+        logits; `min_tokens` holds EOS off until that many tokens are
+        generated. Neither works with speculative serving."""
         overrides = (temperature, top_k, top_p, min_p, repetition_penalty,
                      presence_penalty, frequency_penalty)
-        _not_ported([name for name, on in (
-            ("per-request sampling knobs", any(v is not None for v in overrides)),
-            ("logprobs", bool(logprobs)),
-            ("top_logprobs", bool(top_logprobs)),
-            ("seed", seed is not None),
-            ("guide", guide is not None),
-            ("logit_bias", logit_bias is not None),
-            ("min_tokens", int(min_tokens) > 0),
-        ) if on])
+        if not self.per_request and (any(v is not None for v in overrides) or seed is not None):
+            raise ValueError("per-request sampling kwargs need per_request_sampling=True "
+                             "(without it the constructor's knobs hold for every request)")
+        row = None
+        if self.per_request:
+            row = self._samp_default.copy()
+            for i, v in enumerate(overrides):
+                if v is not None:
+                    row[i] = float(v)
         stop_seqs = None
         if stop is not None:
             if stop and isinstance(stop[0], (int, np.integer)):
@@ -588,9 +838,41 @@ class ContinuousBatcher:
                 f"prompt ({prompt.shape[0]}) + max_new_tokens ({max_new_tokens})"
                 f"{f' + draft margin ({margin})' if margin else ''} exceeds max_len ({self.max_len})"
             )
+        if guide is not None:
+            if self.spec_decode == "draft":
+                raise ValueError("guided decoding composes with spec_decode='prompt_lookup' (repaired drafts, "
+                                 "per-position verify masks) but not 'draft': repairing a draft model's tokens "
+                                 "would leave K/V of tokens it never produced in its cache")
+            if guide.V != self.vocab_size:
+                raise ValueError(f"guide vocab ({guide.V}) != model vocab ({self.vocab_size}); build the "
+                                 "TokenGuide with vocab_size=spec.vocab_size")
+            if self.eos is None or guide.eos_id != self.eos:
+                raise ValueError("guided decoding needs the batcher's eos_token_id set and equal to the guide's "
+                                 "eos_id (EOS is how a completed grammar terminates)")
+            if guide.dead_end(guide.start):
+                raise ValueError("guide grammar admits no token from its start state with this vocabulary")
+        min_tokens = int(min_tokens)
+        if (logit_bias is not None or min_tokens > 0) and self.spec_decode != "off":
+            raise ValueError("logit_bias/min_tokens are incompatible with speculative serving "
+                             "(the verify forward argmaxes raw logits)")
+        if logit_bias is not None:
+            logit_bias = {int(t): float(v) for t, v in logit_bias.items()}
+            bad = [t for t in logit_bias if not 0 <= t < self.vocab_size]
+            if bad:
+                raise ValueError(f"logit_bias token ids out of range: {bad}")
+            logit_bias = logit_bias or None
+        if min_tokens > 0 and self.eos is None:
+            raise ValueError("min_tokens needs the batcher's eos_token_id set (it works by suppressing EOS)")
+        if min_tokens > 0 and guide is not None:
+            raise ValueError("min_tokens cannot combine with a guide: the grammar decides when EOS is reachable")
+        top_logprobs = int(top_logprobs)
+        if not 0 <= top_logprobs <= TOP_LP_K:
+            raise ValueError(f"top_logprobs must be in [0, {TOP_LP_K}], got {top_logprobs}")
         rid = self._next_id
         self._next_id += 1
-        self.queue.append((rid, prompt, max_new_tokens, stop_seqs))
+        self.queue.append(_Queued(rid, prompt, max_new_tokens, row, stop_seqs, bool(logprobs) or top_logprobs > 0,
+                                  top_logprobs, None if seed is None else int(seed) % (1 << 63), guide,
+                                  logit_bias, min_tokens))
         return rid
 
     def cancel(self, rid: int) -> bool:
@@ -598,19 +880,163 @@ class ContinuousBatcher:
         once (the slot is then re-admitted like a finished one: prefill
         rewrites its cache from position 0). Returns False when `rid` is
         unknown or already finished."""
-        for i, (q_rid, *_rest) in enumerate(self.queue):
-            if q_rid == rid:
+        for i, q in enumerate(self.queue):
+            if q.rid == rid:
                 del self.queue[i]
                 self.stats.pop(rid, None)
                 return True
         for s in range(self.slots):
             if self.slot_req[s] == rid:
-                self.slot_req[s] = None
+                self._release(s)
                 self.slot_chunks[s] = []
                 self.slot_budget[s] = 0
                 self.stats.pop(rid, None)
                 return True
         return False
+
+    def _release(self, s: int) -> None:
+        """Free slot `s`: its request's per-slot state back to off."""
+        self.slot_req[s] = None
+        self.slot_want_lp[s] = False
+        self.slot_top_k[s] = 0
+        self.slot_seed[s] = None
+        self._clear_guide(s)
+        self._clear_bias(s)
+        if self.samp is not None and not np.array_equal(self.samp[s], self._samp_off):
+            self.samp[s] = self._samp_off
+            self._samp_dev = None
+
+    # -- the dispatch's sampling --------------------------------------------
+
+    def _live(self) -> List[int]:
+        return [s for s in range(self.slots) if self.slot_req[s] is not None]
+
+    def _sampling(self, generator: Optional[torch.Generator], slot: Optional[int] = None) -> Sampling:
+        """The `Sampling` of the next dispatch, decided on the host from the
+        resident requests (the JAX ``_samp_kwargs``, ``_seed_kwargs``,
+        ``_guided_kwargs`` and ``_bias_kwargs``): the knob table and the
+        pools, per-row seeds while a seeded request is resident, the allow
+        and bias tables while some request uses them, logprobs while some
+        request asks. `slot` narrows the logprob flags to one slot (a
+        per-slot prefill chunk)."""
+        live = self._live() if slot is None else [slot]
+        smp = Sampling(presence=self.presence, gen_counts=self.gen_counts,
+                       want_lp=any(self.slot_want_lp[s] for s in live),
+                       top_lp=any(self.slot_top_k[s] for s in live))
+        if self.per_request:
+            if self._samp_dev is None:
+                self._samp_dev = upload(self.samp, self.device)
+            smp.samp, smp.samp_dev = self.samp, self._samp_dev
+            if any(self.slot_seed[s] is not None for s in self._live()):
+                smp.seeds = self._seeds(generator)
+                smp.counts = np.asarray([max(0, len(self.slot_out[s]) - self.slot_plen[s])
+                                         for s in range(self.slots)], np.int64)
+        else:
+            smp.temperature, smp.top_p, smp.min_p = self.temperature, self.top_p, self.min_p
+            smp.rep_penalty = self.rep_penalty
+        if any(self.slot_guide[s] is not None for s in self._live()):
+            smp.allow = self._table_on_device("allow")
+        if any(self.slot_bias[s] is not None or self.slot_min_tokens[s] > 0 for s in self._live()):
+            smp.bias = self._table_on_device("bias")
+        return smp
+
+    def _table(self, name: str) -> np.ndarray:
+        """The host copy of the allow (all True) or bias (zeros) table."""
+        if name not in self._tables:
+            self._tables[name] = (np.ones if name == "allow" else np.zeros)(
+                (self.slots, self.vocab_size), bool if name == "allow" else np.float32)
+        return self._tables[name]
+
+    def _table_on_device(self, name: str) -> torch.Tensor:
+        """The resident copy of a table, its changed rows uploaded first."""
+        host = self._table(name)
+        dev = self._tables_dev.get(name)
+        if dev is None:
+            dev = self._tables_dev[name] = upload(host, self.device)
+        else:
+            for s in sorted(self._dirty[name]):
+                dev[s].copy_(upload(host[s], self.device))
+        self._dirty[name].clear()
+        return dev
+
+    def _seeds(self, generator: Optional[torch.Generator]) -> torch.Tensor:
+        """Each row's stream seed on the device: a seeded request's own,
+        else a fresh draw from `generator` (a valid stream that changes
+        every dispatch)."""
+        host = np.zeros((2, self.slots), np.int64)
+        for s in self._live():
+            if self.slot_seed[s] is not None:
+                host[:, s] = (self.slot_seed[s], 1)
+        both = upload(host, self.device)
+        fresh = torch.randint(0, 1 << 62, (self.slots,), generator=generator, device=self.device)
+        return torch.where(both[1] == 1, both[0], fresh)
+
+    def _fetch(self, smp: Sampling):
+        """(lp, tids, tlps) of `smp` on the host (None where not asked)."""
+        return tuple(None if t is None else t.cpu().numpy() for t in (smp.lp, smp.tids, smp.tlps))
+
+    # -- guided decoding (models.guided) -------------------------------------
+
+    def _set_allow_row(self, s: int, row: Optional[np.ndarray]) -> None:
+        """Slot `s`'s allow row (None: every token)."""
+        self._table("allow")[s] = True if row is None else row
+        self._dirty["allow"].add(s)
+
+    def _clear_guide(self, s: int) -> None:
+        if self.slot_guide[s] is not None:
+            self.slot_guide[s] = None
+            self._set_allow_row(s, None)
+
+    def _advance_guide(self, s: int, tok: int) -> None:
+        """Walk slot `s`'s automaton over a committed token and refresh
+        its allow row; a dead end (no token and no EOS reachable, possible
+        only when the vocabulary cannot spell a required byte) finishes
+        the request on the host."""
+        guide = self.slot_guide[s]
+        if guide is None or (self.eos is not None and tok == self.eos):
+            return
+        self.slot_gstate[s] = guide.advance(self.slot_gstate[s], tok)
+        if guide.dead_end(self.slot_gstate[s]):
+            self.slot_budget[s] = 0
+            self._clear_guide(s)
+        else:
+            self._set_allow_row(s, guide.mask_for(self.slot_gstate[s]))
+
+    # -- logit bias and min_tokens -------------------------------------------
+
+    def _set_bias_row(self, s: int) -> None:
+        """Rebuild slot `s`'s bias row: its logit_bias entries, plus -inf
+        EOS while min_tokens remain."""
+        row = self._table("bias")[s]
+        row[:] = 0.0
+        for t, v in (self.slot_bias[s] or {}).items():
+            row[t] = v
+        if self.slot_min_tokens[s] > 0:
+            row[self.eos] = -np.inf
+        self._dirty["bias"].add(s)
+
+    def _clear_bias(self, s: int) -> None:
+        if self.slot_bias[s] is not None or self.slot_min_tokens[s] > 0:
+            self.slot_bias[s] = None
+            self.slot_min_tokens[s] = 0
+            self._set_bias_row(s)
+
+    def _tick_min_tokens(self, s: int) -> None:
+        """One token committed: count the EOS suppression down and lift
+        it when the minimum is reached."""
+        if self.slot_min_tokens[s] > 0:
+            self.slot_min_tokens[s] -= 1
+            if self.slot_min_tokens[s] == 0:
+                self._set_bias_row(s)
+
+    def _record_top(self, s: int, tids_row, tlps_row) -> None:
+        """Record one generated position's top-logprob row for slot `s`,
+        cut to the request's k."""
+        k = self.slot_top_k[s]
+        if k:
+            self.slot_top[s].append(([int(t) for t in tids_row[:k]], [float(v) for v in tlps_row[:k]]))
+
+    # -- scheduling ------------------------------------------------------------
 
     def _slot_finished(self, s: int) -> bool:
         if self.slot_chunks[s]:
@@ -626,20 +1052,46 @@ class ContinuousBatcher:
                 if self.slot_req[s] is not None and not self.slot_chunks[s] and not self._slot_finished(s)]
 
     def _admit(self) -> None:
-        """Assign queued requests to free slots (host bookkeeping, plus a
-        slot-row copy where a prefix is adopted; the prefill runs chunk
-        by chunk in `_prefill_step`)."""
+        """Assign queued requests to free slots (host bookkeeping, the
+        slot's pool rows reset, plus a slot-row copy where a prefix is
+        adopted; the prefill runs chunk by chunk in `_prefill_step`)."""
         for s in range(self.slots):
             if self.slot_req[s] is None and self.queue:
-                rid, prompt, budget, stop_seqs = self.queue.pop(0)
-                self.slot_req[s] = rid
+                q = self.queue.pop(0)
+                prompt = q.prompt
+                self.slot_req[s] = q.rid
                 self.slot_out[s] = prompt.tolist()
-                self.slot_budget[s] = budget
-                self.slot_stop[s] = stop_seqs
+                self.slot_budget[s] = q.budget
+                self.slot_stop[s] = q.stop
                 self.slot_plen[s] = int(prompt.shape[0])
                 self.slot_scanned[s] = 0
+                self.slot_want_lp[s] = q.want_lp
+                self.slot_lp[s] = []
+                self.slot_top_k[s] = q.top_k_lp
+                self.slot_top[s] = []
+                self.slot_seed[s] = q.seed
+                self.slot_guide[s] = q.guide
+                if q.guide is not None:
+                    self.slot_gstate[s] = q.guide.start
+                    self._set_allow_row(s, q.guide.mask_for(q.guide.start))
+                self.slot_bias[s] = q.logit_bias
+                self.slot_min_tokens[s] = q.min_tokens
+                if q.logit_bias is not None or q.min_tokens > 0:
+                    self._set_bias_row(s)
+                if q.samp_row is not None:
+                    self.samp[s] = q.samp_row
+                    self._samp_dev = None
+                # the pools start over with the request: presence holds its
+                # prompt where the request penalises repetition, gen_counts
+                # nothing
+                if self.presence is not None:
+                    self.presence[s].zero_()
+                    if self.rep_penalty is not None or (q.samp_row is not None and q.samp_row[4] != 1.0):
+                        self.presence[s, upload(prompt, self.device)] = True
+                if self.gen_counts is not None:
+                    self.gen_counts[s].zero_()
                 if self.spec_decode != "off":
-                    self.stats[rid] = {"rounds": 0, "drafted": 0, "accepted": 0}
+                    self.stats[q.rid] = {"rounds": 0, "drafted": 0, "accepted": 0}
                 chunks = _chunks(prompt, self.bucket)
                 if self.prefix_cache:
                     skip, src = self._best_prefix(prompt, len(chunks))
@@ -674,10 +1126,10 @@ class ContinuousBatcher:
 
     def _check_stop(self, s: int) -> None:
         """Scan slot `s`'s newly generated tokens for its stop sequences;
-        on the earliest match, truncate the output at the match start and
-        zero the budget so the next sweep frees the slot. Tokens are
-        scanned once, minus a (max_stop_len - 1) overlap for matches that
-        straddle two scans."""
+        on the earliest match, truncate the output (and its logprobs) at
+        the match start and zero the budget so the next sweep frees the
+        slot. Tokens are scanned once, minus a (max_stop_len - 1) overlap
+        for matches that straddle two scans."""
         seqs = self.slot_stop[s]
         if not seqs:
             return
@@ -697,16 +1149,25 @@ class ContinuousBatcher:
         self.slot_scanned[s] = n_gen
         if earliest is not None:
             del self.slot_out[s][plen + earliest :]
+            del self.slot_lp[s][earliest:]
+            del self.slot_top[s][earliest:]
             self.slot_budget[s] = 0
 
-    def _commit(self, s: int, tok: int, prefill: bool = False) -> None:
-        """Host bookkeeping for one token generated into slot `s`; a
-        prefill commit first records the prompt whose KV is now resident
-        (prefix caching)."""
+    def _commit(self, s: int, tok: int, prefill: bool = False, lp=None, top=None) -> None:
+        """Host bookkeeping for one token generated into slot `s` (with
+        its logprob `lp` and top-logprob row `top` where the dispatch
+        computed them); a prefill commit first records the prompt whose
+        KV is now resident (prefix caching)."""
+        if self.slot_want_lp[s]:
+            self.slot_lp[s].append(float(lp))
+        if top is not None:
+            self._record_top(s, *top)
         if prefill and self.prefix_cache:
             self.slot_prompt[s] = np.asarray(self.slot_out[s], np.int64)
         self.slot_out[s].append(tok)
         self.slot_budget[s] -= 1
+        self._advance_guide(s, tok)
+        self._tick_min_tokens(s)
         if self.eos is not None and tok == self.eos:
             self.slot_budget[s] = 0
         self._check_stop(s)
@@ -726,10 +1187,10 @@ class ContinuousBatcher:
                 if budget <= 0:
                     break
                 piece, pos0, is_last = self.slot_chunks[s].pop(0)
+                smp = self._sampling(generator, slot=s) if is_last else None
                 tok = _prefill_chunk(
-                    self.pm_pf, self.state, s, piece, pos0, self.bucket, is_last,
-                    self.temperature, generator, top_p=self.top_p, min_p=self.min_p,
-                    decode_attn=self.decode_attn, moe=self.moe, moe_capacity=self.moe_capacity,
+                    self.pm_pf, self.state, s, piece, pos0, self.bucket, is_last, self.temperature, generator,
+                    decode_attn=self.decode_attn, moe=self.moe, moe_capacity=self.moe_capacity, sampling=smp,
                 )
                 if self.draft_state is not None:
                     _prefill_chunk(self.draft_pm_pf, self.draft_state, s, piece, pos0, self.bucket, False,
@@ -739,7 +1200,9 @@ class ContinuousBatcher:
                 if is_last:
                     if self.draft_state is not None:
                         self.draft_state.last_token[s] = tok
-                    self._commit(s, tok, prefill=True)
+                    lp, tids, tlps = self._fetch(smp)
+                    self._commit(s, tok, prefill=True, lp=None if lp is None else lp[0],
+                                 top=None if tids is None else (tids[0], tlps[0]))
 
     def _batched_rounds(self, generator: Optional[torch.Generator], mixed: bool) -> None:
         """Up to `prefill_chunks_per_step` rounds of one [slots, bucket]
@@ -747,7 +1210,8 @@ class ContinuousBatcher:
         (JAX ``_prefill_step_batched``). With `mixed` every decode-active
         slot rides the round as a one-token commit row: its last committed
         token at pos0 = its length, both known on the host (JAX
-        ``_mixed_round``)."""
+        ``_mixed_round``); its sampling, pools, guide, bias, seed and
+        logprobs are a decode step's."""
         for _ in range(self.prefill_chunks_per_step):
             pending = [s for s in range(self.slots) if self.slot_chunks[s]]
             if not pending:
@@ -765,10 +1229,10 @@ class ContinuousBatcher:
             for s in decode_rows:
                 chunks[s, 0] = self.slot_out[s][-1]
                 pos0[s], real[s], commit[s], mask[s] = len(self.slot_out[s]) - 1, 1, True, True
+            smp = self._sampling(generator)
             nxt = _prefill_slots(
                 self.pm_pf, self.state, chunks, pos0, real, commit, mask, self.temperature, generator,
-                top_p=self.top_p, min_p=self.min_p, decode_attn=self.decode_attn, moe=self.moe,
-                moe_capacity=self.moe_capacity,
+                decode_attn=self.decode_attn, moe=self.moe, moe_capacity=self.moe_capacity, sampling=smp,
             )
             if self.draft_state is not None:
                 # mirror into the draft pool; its last token copies the
@@ -779,13 +1243,10 @@ class ContinuousBatcher:
                 self.draft_state.last_token.copy_(
                     torch.where(upload(commit, self.device), self.state.last_token, self.draft_state.last_token))
             nxt = nxt.tolist()
-            for s in pending:
-                if commit[s]:
-                    self._commit(s, nxt[s], prefill=True)
-            for s in decode_rows:
-                self.slot_out[s].append(nxt[s])
-                self.slot_budget[s] -= 1
-                self._check_stop(s)
+            lp, tids, tlps = self._fetch(smp)
+            for s in [s for s in pending if commit[s]] + decode_rows:
+                self._commit(s, nxt[s], prefill=s not in decode_rows, lp=None if lp is None else lp[s],
+                             top=None if tids is None else (tids[s], tlps[s]))
 
     def step(self, generator: Optional[torch.Generator] = None) -> Tuple[Dict[int, List[int]], bool]:
         """One scheduler iteration: sweep finished slots, admit queued
@@ -794,14 +1255,20 @@ class ContinuousBatcher:
         mixed round per chunk round replaces the prefill and decode of
         the iteration while any slot prefills. Returns ``(finished,
         drained)``: `finished` maps req_id -> tokens for the requests
-        swept at the top of this iteration, `drained` is True when the
-        queue and every slot are empty. `generator` draws the sampled
-        tokens (greedy needs none)."""
+        swept at the top of this iteration (their logprobs move to
+        ``self.logprobs`` and ``self.top_logprobs``), `drained` is True
+        when the queue and every slot are empty. `generator` draws the
+        sampled tokens (greedy needs none)."""
         finished: Dict[int, List[int]] = {}
         for s in range(self.slots):
-            if self.slot_req[s] is not None and self._slot_finished(s):
-                finished[self.slot_req[s]] = self.slot_out[s]
-                self.slot_req[s] = None
+            rid = self.slot_req[s]
+            if rid is not None and self._slot_finished(s):
+                finished[rid] = self.slot_out[s]
+                if self.slot_want_lp[s]:
+                    self.logprobs[rid] = self.slot_lp[s]
+                if self.slot_top_k[s]:
+                    self.top_logprobs[rid] = self.slot_top[s]
+                self._release(s)
         self._admit()
         if (self.mixed_prefill_decode and self.prefill_exec == "batched"
                 and self.spec_decode == "off" and any(self.slot_chunks)):
@@ -821,51 +1288,114 @@ class ContinuousBatcher:
 
     def _decode_round(self, active: np.ndarray, generator: Optional[torch.Generator]) -> None:
         """One decode dispatch over the decode-active slots, fused over
-        `steps_per_dispatch` steps when nothing is prefilling."""
-        n = self.steps_per_dispatch if not any(self.slot_chunks) else 1
+        `steps_per_dispatch` steps when nothing is prefilling, no guided
+        request is resident (each guided step's mask depends on the token
+        before it, which only the host's automaton knows) and no
+        min_tokens suppression could lift mid-dispatch (a plain logit_bias
+        is constant and fuses)."""
+        min_pending = any(self.slot_min_tokens[s] > 0 for s in self._live())
+        guided = any(self.slot_guide[s] is not None for s in self._live())
+        n = self.steps_per_dispatch if not any(self.slot_chunks) and not guided and not min_pending else 1
+        smp = self._sampling(generator)
         if n == 1:
             toks = _one_decode_step(
-                self.pm, self.state, active, self.temperature, None, generator,
-                top_p=self.top_p, min_p=self.min_p, decode_attn=self.decode_attn,
-                moe=self.moe, moe_capacity=self.moe_capacity,
+                self.pm, self.state, active, self.temperature, None, generator, decode_attn=self.decode_attn,
+                moe=self.moe, moe_capacity=self.moe_capacity, sampling=smp,
             ).tolist()
+            lp, tids, tlps = self._fetch(smp)
             for s in np.nonzero(active)[0]:
-                self._commit(s, toks[s])
+                self._commit(s, toks[s], lp=None if lp is None else lp[s],
+                             top=None if tids is None else (tids[s], tlps[s]))
             return
         budgets = np.asarray(self.slot_budget, np.int64)
         toks, emitted = _decode_slots_multi(
             self.pm, self.state, active, budgets, self.eos, n, self.temperature, generator,
-            top_p=self.top_p, min_p=self.min_p, decode_attn=self.decode_attn,
-            moe=self.moe, moe_capacity=self.moe_capacity,
+            decode_attn=self.decode_attn, moe=self.moe, moe_capacity=self.moe_capacity, sampling=smp,
         )
+        lp, tids, tlps = self._fetch(smp)
         for s in np.nonzero(active)[0]:
-            new = toks[emitted[:, s], s].tolist()
-            self.slot_out[s].extend(new)
-            self.slot_budget[s] -= len(new)
+            steps = np.nonzero(emitted[:, s])[0]
+            self.slot_out[s].extend(toks[steps, s].tolist())
+            if self.slot_want_lp[s]:
+                self.slot_lp[s].extend(float(x) for x in lp[steps, s])
+            if tids is not None:
+                for i in steps:
+                    self._record_top(s, tids[i, s], tlps[i, s])
+            self.slot_budget[s] -= len(steps)
             self._check_stop(s)
+
+    def _guided_drafts(self, active: np.ndarray, drafts: np.ndarray, max_adv: np.ndarray):
+        """Guided prompt-lookup rounds (JAX ``_speculative_step``): walk
+        each guided slot's drafts through its automaton, repairing the
+        first disallowed token (and what follows) with an allowed one, so
+        that every verify position has a live state, and build the
+        per-position masks [slots, k+1, V]. The masked argmax at every
+        committed position is what plain guided decode would emit.
+        Returns the masks, or None when no active slot is guided;
+        `drafts` and `max_adv` are repaired in place."""
+        guided = [s for s in range(self.slots) if active[s] and self.slot_guide[s] is not None]
+        if not guided:
+            return None
+        k = drafts.shape[1]
+        allow = np.ones((self.slots, k + 1, self.vocab_size), bool)
+        for s in guided:
+            g, st, valid_upto = self.slot_guide[s], self.slot_gstate[s], k + 1
+            for j in range(k + 1):
+                mask = g.mask_for(st)
+                if not mask.any():  # dead end: never commit at or after j
+                    valid_upto = j
+                    break
+                allow[s, j] = mask
+                if j == k:
+                    break
+                content = np.nonzero(mask)[0]
+                content = content[content != g.eos_id]
+                if content.size == 0:  # the grammar is complete: EOS at j
+                    valid_upto = j + 1
+                    break
+                t = int(drafts[s, j])
+                if not mask[t] or t == g.eos_id:
+                    t = int(content[0])
+                    drafts[s, j] = t
+                st = g.advance(st, t)
+            max_adv[s] = min(max_adv[s], valid_upto)
+        return upload(allow, self.device)
 
     def _speculative_step(self, active: np.ndarray) -> None:
         """One draft + verify round across the decode-active slots: each
         commits 1..n_draft+1 greedy-exact tokens."""
         k = self.n_draft
+        max_adv = np.where(active, np.asarray(self.slot_budget, np.int64), 0)
+        smp = Sampling(want_lp=any(self.slot_want_lp[s] for s in self._live()),
+                       top_lp=any(self.slot_top_k[s] for s in self._live()))
         if self.spec_decode == "draft":
             drafts = _draft_slots(self.draft_pm, self.draft_state, active, k, decode_attn=self.decode_attn,
                                   moe=self.moe, moe_capacity=self.moe_capacity)
         else:
-            drafts = upload(np.stack([
+            host = np.stack([
                 lookup_draft(self.slot_out[s], k, self.lookup_ngram) if active[s] else np.zeros(k, np.int64)
                 for s in range(self.slots)
-            ]), self.device)
-        max_adv = np.where(active, np.asarray(self.slot_budget, np.int64), 0)
+            ])
+            smp.allow = self._guided_drafts(active, host, max_adv)
+            drafts = upload(host, self.device)
         ttoks, adv, acc = _verify_slots(self.pm, self.state, active, drafts, max_adv, self.eos,
                                         decode_attn=self.decode_attn, moe=self.moe,
-                                        moe_capacity=self.moe_capacity)
+                                        moe_capacity=self.moe_capacity, sampling=smp)
         if self.draft_state is not None:
             _commit_draft_cache(self.draft_state, adv, ttoks[np.arange(self.slots), np.maximum(adv - 1, 0)])
+        lp, tids, tlps = self._fetch(smp)
         for s in np.nonzero(active)[0]:
             a = int(adv[s])
-            self.slot_out[s].extend(ttoks[s, :a].tolist())
+            committed = ttoks[s, :a].tolist()
+            self.slot_out[s].extend(committed)
+            if self.slot_want_lp[s]:
+                self.slot_lp[s].extend(float(x) for x in lp[s, :a])
+            if tids is not None:
+                for j in range(a):
+                    self._record_top(s, tids[s, j], tlps[s, j])
             self.slot_budget[s] -= a
+            for t in committed:
+                self._advance_guide(s, t)
             self._check_stop(s)
             st = self.stats[self.slot_req[s]]
             st["rounds"] += 1

@@ -764,3 +764,79 @@ def test_streamed_job_on_the_card_equals_the_chunked_job(cuda_device):
                     np.testing.assert_array_equal(factors[s][l][k], v, err_msg=f"{s}[{l}][{k}]")
                 else:
                     np.testing.assert_allclose(factors[s][l][k], v, rtol=2e-3, atol=2e-4, err_msg=f"{s}[{l}][{k}]")
+
+
+# knob rows (temperature, top_k, top_p, min_p, repetition, presence,
+# frequency): greedy, each filter, all together, and degenerate knobs
+SAMPLING_ROWS = np.asarray([
+    [0.0, 0, 1.0, 0.0, 1.0, 0.0, 0.0],
+    [0.7, 10, 1.0, 0.0, 1.0, 0.0, 0.0],
+    [1.0, 0, 0.9, 0.0, 1.0, 0.0, 0.0],
+    [1.3, 0, 1.0, 0.05, 1.0, 0.0, 0.0],
+    [0.8, 20, 0.95, 0.02, 1.2, 0.4, 0.3],
+    [0.0, 0, 1.0, 0.0, 2.0, 1.1, 0.6],
+    [1.0, 0, 0.0, 0.0, 1.0, 0.0, 0.0],
+    [1.0, 0, 1.0, 5.0, 1.0, 0.0, 0.0],
+], np.float32)
+
+
+@pytest.mark.parametrize("V", [97, 128256])
+def test_sample_rows_on_the_card_matches_the_cpu(cuda_device, V):
+    """Penalised logits, greedy tokens and each row's kept set under its
+    filters are the CPU's on the same inputs, at a small vocabulary and
+    at Llama-3's; sampled tokens lie in their kept set."""
+    from modegpt_tpu_torch.models.generate import filter_rows, penalize_rows, sample_rows
+
+    rng = np.random.default_rng(0)
+    S = SAMPLING_ROWS.shape[0]
+    logits = torch.from_numpy((rng.standard_normal((S, V)) * 3.0).astype(np.float32))
+    presence = torch.from_numpy(rng.random((S, V)) < 0.1)
+    counts = torch.from_numpy((rng.integers(0, 3, (S, V)) * (rng.random((S, V)) < 0.1)).astype(np.int32))
+    on = [t.to(cuda_device) for t in (logits, presence, counts)]
+    scale = torch.clamp(torch.from_numpy(SAMPLING_ROWS[:, :1]), min=1e-6)
+    cpu = penalize_rows(logits, SAMPLING_ROWS, presence, counts)
+    gpu = penalize_rows(*on[:1], SAMPLING_ROWS, *on[1:])
+    torch.testing.assert_close(gpu.cpu(), cpu, rtol=1e-6, atol=1e-6)
+    kept_cpu = torch.isfinite(filter_rows(cpu / scale, SAMPLING_ROWS))
+    final_gpu = filter_rows(gpu / scale.to(cuda_device), SAMPLING_ROWS)
+    assert torch.equal(torch.isfinite(final_gpu).cpu(), kept_cpu)
+    greedy = SAMPLING_ROWS[:, 0] == 0.0
+    seeds = torch.arange(S, dtype=torch.int64) + 3
+    toks = sample_rows(*on[:1], SAMPLING_ROWS, None, *on[1:], seeds=seeds.to(cuda_device),
+                       counts=torch.zeros(S, dtype=torch.int64, device=cuda_device)).cpu()
+    ref = sample_rows(logits, SAMPLING_ROWS, None, presence, counts, seeds=seeds,
+                      counts=torch.zeros(S, dtype=torch.int64))
+    assert torch.equal(toks[greedy], ref[greedy])
+    assert bool(kept_cpu[torch.arange(S), toks].all())
+
+
+def test_seeded_stream_on_the_card_is_the_same_alone_batched_fused_and_mixed(cuda_device):
+    """A seeded request's sampled tokens on the card are the same alone,
+    beside other traffic, with steps_per_dispatch=4 and under batched
+    prefill with mixed rounds, all through K3; another seed changes
+    them."""
+    from modegpt_tpu_torch.models.padded import pad_to_uniform
+    from modegpt_tpu_torch.models.serving import ContinuousBatcher
+
+    spec, params = _tiny_llama_on(cuda_device)
+    pm = pad_to_uniform(spec, params)
+    rng = np.random.default_rng(11)
+    prompt, other = rng.integers(1, 256, 19), rng.integers(1, 256, 33)
+    knobs = dict(temperature=0.9, top_k=40, top_p=0.95, min_p=0.01, repetition_penalty=1.1, frequency_penalty=0.2)
+
+    def run(seed, traffic, **kw):
+        b = ContinuousBatcher(pm, slots=3, max_len=96, prefill_bucket=16, per_request_sampling=True,
+                              decode_attn="ragged", **kw)
+        for t in traffic:
+            b.submit(other, 12, temperature=t)
+        rid = b.submit(prompt, 12, seed=seed, **knobs)
+        b.submit(other, 5, temperature=0.7, seed=99)
+        return b.run(max_steps=2000)[rid]
+
+    alone = run(7, [])
+    assert len(alone) == 19 + 12
+    assert run(7, [0.0, 1.2]) == alone
+    assert run(7, [0.8], steps_per_dispatch=4) == alone
+    assert run(7, [0.0], prefill_exec="batched") == alone
+    assert run(7, [1.0, 0.0], prefill_exec="batched", steps_per_dispatch=4) == alone
+    assert run(8, []) != alone
