@@ -10,6 +10,8 @@
     python3 chip_smoke.py --phases build,kernel,main,quant
     python3 chip_smoke.py --phases build,kernel,main,serve,sched
     python3 chip_smoke.py --phases build,kernel,main,server
+    python3 chip_smoke.py --phases build,kernel,opt
+    python3 chip_smoke.py --phases build,kernel,main,stream
 
 Phases, each printing one JSON line:
 
@@ -154,6 +156,40 @@ Phases, each printing one JSON line:
    the code, and every shape K1 ran at one of the kernel phase's cases.
    Then the staging, prepass-probe and async-off measurements, and the
    fused job against the chunked one at Llama-3-8B widths (job C).
+10. opt   — a random-f32 checkpoint at the published facebook/opt-6.7b
+   widths (hidden 4096, ffn 16384, 32 heads of 128, vocab 50272, 2048
+   learned positions, pre-LN, relu, biases, tied head), 32 -> 4 layers,
+   written as config.json + model.safetensors, compressed through the
+   compression CLI (`modegpt_tpu_torch.cli.main`, in process) with the
+   whitened-SVD Q/K solve (``--qk_method svd``) and the main phase's
+   settings, traced into ``--profile_dir``: finite perplexities, q/k
+   ranks below 128 a head and no rotary masks, K1's launches as the
+   job's forwards give them, a trace that names K1's kernel, and every
+   layer's Q_h^T K_h, from the job's f32 solve and from the same solve
+   in f32 on the card, within OPT_SVD_TOL of the solve in float64 on the
+   CPU (same Gram, same weights), while three wrong solves (no
+   whitening, bfloat16-rounded inputs, one rank less) fall outside it.
+   Then `inspect_artifact` on the artifact (its ranks the spec's),
+   `export_to_hf` of the compressed model reloaded through the port's
+   importer (logits at [1, 128] within 1e-5; the artifact's forward
+   through K1 also within rtol = atol = 1e-3 of the plain attention's),
+   `export_to_hf` of the dense model loaded by
+   `transformers.OPTForCausalLM` (logits within OPT_HF_TOL of the port's
+   forward, TF32 off on both sides), and `analysis.search.staged_search`
+   on the model (3 proxy trials at 256 tokens, 1 finalist at 1024):
+   finite scores, each trial's seconds and K1 launches. K1's counter is
+   zeroed once for the phase; each step's launches (job, calibration,
+   both exports, search) equal what its forwards give, and every shape
+   K1 ran at in the phase is a kernel case.
+11. stream — `models.streaming.streaming_generate` on the main phase's
+   compressed model, padded: inside the window (prompt 200, 56 new,
+   window 256, 4 sinks) its tokens are `generate_padded`'s greedy ones;
+   beyond it (prompt 64, 960 new) its first tokens are the run inside the
+   window's, every step's logits are finite and device memory stays
+   flat (tokens/s printed); then the eval CLI's ``--generate
+   --streaming_window 256`` on the artifact (a word-level tokenizer
+   saved into it) prints the library's streamed text. The plain
+   attention runs here, as in JAX: K1 and K3 launch 0 times.
 
 Then a `{"kernels": [...]}` line (each kernel's launches summed over the
 paths that ran it, and by path), the card's name and power limit as
@@ -166,6 +202,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import gc
 import json
 import math
 import os
@@ -212,6 +249,23 @@ KERNEL_CASES = [
     # widest layer's 126 dims a head
     dict(name="qwen3_32b_f32", B=2, H=64, Hk=8, T=2048, hd=128, hd_v=128, dtype="float32", window=None),
     dict(name="qwen3_32b_padded_f32", B=2, H=64, Hk=8, T=2048, hd=126, hd_v=126, dtype="float32", window=None),
+    # the opt phase (OPT-6.7B widths: 32 heads, no grouping). Its dense
+    # forwards are the "mha" case; after the SVD Q/K solve each head keeps
+    # the same rank of q/k and of v (127, 105, 75, 49 by layer), which the
+    # compressed evaluation pads to the widest layer's 127: the job's eval
+    # (B = 2, T = 2048), the search's proxy evals (B = 8, T = 256) and its
+    # finalist's (T = 1024); a trial may keep all 128 in its widest layer
+    dict(name="opt_svd_padded_f32", B=2, H=32, Hk=32, T=2048, hd=127, hd_v=127, dtype="float32", window=None),
+    dict(name="opt_proxy_padded_f32", B=8, H=32, Hk=32, T=256, hd=127, hd_v=127, dtype="float32", window=None),
+    dict(name="opt_proxy_f32", B=8, H=32, Hk=32, T=256, hd=128, hd_v=128, dtype="float32", window=None),
+    dict(name="opt_finalist_padded_f32", B=8, H=32, Hk=32, T=1024, hd=127, hd_v=127, dtype="float32",
+         window=None),
+    dict(name="opt_finalist_f32", B=8, H=32, Hk=32, T=1024, hd=128, hd_v=128, dtype="float32", window=None),
+    # the opt phase's export checks: the forwards at [1, 128] of the
+    # compressed model, unpadded, at each layer's own width, and of the
+    # dense model
+    *(dict(name=f"opt_export_T128_hd{w}", B=1, H=32, Hk=32, T=128, hd=w, hd_v=w, dtype="float32", window=None)
+      for w in (49, 75, 105, 127, 128)),
 ]
 # K2 (flash_attention_hbm) cases. The first is the long phase's shape: one
 # 16384-token window (eval and calibration batches of 1) at 32 heads over
@@ -3148,6 +3202,457 @@ def phase_big(records: dict, profile: bool = False) -> dict:
     return line
 
 
+OPT_LAYERS = 4  # facebook/opt-6.7b's 32 layers cut to 4: about 4.1 GB of f32 weights
+OPT_6_7B = dict(  # facebook/opt-6.7b config.json (weights here are random f32, so torch_dtype float32)
+    model_type="opt", architectures=["OPTForCausalLM"], vocab_size=50272, hidden_size=4096, ffn_dim=16384,
+    num_hidden_layers=32, num_attention_heads=32, max_position_embeddings=2048, word_embed_proj_dim=4096,
+    do_layer_norm_before=True, activation_function="relu", enable_bias=True, tie_word_embeddings=True,
+    dropout=0.1, attention_dropout=0.0, activation_dropout=0.0, layerdrop=0.0, init_std=0.02,
+    bos_token_id=2, eos_token_id=2, pad_token_id=1, torch_dtype="float32",
+)
+# the opt phase's job (the main phase's settings, the whitened-SVD Q/K
+# solve) and its search
+OPT_JOB = ["--qk_method", "svd", "--seq_len", "2048", "--calib_size", "8", "--calibs_batch_size", "2",
+           "--eval_batch_size", "2", "--eval_max_samples", "4", "--compression_ratio", "0.3",
+           "--solver_precision", "f32_device", "--dataset", "synthetic", "--device", "cuda"]
+OPT_SEARCH = dict(n_trials=3, top_k=1, proxy_seq_len=256, proxy_samples=8)
+# each layer's Q_h^T K_h, an f32 solve against the CPU's f64, relative:
+# the readings on an H100 were 1.1e-4 to 5.6e-3 (the last at layer 3,
+# whose cut at rank 49 falls between close singular values), and the three
+# wrong solves missed by 0.19 or more
+OPT_SVD_TOL = 1e-2
+OPT_HF_TOL = 1e-3  # transformers' OPTForCausalLM against the port's dense forward, max abs logit
+K1_KERNEL_NAME = "attention_tile_loop"  # K1's CUDA kernel, as the profiler's trace names it
+
+
+def _write_opt_checkpoint(path: str, spec, seed: int) -> dict:
+    """A random-f32 OPT checkpoint under HF names in one ``model.safetensors``
+    with ``config.json``: weights and biases N(0, 0.02) from a seeded
+    generator on the card, norm scales around 1 (nonzero biases, so the
+    Q/K solve's bias projection has work). Returns its bytes and seconds."""
+    import torch
+    from safetensors.torch import save_file
+
+    t0 = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+
+    def rnd(*shape, center=0.0):
+        return (torch.randn(shape, generator=gen, device="cuda") * 0.02 + center).cpu()
+
+    D, F, pre = spec.d_model, spec.d_int, "model.decoder."
+    sd = {pre + "embed_tokens.weight": rnd(spec.vocab_size, D),
+          pre + "embed_positions.weight": rnd(spec.max_position_embeddings + 2, D),
+          pre + "final_layer_norm.weight": rnd(D, center=1.0), pre + "final_layer_norm.bias": rnd(D)}
+    for l in range(spec.n_layers):
+        b = f"{pre}layers.{l}."
+        for name in ("self_attn_layer_norm", "final_layer_norm"):
+            sd[f"{b}{name}.weight"], sd[f"{b}{name}.bias"] = rnd(D, center=1.0), rnd(D)
+        for name, (n_out, n_in) in (("self_attn.q_proj", (D, D)), ("self_attn.k_proj", (D, D)),
+                                    ("self_attn.v_proj", (D, D)), ("self_attn.out_proj", (D, D)),
+                                    ("fc1", (F, D)), ("fc2", (D, F))):
+            sd[f"{b}{name}.weight"], sd[f"{b}{name}.bias"] = rnd(n_out, n_in), rnd(n_out)
+    save_file(sd, os.path.join(path, "model.safetensors"), metadata={"format": "pt"})
+    with open(os.path.join(path, "config.json"), "w") as f:
+        json.dump({**OPT_6_7B, "num_hidden_layers": spec.n_layers}, f, indent=2)
+    return {"bytes": os.path.getsize(os.path.join(path, "model.safetensors")), "seconds": time.perf_counter() - t0}
+
+
+@contextlib.contextmanager
+def _timed_trials():
+    """Each `run_compression` and `compute_perplexity` call a search makes,
+    with its wall seconds (the device drained) and K1's launches."""
+    import torch
+
+    from modegpt_tpu_torch.compress import pipeline
+    from modegpt_tpu_torch.evals import perplexity
+    from modegpt_tpu_torch.kernels import flash_attention as fa_mod
+
+    calls: list = []
+    originals = pipeline.run_compression, perplexity.compute_perplexity
+
+    def timed(kind, fn):
+        def call(*args, **kwargs):
+            before, t0 = fa_mod.flash_attention.launches, time.perf_counter()
+            out = fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            calls.append({"call": kind, "seconds": time.perf_counter() - t0,
+                          "k1_launches": fa_mod.flash_attention.launches - before})
+            return out
+        return call
+
+    pipeline.run_compression = timed("compress", originals[0])
+    perplexity.compute_perplexity = timed("perplexity", originals[1])
+    try:
+        yield calls
+    finally:
+        pipeline.run_compression, perplexity.compute_perplexity = originals
+
+
+def _qk_forms(q, k, n_heads: int):
+    """Each head's bilinear form Q_h^T K_h [H, d, d] in float64 on the card."""
+    import torch
+
+    r = q.shape[0] // n_heads
+    qh = q.to("cuda", torch.float64).reshape(n_heads, r, -1)
+    kh = k.to("cuda", torch.float64).reshape(n_heads, r, -1)
+    return qh.transpose(1, 2) @ kh
+
+
+def _cut_gap(cov, W_q, W_k, rank: int, n_heads: int, ridge: float) -> float:
+    """The smallest relative gap, over the heads, between the rank-th and
+    the next singular value of the whitened form sqrt(C) Wq_h^T Wk_h,
+    in float64 on the card: the smaller it is, the more the truncated
+    factors move with rounding."""
+    import torch
+
+    from modegpt_tpu_torch.ops.psd import sqrt_and_inv_sqrt_psd
+
+    sqrt_C = sqrt_and_inv_sqrt_psd(cov.double(), ridge)[0]
+    Wq_h, Wk_h = (w.double().reshape(n_heads, -1, cov.shape[0]) for w in (W_q, W_k))
+    _, S, Vh = torch.linalg.svd(sqrt_C @ Wq_h.transpose(1, 2), full_matrices=False)
+    s = torch.linalg.svdvals((S[..., None] * Vh) @ Wk_h)
+    return float(((s[:, rank - 1] - s[:, rank]) / s[:, rank - 1]).min())
+
+
+def _rel_err(got, want) -> float:
+    return float((got - want).abs().max() / want.abs().max())
+
+
+def phase_opt(records: dict) -> dict:
+    """The OPT-6.7B-width job through the whitened-SVD Q/K solve, then the
+    artifact tools and the search on the same model (module docstring,
+    phase 10)."""
+    import io
+
+    import torch
+
+    from modegpt_tpu_torch import cli, inspect_artifact
+    from modegpt_tpu_torch.analysis.search import staged_search
+    from modegpt_tpu_torch.calib.data import load_calibration_batches, load_eval_tokens
+    from modegpt_tpu_torch.calib.engine import calibrate
+    from modegpt_tpu_torch.compress.artifact import load_layer_factors
+    from modegpt_tpu_torch.config import CompressionConfig
+    from modegpt_tpu_torch.evals.perplexity import resolve_exec_mode
+    from modegpt_tpu_torch.kernels import flash_attention as fa_mod
+    from modegpt_tpu_torch.models.forward import forward
+    from modegpt_tpu_torch.models.hf import load_hf_model, params_from_state_dict
+    from modegpt_tpu_torch.models.hf_export import export_to_hf
+    from modegpt_tpu_torch.models.safetensors_io import read_hf_config
+    from modegpt_tpu_torch.models.spec import spec_from_hf_config
+    from modegpt_tpu_torch.ops.qk import compress_qk_layer_svd
+    from safetensors.torch import load_file
+
+    t_phase = time.perf_counter()
+    problems, line = [], {"phase": "opt", "model": "facebook/opt-6.7b widths", "n_layers": OPT_LAYERS}
+    job = dict(zip(OPT_JOB[::2], OPT_JOB[1::2]))
+    k1 = fa_mod.flash_attention
+    launches, expected = {}, {}  # K1's launches by step of the phase
+    with tempfile.TemporaryDirectory(prefix="modegpt_smoke_opt_") as tmp, _k1_shapes() as shapes:
+        ckpt, trace_dir = os.path.join(tmp, "opt-6.7b-widths"), os.path.join(tmp, "trace")
+        os.makedirs(ckpt)
+        spec = spec_from_hf_config(SimpleNamespace(**{**OPT_6_7B, "num_hidden_layers": OPT_LAYERS}))
+        line["checkpoint"] = _write_opt_checkpoint(ckpt, spec, seed=0)
+        k1.launches = 0  # once, for the whole phase; each step reads its share
+
+        # 1. the compression CLI, in process
+        argv = ["--model", ckpt, *OPT_JOB, "--profile_dir", trace_dir, "--output_dir", os.path.join(tmp, "out"),
+                "--temp_storage_dir", os.path.join(tmp, "layers"), "--metrics_dir", os.path.join(tmp, "metrics")]
+        mark, t0 = k1.launches, time.perf_counter()
+        results = cli.main(argv)
+        launches["job"] = k1.launches - mark
+        line["job_seconds"] = time.perf_counter() - t0
+        n_eval = min(int(job["--eval_max_samples"]), 16)  # the synthetic eval set
+        n_calib = math.ceil(int(job["--calib_size"]) / int(job["--calibs_batch_size"]))
+        expected["job"] = OPT_LAYERS * (2 * math.ceil(n_eval / int(job["--eval_batch_size"])) + n_calib)
+        cspec, cparams, artifact = results["compressed_spec"], results["compressed_params"], results["artifact_dir"]
+        line.update(
+            step_seconds=results["step_seconds"], baseline_ppl=results["baseline_ppl"],
+            compressed_ppl=results["compressed_ppl"], params_before=results["params_before"],
+            params_after=results["params_after"],
+            ranks={"q": list(cspec.q_ranks), "k": list(cspec.k_ranks), "v": list(cspec.v_ranks),
+                   "o": list(cspec.o_ranks), "gate": list(cspec.gate_ranks)},
+            compressed_eval_path=resolve_exec_mode(cspec, "auto"),
+        )
+        for key in ("baseline_ppl", "compressed_ppl"):
+            if not math.isfinite(results[key]):
+                problems.append(f"{key} is not finite")
+        H = spec.n_heads
+        if not all(0 < cspec.q_ranks[l] // H < spec.head_dim and cspec.k_ranks[l] == cspec.q_ranks[l]
+                   for l in range(OPT_LAYERS)):
+            problems.append(f"q/k ranks {cspec.q_ranks} are not below {spec.head_dim} a head")
+        if cspec.has_rotary_masks or any("rotary_mask" in lp for lp in cparams["layers"]):
+            problems.append("the OPT artifact has rotary masks")
+        traces = sorted(os.listdir(trace_dir)) if os.path.isdir(trace_dir) else []
+        names_k1 = False
+        for name in traces:
+            with open(os.path.join(trace_dir, name)) as f:
+                names_k1 |= K1_KERNEL_NAME in f.read()
+        line["trace"] = {"files": traces, "names_k1": names_k1,
+                         "bytes": sum(os.path.getsize(os.path.join(trace_dir, n)) for n in traces)}
+        if not traces or not names_k1:
+            problems.append(f"profile_dir holds {traces}, naming K1's kernel: {names_k1}")
+
+        # every layer's Q/K solve: the job's f32 factors and the same solve
+        # in f32 on the card, each against the solve in float64 on the
+        # CPU, from the same Gram (the job's calibration runs on the dense
+        # model too). Controls, each expected beyond OPT_SVD_TOL: the solve
+        # without whitening (identity Gram), from bfloat16-rounded inputs,
+        # and at one rank less.
+        spec_d, params_d, _ = load_hf_model(ckpt, device="cuda")
+        batches = load_calibration_batches(None, "synthetic", int(job["--calib_size"]),
+                                           int(job["--calibs_batch_size"]), int(job["--seq_len"]),
+                                           vocab_size=spec.vocab_size)
+        mark = k1.launches
+        covs = calibrate(spec_d, params_d, batches, range(OPT_LAYERS), accumulate="device").cov_x
+        launches["calibrate"], expected["calibrate"] = k1.launches - mark, OPT_LAYERS * len(batches)
+        ridge, svd_rows = CompressionConfig().ridge_qk, []
+        for l in range(OPT_LAYERS):
+            lp, r = params_d["layers"][l], cspec.q_ranks[l] // H
+            host = [covs[l], lp["q"]["kernel"].T, lp["k"]["kernel"].T, lp["q"]["bias"], lp["k"]["bias"]]
+            t0 = time.perf_counter()
+            f32 = compress_qk_layer_svd(*(t.float() for t in host), r, ridge, H)
+            torch.cuda.synchronize()
+            row = {"layer": l, "rank": r, "card_f32_s": time.perf_counter() - t0,
+                   "gram_eigs_f32": torch.linalg.eigvalsh(covs[l])[[0, 1, -1]].tolist(),
+                   "gram_eigs_f64": torch.linalg.eigvalsh(covs[l].double())[[0, 1, -1]].tolist(),
+                   "cut_rel_gap": _cut_gap(*host[:3], r, H, ridge)}
+            t0 = time.perf_counter()
+            f64 = compress_qk_layer_svd(*(t.double().cpu() for t in host), r, ridge, H)
+            row["cpu_f64_s"] = time.perf_counter() - t0
+            stored = load_layer_factors(os.path.join(tmp, "layers"), l, "qk")
+            controls = {
+                "unwhitened": compress_qk_layer_svd(torch.eye(spec.d_model, device="cuda"), *host[1:], r, ridge, H),
+                "bf16_inputs": compress_qk_layer_svd(*(t.bfloat16().float() for t in host), r, ridge, H),
+                "rank_less_1": compress_qk_layer_svd(*host, r - 1, ridge, H),
+            }
+            want = _qk_forms(f64.q, f64.k, H)
+            row["job_rel_err"] = _rel_err(_qk_forms(torch.from_numpy(stored["q"]), torch.from_numpy(stored["k"]), H),
+                                          want)
+            row["card_rel_err"] = _rel_err(_qk_forms(f32.q, f32.k, H), want)
+            row["controls_rel_err"] = {name: _rel_err(_qk_forms(f.q, f.k, H), want) for name, f in controls.items()}
+            del want, controls, f32, f64
+            svd_rows.append(row)
+            for key in ("job_rel_err", "card_rel_err"):
+                if not row[key] <= OPT_SVD_TOL:
+                    problems.append(f"layer {l}'s Q_h^T K_h: {key} {row[key]} from the CPU's f64 solve")
+            for name, err in row["controls_rel_err"].items():
+                if not err > OPT_SVD_TOL:
+                    problems.append(f"layer {l}'s control {name} is within OPT_SVD_TOL ({err}): the check "
+                                    "cannot tell a wrong solve")
+        del covs
+        line["svd"] = {"tolerance": OPT_SVD_TOL, "layers": svd_rows}
+
+        # 2. inspect_artifact on the artifact
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = inspect_artifact.main([artifact, "--device", "cuda"])
+        info = json.loads(buf.getvalue())
+        line["inspect"] = {k: info[k] for k in ("params", "dense_params", "achieved_compression")}
+        want_rows = [[cspec.q_ranks[l], cspec.k_ranks[l], cspec.v_ranks[l], cspec.o_ranks[l], cspec.gate_ranks[l]]
+                     for l in range(OPT_LAYERS)]
+        if rc != 0 or [[row[k] for k in ("q", "k", "v", "o", "mlp")] for row in info["per_layer"]] != want_rows:
+            problems.append(f"inspect_artifact's per-layer ranks {info['per_layer']} differ from the spec's")
+
+        # 3. the compressed artifact through export_to_hf and the port's
+        # importer; the artifact's forward through K1 (each layer at its own
+        # width) also against the plain attention
+        ids = torch.as_tensor(load_eval_tokens(None, "synthetic", 128, 1, vocab_size=spec.vocab_size), device="cuda")
+        t0 = time.perf_counter()
+        out = export_to_hf(cspec, cparams, os.path.join(tmp, "hf_compressed"), tokenizer_source=ckpt)
+        export_s = time.perf_counter() - t0
+        spec2 = spec_from_hf_config(read_hf_config(out))
+        params2 = params_from_state_dict(spec2, load_file(os.path.join(out, "model.safetensors")), device="cuda")
+        mark = k1.launches
+        with torch.no_grad():
+            lk = forward(cspec, cparams, ids)[0]
+            err_c = float((forward(spec2, params2, ids)[0] - lk).abs().max())
+            lp = forward(cspec, cparams, ids, attn_impl="xla")[0]
+        launches["export_compressed"], expected["export_compressed"] = k1.launches - mark, 2 * OPT_LAYERS
+        err_plain, plain_ok = float((lk - lp).abs().max()), bool(torch.allclose(lk, lp, rtol=1e-3, atol=1e-3))
+        del params2, lk, lp
+        line["export_compressed"] = {"seconds": export_s, "logits_max_abs_err": err_c, "tolerance": 1e-5,
+                                     "spec_equal": spec2 == cspec, "k1_vs_plain_max_abs_err": err_plain,
+                                     "k1_vs_plain_tolerance": "rtol 1e-3, atol 1e-3"}
+        if spec2 != cspec or not err_c <= 1e-5:
+            problems.append(f"the compressed export reloads with spec equal {spec2 == cspec}, logits off by {err_c}")
+        if not plain_ok:
+            problems.append(f"the compressed forward through K1 is {err_plain} from the plain attention's")
+
+        # 4. the dense model through export_to_hf and transformers
+        import transformers
+
+        out = export_to_hf(spec_d, params_d, os.path.join(tmp, "hf_dense"))
+        hf_model = transformers.OPTForCausalLM.from_pretrained(out, dtype=torch.float32).to("cuda").eval()
+        mark = k1.launches
+        with torch.no_grad():
+            want = forward(spec_d, params_d, ids)[0]
+            err_d = float((hf_model(ids).logits - want).abs().max())
+            scale = float(want.abs().max())
+        launches["export_dense"], expected["export_dense"] = k1.launches - mark, OPT_LAYERS
+        del hf_model, want
+        torch.cuda.empty_cache()
+        line["export_dense_transformers"] = {"logits_max_abs_err": err_d, "logits_max_abs": scale,
+                                             "tolerance": OPT_HF_TOL, "transformers": transformers.__version__,
+                                             "tf32": torch.backends.cuda.matmul.allow_tf32}
+        if not err_d <= OPT_HF_TOL:
+            problems.append(f"transformers' OPT logits differ from the port's dense forward by {err_d}")
+
+        # 5. the staged search on the same model
+        base = CompressionConfig(
+            model=ckpt, device="cuda", seq_len=2048, calib_size=int(job["--calib_size"]),
+            calibs_batch_size=int(job["--calibs_batch_size"]), compression_ratio=0.3, dataset="synthetic",
+            solver_precision="f32_device", qk_method="svd", temp_storage_dir=os.path.join(tmp, "search"),
+            output_dir=os.path.join(tmp, "search_out"), metrics_dir=os.path.join(tmp, "search_metrics"),
+        ).validate()
+        with _timed_trials() as calls:
+            mark, t0 = k1.launches, time.perf_counter()
+            best, best_val, history = staged_search(base, spec_d, params_d, **OPT_SEARCH)
+            launches["search"] = k1.launches - mark
+            line["search_seconds"] = time.perf_counter() - t0
+        trials = [{"seconds": c["seconds"] + p["seconds"], "k1_launches": c["k1_launches"] + p["k1_launches"]}
+                  for c, p in zip(calls[::2], calls[1::2])]
+        for t, (_, score) in zip(trials, history + [(best, best_val)]):
+            t["score"] = score
+        expected["search"] = OPT_LAYERS * (
+            OPT_SEARCH["n_trials"] * (n_calib + math.ceil(min(OPT_SEARCH["proxy_samples"], 16) / 8))
+            + OPT_SEARCH["top_k"] * (n_calib + math.ceil(min(4 * OPT_SEARCH["proxy_samples"], 16) / 8)))
+        line["search"] = {"trials": trials, "best_params": best, "best_score": best_val}
+        if not all(math.isfinite(v) for _, v in history) or not math.isfinite(best_val):
+            problems.append(f"the search scored {[v for _, v in history]}, finalist {best_val}")
+        del params_d, cparams, results
+        launches["phase"], expected["phase"] = k1.launches, sum(expected.values())
+    torch.cuda.empty_cache()
+    line["k1_launches"], line["expected_k1_launches"] = launches, expected
+    for step, n in launches.items():
+        if n != expected[step]:
+            problems.append(f"flash_attention launched {n} times in the phase's {step}, expected {expected[step]}")
+    # every shape K1 ran at in the phase is one the kernel phase held
+    # against the plain version
+    cased = {(c["B"], c["H"], c["Hk"], c["T"], c["hd"], c["hd_v"], c["dtype"], c["window"]) for c in KERNEL_CASES}
+    line["k1_shapes"] = sorted(map(list, shapes), key=str)
+    for shape in sorted(shapes - cased, key=str):
+        problems.append(f"K1 ran at {shape} (B, H, Hk, T, hd, hd_v, dtype, window), which no kernel case checks")
+    records["flash_attention"]["launches_by_phase"]["opt"] = launches["phase"]
+    line["phase_seconds"] = time.perf_counter() - t_phase
+    emit(line)
+    if problems:
+        raise AssertionError("; ".join(problems))
+    return line
+
+
+STREAM = dict(prompt=200, new=56, window=256, n_sink=4, long_prompt=64, long_new=960, cli_new=64, seed=7,
+              cli_prompt="the quick brown fox hello world")
+
+
+def phase_stream(records: dict, main_out: dict) -> dict:
+    """Streaming generation on the main phase's compressed model (module
+    docstring, phase 11)."""
+    import numpy as np
+    import torch
+
+    from modegpt_tpu_torch.evals import cli as eval_cli
+    from modegpt_tpu_torch.kernels import flash_attention as fa_mod
+    from modegpt_tpu_torch.kernels import ragged_decode as rd_mod
+    from modegpt_tpu_torch.models.padded import forward_padded, generate_padded
+    from modegpt_tpu_torch.models.streaming import streaming_generate
+
+    pm, V = main_out["pm"], main_out["spec"].vocab_size
+    rng = np.random.default_rng(STREAM["seed"])
+    problems, line = [], {"phase": "stream", "model": "the main phase's compressed Llama-3-8B widths, padded"}
+    fa_mod.flash_attention.launches = rd_mod.ragged_gqa_attend.launches = 0
+
+    # 1. inside the window: greedy generation's tokens
+    prompt = rng.integers(2, V, (1, STREAM["prompt"]))
+    kw = dict(window=STREAM["window"], n_sink=STREAM["n_sink"])
+    t0 = time.perf_counter()
+    streamed = streaming_generate(pm, prompt, max_new_tokens=STREAM["new"], **kw)
+    inside_s = time.perf_counter() - t0
+    greedy = generate_padded(pm, prompt, max_new_tokens=STREAM["new"]).cpu().numpy()
+    equal = bool(np.array_equal(streamed, greedy))
+    inside = {"tokens_equal_greedy": equal, "seconds": inside_s, "tokens": STREAM["prompt"] + STREAM["new"]}
+    if not equal:
+        # a flip between two f32 computation orders is a tie: the streamed
+        # token must still be within 1e-3 of its row's max in the padded
+        # forward over the streamed sequence (teacher forcing)
+        first = int(np.nonzero(streamed[0] != greedy[0])[0][0])
+        with torch.no_grad():
+            logits = forward_padded(pm.spec, pm.layers, pm.other, pm.q_hd_true,
+                                    torch.as_tensor(streamed[:, :first], device="cuda"), attn_impl="xla")[0, -1]
+        gap = float(logits.max() - logits[int(streamed[0, first])])
+        inside.update(first_divergence=first, gap_to_row_max=gap)
+        if not gap <= 1e-3:
+            problems.append(f"streamed tokens part from greedy at {first} by a logit gap of {gap}")
+    line["inside_window"] = inside
+
+    # 2. beyond the window: the same start, finite logits, a flat cache
+    prompt = rng.integers(2, V, (1, STREAM["long_prompt"]))
+    within = STREAM["window"] - STREAM["long_prompt"]
+    ref = streaming_generate(pm, prompt, max_new_tokens=within, **kw)
+    bad = torch.zeros((), dtype=torch.int64, device="cuda")
+    mem = []
+
+    def on_step(g, logits):
+        nonlocal bad
+        bad = bad + (~torch.isfinite(logits)).sum()
+        if g >= STREAM["long_prompt"]:
+            mem.append(torch.cuda.memory_allocated())
+
+    # earlier phases' garbage is collected first and no collection runs
+    # during the stream, so memory_allocated moves only with the stream
+    gc.collect()
+    gc.disable()
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        long = streaming_generate(pm, prompt, max_new_tokens=STREAM["long_new"], on_step=on_step, **kw)
+        long_s = time.perf_counter() - t0
+    finally:
+        gc.enable()
+    n_bad = int(bad)
+    same = bool(np.array_equal(long[:, : STREAM["long_prompt"] + within], ref))
+    line["beyond_window"] = {
+        "prompt": STREAM["long_prompt"], "new": STREAM["long_new"], "window": STREAM["window"],
+        "first_tokens_equal_inside_run": same, "compared": within, "nonfinite_logits": n_bad,
+        "memory_allocated_first_last": [mem[0], mem[-1]], "memory_allocated_min_max": [min(mem), max(mem)],
+        "seconds": long_s, "new_tokens_per_s": STREAM["long_new"] / long_s,
+        "tokens_per_s": (STREAM["long_prompt"] + STREAM["long_new"]) / long_s,
+    }
+    if not same:
+        problems.append(f"the first {within} tokens beyond-window differ from the run inside the window")
+    if n_bad:
+        problems.append(f"{n_bad} non-finite logits in the long stream")
+    if max(mem) != min(mem):
+        problems.append(f"device memory moved during the stream: {min(mem)} .. {max(mem)} bytes")
+
+    # 3. the eval CLI with --streaming_window on the artifact, with a
+    # word-level tokenizer saved into it
+    tok = _full_vocab_tokenizer(V)
+    tok.save_pretrained(main_out["artifact_dir"])
+    argv = ["--model", main_out["artifact_dir"], "--generate", STREAM["cli_prompt"], "--streaming_window",
+            str(STREAM["window"]), "--max_new_tokens", str(STREAM["cli_new"]), "--device", "cuda"]
+    t0 = time.perf_counter()
+    res = eval_cli.main(argv)
+    cli_s = time.perf_counter() - t0
+    ids = np.asarray([tok(STREAM["cli_prompt"])["input_ids"]])
+    direct = tok.decode(streaming_generate(pm, ids, max_new_tokens=STREAM["cli_new"], eos_token_id=tok.eos_token_id,
+                                           **kw)[0].tolist())
+    line["eval_cli"] = {"seconds": cli_s, "generation_head": res["generation"][:80],
+                        "equals_library_stream": res["generation"] == direct}
+    if res["generation"] != direct or not res["generation"].startswith(STREAM["cli_prompt"]):
+        problems.append("the eval CLI's streamed text differs from streaming_generate's")
+    launches = {"flash_attention": fa_mod.flash_attention.launches,
+                "ragged_gqa_attend": rd_mod.ragged_gqa_attend.launches}
+    line["launches"] = launches
+    records["flash_attention"]["launches_by_phase"]["stream"] = launches["flash_attention"]
+    records["ragged_gqa_attend"]["launches_by_phase"]["stream"] = launches["ragged_gqa_attend"]
+    if any(launches.values()):
+        problems.append(f"streaming launched a kernel ({launches}): it runs on the plain attention, as in JAX")
+    emit(line)
+    if problems:
+        raise AssertionError("; ".join(problems))
+    return line
+
+
 def card_line() -> str:
     try:
         out = subprocess.run(
@@ -3161,7 +3666,7 @@ def card_line() -> str:
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--phases", default="build,kernel,main,serve,sched,server,quant,moe,long,archs,big")
+    ap.add_argument("--phases", default="build,kernel,main,serve,sched,server,stream,quant,moe,long,archs,opt,big")
     ap.add_argument("--profile", action="store_true",
                     help="trace the main job, the serve round, the quant phase's int8 rounds, the moe "
                     "job, the long job and the archs job with torch.profiler; print their device busy time")
@@ -3190,12 +3695,12 @@ def main(argv=None) -> int:
         emit(phase_build())
     if "kernel" in phases:
         phase_kernel(records)
-    if {"main", "serve", "sched", "server", "quant", "moe", "long", "archs", "big"} & set(phases) \
+    if {"main", "serve", "sched", "server", "stream", "quant", "moe", "long", "archs", "opt", "big"} & set(phases) \
             and "kernel" not in phases:
-        raise SystemExit("chip_smoke: the main, serve, sched, server, quant, moe, long, archs and big phases need "
-                         "the kernel phase's records")
-    if {"main", "serve", "sched", "server", "quant"} & set(phases):
-        main_out = phase_main(records, args.profile, keep_artifact="server" in phases)
+        raise SystemExit("chip_smoke: the main, serve, sched, server, stream, quant, moe, long, archs, opt and big "
+                         "phases need the kernel phase's records")
+    if {"main", "serve", "sched", "server", "stream", "quant"} & set(phases):
+        main_out = phase_main(records, args.profile, keep_artifact=bool({"server", "stream"} & set(phases)))
         try:
             if "serve" in phases:
                 phase_serve(records, main_out, args.profile)
@@ -3205,6 +3710,9 @@ def main(argv=None) -> int:
             if "server" in phases:
                 torch.cuda.empty_cache()
                 phase_server(records, main_out)
+            if "stream" in phases:
+                torch.cuda.empty_cache()
+                phase_stream(records, main_out)
             if "quant" in phases:
                 torch.cuda.empty_cache()
                 phase_quant(records, main_out, args.profile)
@@ -3220,6 +3728,9 @@ def main(argv=None) -> int:
     if "archs" in phases:
         torch.cuda.empty_cache()
         phase_archs(records, args.profile)
+    if "opt" in phases:
+        torch.cuda.empty_cache()
+        phase_opt(records)
     if "big" in phases:
         torch.cuda.empty_cache()
         phase_big(records, args.profile)

@@ -14,7 +14,10 @@ that per-layer path, a loop over the ported ops:
 * Type-II:  `ops.qk.compress_qk_layer_rope` / `compress_qk_layer_opt` on
   the covariance diagonals, as ``_solve_qk_host`` does, with a RoPE
   arch's q/k biases (qwen2, starcoder2, qwen2_moe) sliced through the
-  rotary mask;
+  rotary mask; with ``qk_method="svd"`` on a non-RoPE arch (OPT,
+  GPT-2), `ops.qk.compress_qk_layer_svd` on the layer input's Gram and
+  the q/k kernels of ``params`` (JAX ``_solve_qk_svd_batched``), never
+  from ``host_params``: its factors are no row slices;
 * Type-III: `ops.vo.vo_full_factors`, sliced to rank.
 
 A MoE layer's experts are solved one after another: the ridge of each
@@ -60,6 +63,7 @@ from modegpt_tpu_torch.ops.mlp import nystrom_down, nystrom_mlp, nystrom_scores,
 from modegpt_tpu_torch.ops.qk import (
     compress_qk_layer_opt,
     compress_qk_layer_rope,
+    compress_qk_layer_svd,
     gather_heads,
     qk_opt_mask,
     qk_rope_mask,
@@ -138,10 +142,6 @@ def solve_chunk_batched(
     """
     if fetch not in ("host", "device"):
         raise ValueError(f"fetch must be host or device, got {fetch!r}")
-    if config.qk_method != "cr" and "qk" in order:
-        raise NotImplementedError(
-            f"modegpt_tpu_torch.compress.batched: qk_method {config.qk_method!r} is not ported"
-        )
     layers = list(target_layers)
     dev, dt = solver_placement(config, _tree_device(params["layers"][layers[0]]))
     whiten = "eigh" if config.solver_precision == "f64_cpu" else "cholesky"
@@ -238,7 +238,14 @@ def solve_chunk_batched(
             # scores read only the covariance diagonals: float64 on the host
             cov_q = calib.cov_q[l].to(device="cpu", dtype=torch.float64)
             cov_k = calib.cov_k[l].to(device="cpu", dtype=torch.float64)
-            if host_params is not None:
+            if config.qk_method == "svd" and not spec.uses_rope:
+                biases = [src[n]["bias"].to(device=dev, dtype=dt) if "bias" in src[n] else None for n in "qk"]
+                f = compress_qk_layer_svd(calib.cov_x[l].to(device=dev, dtype=dt), hf(lp, "q"), hf(lp, "k"),
+                                          *biases, rank, config.ridge_qk, H)
+                fd = {"q": out_factor(f.q), "k": out_factor(f.k)}
+                if f.q_bias is not None:
+                    fd.update(q_bias=meta(f.q_bias), k_bias=meta(f.k_bias))
+            elif host_params is not None:
                 # the rows of the host tree's kernels, by the same masks
                 mask = (qk_rope_mask if spec.uses_rope else qk_opt_mask)(cov_q, cov_k, rank, config.ridge_qk)
                 q_mask = torch.repeat_interleave(mask, spec.group_size, dim=0) if spec.uses_rope else mask

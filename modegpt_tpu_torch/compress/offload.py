@@ -254,7 +254,7 @@ def _stage_quantized(lp, dtype: str, stager: _PinnedStager, stats: Optional[Dict
     return _dequant_staged(kinds, _ready(stager(payload), stager.device)), None
 
 
-def _slim_window_lp(spec: ModelSpec, l: int, lp: Dict, host_staged: bool) -> Dict:
+def _slim_window_lp(spec: ModelSpec, l: int, lp: Dict, host_staged: bool, config: CompressionConfig) -> Dict:
     """The staged tree a flush window keeps for its solve.
 
     With host-staged weights the solve gathers the up/gate and q/k rows
@@ -264,11 +264,14 @@ def _slim_window_lp(spec: ModelSpec, l: int, lp: Dict, host_staged: bool) -> Dic
     window at Qwen3-32B widths in bf16) before the solve's workspace
     allocates beside it. MoE layers and dense layers whose ``cov_mlp`` is
     below the JAX package's low-memory threshold keep the whole tree, as
-    there. (The JAX rule also keeps q/k for ``qk_method="svd"``, which
-    the port does not have.)"""
+    there. The whitened-SVD Q/K solve (``config.qk_method == "svd"`` on a
+    non-RoPE arch) reads the staged q/k kernels, so they stay too."""
     if not host_staged or spec.is_moe_layer(l) or spec.gate_ranks[l] ** 2 * 4 <= _LOWMEM_COV_BYTES:
         return lp
-    return {k: v for k, v in lp.items() if k in ("down", "v", "o", "shared")}
+    keep = ("down", "v", "o", "shared")
+    if config.qk_method == "svd" and not spec.uses_rope:
+        keep += ("q", "k")
+    return {k: v for k, v in lp.items() if k in keep}
 
 
 def _flush_hbm_estimate(
@@ -777,7 +780,7 @@ def stream_calibrate_solve(
             timing["sweep_s"] += time.perf_counter() - t_sweep
             if collect:
                 window_taps[l] = taps_l
-                window_lp[l] = _slim_window_lp(spec, l, lp, host_staged)
+                window_lp[l] = _slim_window_lp(spec, l, lp, host_staged, config)
             del lp, taps_l
             logger.info("streamed sweep: layer %d/%d done", l + 1, spec.n_layers)
             if will_flush and window_taps:

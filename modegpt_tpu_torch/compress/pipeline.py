@@ -40,9 +40,13 @@ Calibration and solve run one of four ways (JAX
 `compress_in_memory` is the compress-then-serve handoff: no disk, and no
 factor copy to the host.
 
+``profile_dir`` traces the calibrate + solve section (the fused job, the
+streamed sweep and the chunked loop) with `torch.profiler`
+(`utils.profiling.trace`) into one Chrome trace a job.
+
 Paths of the JAX pipeline that this port does not have raise
 NotImplementedError up front: meshes (data/model parallel, pipeline and
-ring), qk_method=svd, orbax artifacts and profiler traces.
+ring) and orbax artifacts.
 """
 
 from __future__ import annotations
@@ -75,6 +79,7 @@ from modegpt_tpu_torch.models.spec import ModelSpec
 from modegpt_tpu_torch.ops.allocation import allocate_keep_ratios
 from modegpt_tpu_torch.utils.device import DeviceLike, resolve_device
 from modegpt_tpu_torch.utils.metrics import MetricsRegistry
+from modegpt_tpu_torch.utils.profiling import trace
 
 logger = logging.getLogger("modegpt_tpu_torch")
 
@@ -87,9 +92,7 @@ def _check_ported(config: CompressionConfig) -> None:
         f"mesh_shape={config.mesh_shape!r} (modegpt_tpu_torch.parallel)": bool(config.mesh_shape),
         "shard_sequence": config.shard_sequence,
         "shard_stats": config.shard_stats,
-        f"qk_method={config.qk_method}": config.qk_method != "cr",
         f"artifact_backend={config.artifact_backend}": config.artifact_backend != "npz",
-        "profile_dir": bool(config.profile_dir),
     }
     names = [name for name, on in unported.items() if on]
     if names:
@@ -257,84 +260,85 @@ def run_compression(
     accumulate = "device" if config.solver_precision == "f32_device" else "host"
     fused_result = None
     t = time.perf_counter()
-    if config.fused:
-        # the whole calibrate -> allocate -> solve -> surgery job at once;
-        # bypasses the factor store and resume
-        from modegpt_tpu_torch.compress.fused import fused_compress
+    with trace(config.profile_dir, dev):
+        if config.fused:
+            # the whole calibrate -> allocate -> solve -> surgery job at once;
+            # bypasses the factor store and resume
+            from modegpt_tpu_torch.compress.fused import fused_compress
 
-        fused_result = fused_compress(spec, params, calib_batches, config)
-        t = steps("fused", t)
-    elif stream:
-        # one forward for the whole job, weights staged per layer; the
-        # factors persist window by window, so the sweep resumes like the
-        # chunked loop below (which then only loads them)
-        pending_all = [
-            l for l in range(spec.n_layers)
-            if not all(load_layer_factors(config.temp_storage_dir, l, s) is not None for s in suffixes)
-        ]
-        if pending_all:
+            fused_result = fused_compress(spec, params, calib_batches, config)
+            t = steps("fused", t)
+        elif stream:
+            # one forward for the whole job, weights staged per layer; the
+            # factors persist window by window, so the sweep resumes like the
+            # chunked loop below (which then only loads them)
+            pending_all = [
+                l for l in range(spec.n_layers)
+                if not all(load_layer_factors(config.temp_storage_dir, l, s) is not None for s in suffixes)
+            ]
+            if pending_all:
 
-            def persist(layers_done, chunk):
+                def persist(layers_done, chunk):
+                    for s, by_layer in chunk.items():
+                        for l, f in by_layer.items():
+                            save_layer_factors(config.temp_storage_dir, l, s, f)
+
+                stream_stats: Dict = {}
+                _, bi_scores, _ = offload.stream_calibrate_solve(
+                    spec, params, calib_batches, config, order,
+                    on_window=persist, target_layers=pending_all, stats_out=stream_stats, device=dev,
+                )
+                metrics["stream_async_flush"] = bool(stream_stats["async_flush"])
+                metrics["stream_flush_wait_s"] = stream_stats["flush_wait_s"]
+                results["stream_stats"] = stream_stats
+                _, max_sp = allocate_keep_ratios(
+                    bi_scores, config.compression_ratio,
+                    smoothing=config.sparsity_smoothing, max_sparsity=config.max_sparsity,
+                )
+                metrics["max_layer_sparsity"] = max_sp
+                metrics["smoothing"] = config.sparsity_smoothing
+                gc.collect()
+                t = steps("stream", t)
+        for start in range(0, 0 if fused_result else spec.n_layers, config.layers_per_step):
+            target_layers = list(range(start, min(spec.n_layers, start + config.layers_per_step)))
+            # Resume: skip layers whose factors are all on disk already.
+            pending = [
+                l for l in target_layers
+                if not all(load_layer_factors(config.temp_storage_dir, l, s) is not None for s in suffixes)
+            ]
+            t = time.perf_counter()
+            if pending:
+                if config.calib_exec == "window":
+                    # taps for the window only, BI for every layer, one forward
+                    # over every layer a batch (the weights stay in place)
+                    calib = calibrate_window(
+                        spec, params, calib_batches, start, config.layers_per_step,
+                        gram_precision=config.gram_precision,
+                    )
+                else:
+                    calib = calibrate(
+                        spec, params, calib_batches, pending,
+                        accumulate=accumulate, gram_precision=config.gram_precision,
+                    )
+                t = steps("calibrate", t)
+                keep_ratios, max_sp = allocate_keep_ratios(
+                    calib.bi_scores, config.compression_ratio,
+                    smoothing=config.sparsity_smoothing, max_sparsity=config.max_sparsity,
+                )
+                metrics["max_layer_sparsity"] = max_sp
+                metrics["smoothing"] = config.sparsity_smoothing
+                t = steps("allocate", t)
+                chunk = solve_chunk_batched(spec, params, pending, keep_ratios, calib, config, order)
+                t = steps("solve", t)
                 for s, by_layer in chunk.items():
                     for l, f in by_layer.items():
                         save_layer_factors(config.temp_storage_dir, l, s, f)
-
-            stream_stats: Dict = {}
-            _, bi_scores, _ = offload.stream_calibrate_solve(
-                spec, params, calib_batches, config, order,
-                on_window=persist, target_layers=pending_all, stats_out=stream_stats, device=dev,
-            )
-            metrics["stream_async_flush"] = bool(stream_stats["async_flush"])
-            metrics["stream_flush_wait_s"] = stream_stats["flush_wait_s"]
-            results["stream_stats"] = stream_stats
-            _, max_sp = allocate_keep_ratios(
-                bi_scores, config.compression_ratio,
-                smoothing=config.sparsity_smoothing, max_sparsity=config.max_sparsity,
-            )
-            metrics["max_layer_sparsity"] = max_sp
-            metrics["smoothing"] = config.sparsity_smoothing
-            gc.collect()
-            t = steps("stream", t)
-    for start in range(0, 0 if fused_result else spec.n_layers, config.layers_per_step):
-        target_layers = list(range(start, min(spec.n_layers, start + config.layers_per_step)))
-        # Resume: skip layers whose factors are all on disk already.
-        pending = [
-            l for l in target_layers
-            if not all(load_layer_factors(config.temp_storage_dir, l, s) is not None for s in suffixes)
-        ]
-        t = time.perf_counter()
-        if pending:
-            if config.calib_exec == "window":
-                # taps for the window only, BI for every layer, one forward
-                # over every layer a batch (the weights stay in place)
-                calib = calibrate_window(
-                    spec, params, calib_batches, start, config.layers_per_step,
-                    gram_precision=config.gram_precision,
-                )
-            else:
-                calib = calibrate(
-                    spec, params, calib_batches, pending,
-                    accumulate=accumulate, gram_precision=config.gram_precision,
-                )
-            t = steps("calibrate", t)
-            keep_ratios, max_sp = allocate_keep_ratios(
-                calib.bi_scores, config.compression_ratio,
-                smoothing=config.sparsity_smoothing, max_sparsity=config.max_sparsity,
-            )
-            metrics["max_layer_sparsity"] = max_sp
-            metrics["smoothing"] = config.sparsity_smoothing
-            t = steps("allocate", t)
-            chunk = solve_chunk_batched(spec, params, pending, keep_ratios, calib, config, order)
-            t = steps("solve", t)
-            for s, by_layer in chunk.items():
-                for l, f in by_layer.items():
-                    save_layer_factors(config.temp_storage_dir, l, s, f)
-            del calib, chunk
-            gc.collect()
-        for l in target_layers:
-            for s in suffixes:
-                factors[s][l] = load_layer_factors(config.temp_storage_dir, l, s)
-        steps("factor_store", t)
+                del calib, chunk
+                gc.collect()
+            for l in target_layers:
+                for s in suffixes:
+                    factors[s][l] = load_layer_factors(config.temp_storage_dir, l, s)
+            steps("factor_store", t)
     compress_seconds = time.perf_counter() - t_compress
     metrics["compress_seconds"] = compress_seconds
     results["compress_seconds"] = compress_seconds

@@ -61,7 +61,7 @@ class CompressionConfig:
     mesh_shape: str = ""  # e.g. "data:4,model:2"; empty = single device
     model_dtype: str = "float32"  # forward dtype: float32 | bfloat16
     metrics_dir: str = "./metrics"
-    profile_dir: str = ""  # profiler trace output; not ported (must stay empty)
+    profile_dir: str = ""  # torch.profiler Chrome traces of the calibrate + solve steps; empty = disabled
     shard_sequence: bool = False  # sequence-parallel calibration over the model axis
     shard_stats: bool = False  # layer-shard Gram accumulators over the data axis
     seed: int = 1234

@@ -11,7 +11,9 @@ this order and as asked: per-sample alpaca perplexity
 (``--alpaca_per_sample``), joined-window perplexity (``--dataset``, through
 ``--compressed_exec``), zero-shot multiple-choice tasks (``--tasks``) and
 greedy generation (``--generate``: the plain KV-cache `generate`, or
-with ``--prompt_lookup`` prompt-lookup decoding, or with
+with ``--streaming_window W`` the attention-sink ring cache of
+`models.streaming` over the padded stack (``--streaming_sinks`` pinned
+tokens), or with ``--prompt_lookup`` prompt-lookup decoding, or with
 ``--speculative_draft <dir>`` speculative decoding with that model as
 the draft, both on the padded stacks through `models.speculative`, their
 rounds, drafted and accepted tokens in the results); prints the
@@ -21,8 +23,7 @@ generated text and, last, one JSON line of results.
 checkpoint, so an artifact evaluates on the offline ``synthetic`` corpus
 without it. ``--tasks``, ``--alpaca_per_sample`` and ``--generate`` need a
 tokenizer (files in the artifact directory, or the source it names).
-``--streaming_window`` and a ``--mesh_shape`` are not ported and raise
-NotImplementedError.
+A ``--mesh_shape`` is not ported and raises NotImplementedError.
 """
 
 from __future__ import annotations
@@ -91,8 +92,9 @@ def _parser() -> argparse.ArgumentParser:
     p.add_argument("--n_draft", type=int, default=4)
     p.add_argument("--prompt_lookup", action="store_true", help="prompt-lookup decoding for --generate")
     p.add_argument("--lookup_ngram", type=int, default=3)
-    p.add_argument("--streaming_window", type=int, default=0, help="not ported")
-    p.add_argument("--streaming_sinks", type=int, default=4)
+    p.add_argument("--streaming_window", type=int, default=0,
+                   help="attention-sink ring cache of this many positions for --generate (0 = off)")
+    p.add_argument("--streaming_sinks", type=int, default=4, help="pinned sink tokens of --streaming_window")
     p.add_argument("--mesh_shape", default="", help="not ported (one device)")
     p.add_argument("--compressed_exec", default="auto", choices=("auto", "unrolled", "padded"),
                    help="heterogeneous-rank execution path (see models/padded.py)")
@@ -105,12 +107,8 @@ def main(argv=None):
     from modegpt_tpu_torch.utils.logging import setup_logging
 
     args = _parser().parse_args(argv)
-    unported = [name for name, on in (
-        ("--streaming_window (models/streaming.py)", args.streaming_window > 0),
-        ("--mesh_shape (parallel/mesh.py)", bool(args.mesh_shape)),
-    ) if on]
-    if unported:
-        raise NotImplementedError("modegpt_tpu_torch.evals.cli: not ported: " + ", ".join(unported))
+    if args.mesh_shape:
+        raise NotImplementedError("modegpt_tpu_torch.evals.cli: not ported: --mesh_shape (parallel/mesh.py)")
     logger = setup_logging()
     device = resolve_device(args.device)
     spec, params, tokenizer = _load_any(args.model, device)
@@ -162,7 +160,14 @@ def main(argv=None):
             raise SystemExit("--generate requires a tokenizer")
         ids = [tokenizer(args.generate)["input_ids"]]
         eos = getattr(tokenizer, "eos_token_id", None)
-        if args.prompt_lookup:
+        if args.streaming_window:
+            from modegpt_tpu_torch.models.streaming import streaming_generate
+
+            out = streaming_generate(
+                pad_to_uniform(spec, params), ids, max_new_tokens=args.max_new_tokens,
+                window=args.streaming_window, n_sink=args.streaming_sinks, eos_token_id=eos,
+            )
+        elif args.prompt_lookup:
             out, stats = speculative.prompt_lookup_generate(
                 pad_to_uniform(spec, params), ids, max_new_tokens=args.max_new_tokens,
                 n_draft=args.n_draft, ngram=args.lookup_ngram, eos_token_id=eos, return_stats=True,

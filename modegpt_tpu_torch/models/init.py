@@ -28,9 +28,13 @@ def init_params(
     device: Optional[DeviceLike] = None,
 ) -> Dict:
     """Random parameter tree for ``spec`` on ``device`` (default: the
-    generator's device)."""
+    generator's device). On the ``"meta"`` device the tree has shapes and
+    no storage, for counting."""
     check_supported(spec)
-    dev = resolve_device(generator.device if device is None else device)
+    if str(device) == "meta":
+        dev = torch.device("meta")
+    else:
+        dev = resolve_device(generator.device if device is None else device)
 
     def dense(shape):
         w = torch.randn(shape, generator=generator, device=dev, dtype=torch.float32)

@@ -52,6 +52,11 @@ each per-layer view ``layers[...][l]`` hands `forward._linear` layer l's
 own [out] (experts: [E, out]) scale. A quantised tree is padded through
 this order only: `pad_to_uniform` reads float kernels.
 
+`prefill_padded` and `generate_padded` are plain generation over the
+padded stack (the JAX functions of the same names; no JAX module calls
+them): a prompt prefill, then one-token steps on the plain cache
+attention.
+
 MoE layers run every expert on every token (``moe="dense"``) or by
 capacity-based token dispatch (``moe="dispatch"``, with ``token_valid``
 marking the rows whose tokens may claim expert capacity). Tensor
@@ -86,6 +91,8 @@ __all__ = [
     "padding_overhead",
     "forward_padded",
     "init_cache_padded",
+    "prefill_padded",
+    "generate_padded",
 ]
 
 Length = Union[int, Sequence[int], np.ndarray]
@@ -550,3 +557,49 @@ def _model_step_padded(
     if np.ndim(length) == 0:
         return logits, int(length) + S
     return logits, np.asarray(length) + S
+
+
+def prefill_padded(pm: PaddedModel, prompt_ids: torch.Tensor, cache):
+    """Prompt tokens [B, P] through the padded stack into ``cache`` =
+    (k, v, length) from `init_cache_padded`, written in place; returns
+    (last-position logits [B, V], (k, v, length + P))."""
+    ck, cv, length = cache
+    logits, length = _model_step_padded(pm.spec, pm.layers, pm.other, pm.q_hd_true, prompt_ids, ck, cv, length)
+    return logits[:, -1, :], (ck, cv, length)
+
+
+@torch.no_grad()
+def generate_padded(
+    pm: PaddedModel,
+    prompt_ids,
+    max_new_tokens: int = 32,
+    temperature: float = 0.0,
+    top_k: Optional[int] = None,
+    eos_token_id: Optional[int] = None,
+    generator: Optional[torch.Generator] = None,
+    max_len: Optional[int] = None,
+) -> torch.Tensor:
+    """Generation over the padded stack: prefill, then ``max_new_tokens``
+    one-token steps (greedy, or sampled from ``generator`` in the JAX
+    ``key``'s place). Returns [B, prompt + new] int64 tokens on the
+    model's device, as `models.generate.generate` does; a row that has
+    emitted ``eos_token_id`` repeats it."""
+    from modegpt_tpu_torch.models.generate import _sample
+
+    dev = pm.other["embed_tokens"].device
+    prompt_ids = torch.as_tensor(prompt_ids, device=dev).long()
+    B, P = prompt_ids.shape
+    cache = init_cache_padded(pm, B, P + max_new_tokens if max_len is None else max_len,
+                              dtype=pm.other["embed_tokens"].dtype)
+    logits, cache = prefill_padded(pm, prompt_ids, cache)
+    out = [prompt_ids]
+    done = torch.zeros((B,), dtype=torch.bool, device=dev)
+    for i in range(max_new_tokens):
+        token = _sample(logits, generator, temperature, top_k)
+        if eos_token_id is not None:
+            token = torch.where(done, torch.full_like(token, eos_token_id), token)
+            done = done | (token == eos_token_id)
+        out.append(token[:, None])
+        if i + 1 < max_new_tokens:
+            logits, cache = prefill_padded(pm, token[:, None], cache)
+    return torch.cat(out, dim=1)

@@ -21,7 +21,9 @@ descending-score order (not sorted), as the reference builds it
 (compress_qk.py:366-367). Ties go to the lower index, as with
 ``jax.lax.top_k``.
 
-The whitened-SVD method (``qk_method="svd"``) is not ported.
+`compress_qk_layer_svd` is the alternative Type-II solve for non-RoPE
+archs (``qk_method="svd"``): a whitened two-stage SVD of each head's QK
+bilinear form, all heads in one batched `torch.linalg.svd`.
 """
 
 from __future__ import annotations
@@ -29,6 +31,8 @@ from __future__ import annotations
 from typing import NamedTuple, Optional
 
 import torch
+
+from modegpt_tpu_torch.ops.psd import sqrt_and_inv_sqrt_psd
 
 __all__ = [
     "QKFactors",
@@ -39,6 +43,7 @@ __all__ = [
     "gather_heads",
     "compress_qk_layer_rope",
     "compress_qk_layer_opt",
+    "compress_qk_layer_svd",
 ]
 
 # The reference regularises sqrt(C_q) with sqrt_M's default ridge (1e-4)
@@ -170,3 +175,76 @@ def compress_qk_layer_opt(
         q_bias=gather_heads(bias_q[:, None], n_heads, topk)[:, 0],
         k_bias=gather_heads(bias_k[:, None], n_heads, topk)[:, 0],
     )
+
+
+def _qk_svd_solve(
+    cov_x: torch.Tensor,
+    W_q: torch.Tensor,
+    W_k: torch.Tensor,
+    bias_q: Optional[torch.Tensor],
+    bias_k: Optional[torch.Tensor],
+    rank: int,
+    n_heads: int,
+    ridge: float,
+):
+    """Whitened two-stage SVD of the QK bilinear form, batched over heads.
+
+    Per head: U,S,Vh = svd(sqrt(C_x) @ Wq_h^T); U',S',Vh' = svd(S Vh Wk_h);
+    Q_new = (C^-1/2 U U')[:, :r], K_new = diag(S')[:r] Vh'[:r, :], with a
+    scale balance alpha = sqrt(max|K| / max|Q|) (reference:
+    compress_qk_svd, compress_qk.py:62-91). At full rank
+    Q_new^T K_new == Wq_h^T Wk_h exactly (the whitening cancels).
+    Biases keep the score's cross-terms in least squares:
+    b_q'^T K == b_q^T Wk_h and Q^T b_k' == Wq_h^T b_k, solved with pinv.
+    The factors are unique up to a sign per singular pair; Q^T K, the
+    bias cross-terms and alpha are not affected by those signs.
+
+    The whitening's eigh runs in float64 whatever the input's dtype. A
+    layer-normed input (pre-LN OPT) leaves its Gram one direction of
+    little energy: its eigenvalue lies below a float32 eigh's rounding, can
+    come out negative, clamp to zero past the ridge, and the inverse square
+    root then scales that direction by 1e12. The JAX function runs the
+    eigh in the input's dtype; with float64 inputs the two agree.
+    """
+    d_model = cov_x.shape[0]
+    hd = W_q.shape[0] // n_heads
+    sqrt_C, inv_sqrt_C = (m.to(cov_x.dtype) for m in sqrt_and_inv_sqrt_psd(cov_x.double(), ridge))
+    Wq_h = W_q.reshape(n_heads, hd, d_model)
+    Wk_h = W_k.reshape(n_heads, hd, d_model)
+
+    U, S, Vh = torch.linalg.svd(sqrt_C @ Wq_h.transpose(1, 2), full_matrices=False)  # [H, d, hd]
+    Up, Sp, Vph = torch.linalg.svd((S[..., None] * Vh) @ Wk_h, full_matrices=False)  # [H, hd, d]
+    Q = (inv_sqrt_C @ (U @ Up))[..., :rank]  # [H, d, r]
+    K = Sp[:, :rank, None] * Vph[:, :rank, :]  # [H, r, d]
+    q_max = torch.clamp(torch.amax(torch.abs(Q), dim=(1, 2)), min=1e-30)
+    alpha = torch.sqrt(torch.amax(torch.abs(K), dim=(1, 2)) / q_max)[:, None, None]
+    Q = (Q * alpha).transpose(1, 2)  # [H, r, d] q weight
+    K = K / alpha  # [H, r, d] k weight
+    bq_new = bk_new = None
+    if bias_q is not None:
+        bq_h = bias_q.reshape(n_heads, hd, 1)
+        bk_h = bias_k.reshape(n_heads, hd, 1)
+        bq_new = (torch.linalg.pinv(K.transpose(1, 2)) @ (Wk_h.transpose(1, 2) @ bq_h)).reshape(-1)
+        bk_new = (torch.linalg.pinv(Q.transpose(1, 2)) @ (Wq_h.transpose(1, 2) @ bk_h)).reshape(-1)
+    return Q.reshape(n_heads * rank, d_model), K.reshape(n_heads * rank, d_model), bq_new, bk_new
+
+
+def compress_qk_layer_svd(
+    cov_x: torch.Tensor,
+    W_q: torch.Tensor,
+    W_k: torch.Tensor,
+    bias_q: Optional[torch.Tensor],
+    bias_k: Optional[torch.Tensor],
+    rank: int,
+    ridge_qk: float,
+    n_heads: int,
+) -> QKFactors:
+    """Alternative Type-II solve: whitened SVD of the QK bilinear form.
+
+    The reference ships it as an unused alternative "better for OPT
+    models" (compress_qk.py:16-148); here it is ``qk_method="svd"`` for
+    non-RoPE archs. cov_x [d, d] is the layer input's Gram; W_q, W_k
+    [n_heads*hd, d] in HF layout; the result is on their device and dtype.
+    """
+    q, k, bq, bk = _qk_svd_solve(cov_x, W_q, W_k, bias_q, bias_k, rank, n_heads, ridge_qk)
+    return QKFactors(q=q, k=k, rotary_mask=None, q_bias=bq, k_bias=bk)

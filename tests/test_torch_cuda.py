@@ -840,3 +840,79 @@ def test_seeded_stream_on_the_card_is_the_same_alone_batched_fused_and_mixed(cud
     assert run(7, [0.0], prefill_exec="batched") == alone
     assert run(7, [1.0, 0.0], prefill_exec="batched", steps_per_dispatch=4) == alone
     assert run(8, []) != alone
+
+
+# ---- the whitened-SVD Q/K solve and streaming generation ----
+
+
+def test_svd_qk_solve_on_the_card_matches_the_cpu_f64(cuda_device):
+    """`compress_qk_layer_svd` in float32 on the card (cuSOLVER) against
+    the same solve in float64 on the CPU: each head's bilinear form
+    Q_h^T K_h (free of the SVD's per-pair signs) within 1e-3 relative,
+    and the bias cross-terms b_q'^T K_h within 1e-3 relative."""
+    from modegpt_tpu_torch.ops.qk import compress_qk_layer_svd
+
+    H, hd, d, r = 4, 32, 128, 12
+    rng = np.random.default_rng(5)
+    X = rng.standard_normal((4 * d, d)) * rng.uniform(0.3, 2.0, d)
+    host = [X.T @ X / X.shape[0], rng.standard_normal((H * hd, d)) / 8, rng.standard_normal((H * hd, d)) / 8,
+            rng.standard_normal(H * hd) / 8, rng.standard_normal(H * hd) / 8]
+    want = compress_qk_layer_svd(*(torch.from_numpy(a) for a in host), r, 1e-6, H)
+    got = compress_qk_layer_svd(*(torch.from_numpy(a).float().to(cuda_device) for a in host), r, 1e-6, H)
+    assert got.q.device.type == "cuda" and got.q.dtype == torch.float32
+
+    def heads(t):
+        return t.detach().cpu().double().reshape(H, r, -1)
+
+    gq, gk, wq, wk = heads(got.q), heads(got.k), heads(want.q), heads(want.k)
+    gb, wb = got.q_bias.cpu().double().reshape(H, 1, r), want.q_bias.reshape(H, 1, r)
+    for h in range(H):
+        form_g, form_w = gq[h].T @ gk[h], wq[h].T @ wk[h]
+        assert float((form_g - form_w).abs().max() / form_w.abs().max()) < 1e-3
+        cross_g, cross_w = gb[h] @ gk[h], wb[h] @ wk[h]
+        assert float((cross_g - cross_w).abs().max() / cross_w.abs().max()) < 1e-3
+
+
+def test_svd_qk_solve_on_the_card_layer_normed_gram(cuda_device):
+    """The same float32 solve on the card on a layer norm's Gram (pre-LN
+    OPT: one direction of almost no energy, which a float32 eigh can put
+    below minus the ridge) stays within 1e-3 of the CPU's float64 solve
+    (each head's Q_h^T K_h)."""
+    from modegpt_tpu_torch.ops.qk import compress_qk_layer_svd
+
+    H, hd, d, r, ridge = 4, 32, 256, 12, 1e-8
+    rng = np.random.default_rng(3)
+    x = rng.standard_normal((4 * d, d)) * rng.uniform(0.5, 2.0, d)
+    x -= x.mean(1, keepdims=True)
+    x /= np.sqrt((x**2).mean(1, keepdims=True))
+    g, b = 1 + 0.02 * rng.standard_normal(d), 0.02 * rng.standard_normal(d)
+    x = x * g + b - g * (b / g).sum() / d
+    host = [(x.T @ x / x.shape[0]).astype(np.float32), rng.standard_normal((H * hd, d)) / 8,
+            rng.standard_normal((H * hd, d)) / 8, rng.standard_normal(H * hd) / 8, rng.standard_normal(H * hd) / 8]
+    want = compress_qk_layer_svd(*(torch.from_numpy(a).double() for a in host), r, ridge, H)
+    got = compress_qk_layer_svd(*(torch.from_numpy(a).float().to(cuda_device) for a in host), r, ridge, H)
+    forms = [f.q.detach().cpu().double().reshape(H, r, d).transpose(1, 2) @ f.k.detach().cpu().double().reshape(H, r, d)
+             for f in (got, want)]
+    assert float((forms[0] - forms[1]).abs().max() / forms[1].abs().max()) < 1e-3
+
+
+def test_streaming_step_on_the_card_matches_the_cpu(cuda_device):
+    """`streaming_generate` of a tiny llama on the card against the same
+    weights on the CPU: equal tokens beyond the window (evictions
+    included) and every step's logits within 1e-4."""
+    from modegpt_tpu_torch.models.padded import pad_to_uniform
+    from modegpt_tpu_torch.models.streaming import streaming_generate
+
+    spec, card = _tiny_llama_on(cuda_device)
+    cpu = _tree_to(card, "cpu")
+    ids = np.random.default_rng(6).integers(1, 256, (2, 20))
+    logits = {}
+    tokens = {}
+    for name, tree in (("card", card), ("cpu", cpu)):
+        seen = logits.setdefault(name, [])
+        tokens[name] = streaming_generate(pad_to_uniform(spec, tree), ids, max_new_tokens=28, window=16, n_sink=2,
+                                          on_step=lambda g, lg, seen=seen: seen.append(lg.cpu()))
+    np.testing.assert_array_equal(tokens["card"], tokens["cpu"])
+    assert len(logits["card"]) == 20 + 27
+    for a, b in zip(logits["card"], logits["cpu"]):
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4)

@@ -10,8 +10,8 @@
   (tests/fixtures/task_docs.json), winogrande partial scoring and the
   truncation boundary included; `compute_perplexity_alpaca` with given
   texts; greedy `generate` with and without a repetition penalty and EOS.
-* Unported CLI options raise NotImplementedError, and the CLI's default
-  device (cuda) raises without a card.
+* The unported ``--mesh_shape`` raises NotImplementedError, and the CLI's
+  default device (cuda) raises without a card.
 """
 
 import json
@@ -119,9 +119,8 @@ def test_eval_clis_agree(artifact, monkeypatch, capsys):
 
 def test_eval_cli_unported_options_and_devices(artifact, monkeypatch, tmp_path):
     base = ["--model", artifact, "--dataset", "synthetic", "--seq_len", "16", "--device", "cpu"]
-    for extra in (["--streaming_window", "8"], ["--mesh_shape", "data:2"]):
-        with pytest.raises(NotImplementedError, match="modegpt_tpu_torch.evals.cli"):
-            t_main(base + extra)
+    with pytest.raises(NotImplementedError, match="modegpt_tpu_torch.evals.cli"):
+        t_main(base + ["--mesh_shape", "data:2"])
     # an artifact without tokenizer files: what needs one exits, as the JAX CLI does
     bare = tmp_path / "bare"
     bare.mkdir()

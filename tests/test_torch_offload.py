@@ -502,10 +502,10 @@ def test_slim_window_lp():
     spec = ModelSpec(**_llama_kw())
     big_spec = dataclasses.replace(spec, gate_ranks=(big,) * 3)
     lp = {k: object() for k in ("q", "k", "v", "o", "up", "gate", "down", "attn_norm")}
-    assert set(offload._slim_window_lp(big_spec, 0, lp, True)) == {"down", "v", "o"}
-    assert offload._slim_window_lp(big_spec, 0, lp, False) is lp
-    assert offload._slim_window_lp(spec, 0, lp, True) is lp
-    assert offload._slim_window_lp(ModelSpec(**MIXED_KW), 1, lp, True) is lp
+    assert set(offload._slim_window_lp(big_spec, 0, lp, True, CompressionConfig())) == {"down", "v", "o"}
+    assert offload._slim_window_lp(big_spec, 0, lp, False, CompressionConfig()) is lp
+    assert offload._slim_window_lp(spec, 0, lp, True, CompressionConfig()) is lp
+    assert offload._slim_window_lp(ModelSpec(**MIXED_KW), 1, lp, True, CompressionConfig()) is lp
 
 
 # ---- flush policy and out-of-memory retries -----------------------------

@@ -167,7 +167,7 @@ def test_f32_device_solver_runs_on_the_model_device(tmp_path):
 
 @pytest.mark.parametrize(
     "knob",
-    [dict(mesh_shape="data:2"), dict(shard_stats=True), dict(qk_method="svd"), dict(artifact_backend="orbax")],
+    [dict(mesh_shape="data:2"), dict(shard_stats=True), dict(artifact_backend="orbax")],
     ids=lambda k: next(iter(k)),
 )
 def test_unported_paths_raise(tmp_path, knob):
