@@ -12,6 +12,7 @@
     python3 chip_smoke.py --phases build,kernel,main,server
     python3 chip_smoke.py --phases build,kernel,opt
     python3 chip_smoke.py --phases build,kernel,main,stream
+    python3 chip_smoke.py --phases build,kernel,parallel
 
 Phases, each printing one JSON line:
 
@@ -176,7 +177,7 @@ Phases, each printing one JSON line:
    `export_to_hf` of the dense model loaded by
    `transformers.OPTForCausalLM` (logits within OPT_HF_TOL of the port's
    forward, TF32 off on both sides), and `analysis.search.staged_search`
-   on the model (3 proxy trials at 256 tokens, 1 finalist at 1024):
+   on the model (2 proxy trials at 256 tokens, 1 finalist at 1024):
    finite scores, each trial's seconds and K1 launches. K1's counter is
    zeroed once for the phase; each step's launches (job, calibration,
    both exports, search) equal what its forwards give, and every shape
@@ -190,6 +191,27 @@ Phases, each printing one JSON line:
    --streaming_window 256`` on the artifact (a word-level tokenizer
    saved into it) prints the library's streamed text. The plain
    attention runs here, as in JAX: K1 and K3 launch 0 times.
+
+12. parallel — the compression job on a process mesh at the main
+   phase's Llama-3-8B widths (4 layers, the same seeded f32 weights and
+   job settings), each rank a process of this script
+   (``--parallel-rank``) on cuda:0, the kernels built before any rank
+   starts: (a) the one-rank job over NCCL (``mesh_shape="data:1"``),
+   and beside it the same job with its calibration batches reversed
+   (a2: its own rounding noise);
+   (b) the same job on data:2,model:2, 4 ranks sharing the card over
+   gloo (asked for explicitly: NCCL takes one rank a card): identical
+   rank lists, MLP indices and rotary masks, the compressed model's
+   logits on one eval window within the main phase's 1e-3 of (a)'s or
+   within 4x (a2)'s distance from (a) (every factor's distance from
+   (a)'s printed, and (a2)'s), both perplexities within 2e-3; (c)
+   `calibrate_pp` and `perplexity_pp` on stage:4 and (d) `calibrate_ring`
+   on context:2 (run together), both at T = 2048, against one rank's
+   `calibrate` and `compute_perplexity` (each Gram within 1e-4 relative
+   Frobenius, BI and perplexity within 1e-4). Per rank: seconds, peak device bytes,
+   backend and K1's launches, each equal to what its forwards give (0 on
+   the ring: its products are plain ops, as in JAX); every K1 shape a
+   rank ran held against the plain attention.
 
 Then a `{"kernels": [...]}` line (each kernel's launches summed over the
 paths that ran it, and by path), the card's name and power limit as
@@ -232,6 +254,9 @@ KERNEL_CASES = [
     dict(name="ragged_T300", B=2, H=32, Hk=8, T=300, hd=128, hd_v=128, dtype="float32", window=None),
     dict(name="window100", B=2, H=32, Hk=8, T=2048, hd=128, hd_v=128, dtype="float32", window=100),
     dict(name="mha", B=2, H=32, Hk=32, T=2048, hd=128, hd_v=128, dtype="float32", window=None),
+    # the parallel phase's tensor-parallel forwards: a model:2 rank's 16
+    # heads over 4 kv heads, one row of each batch a data:2 rank
+    dict(name="tp_model2_f32", B=1, H=16, Hk=4, T=2048, hd=128, hd_v=128, dtype="float32", window=None),
     # the moe phase's job (Qwen3-30B-A3B: 32 heads over 4 kv heads)
     dict(name="moe_f32", B=2, H=32, Hk=4, T=2048, hd=128, hd_v=128, dtype="float32", window=None),
     # the archs phase's forwards at published widths (B = 1): gemma-7b's
@@ -613,19 +638,22 @@ def _pad8(q, k, v):
     return pad(q), pad(k), pad(v)
 
 
-def _flash_cases(records: dict) -> list:
+def _flash_library(q, k, v, scale, w, T):
+    """K1's yardstick: one SDPA call (GQA, head dims padded to 8)."""
     import torch.nn.functional as F
 
+    hd_v = v.shape[-1]
+    q, k, v = _pad8(q, k, v)
+    mask = _window_mask(T, w)
+    kw = dict(attn_mask=mask, is_causal=mask is None, scale=scale)
+    return lambda: F.scaled_dot_product_attention(q, k, v, enable_gqa=True, **kw)[..., :hd_v]
+
+
+def _flash_cases(records: dict) -> list:
     from modegpt_tpu_torch.kernels.flash_attention import flash_attention, flash_attention_reference
 
-    def library(q, k, v, scale, w, T):
-        hd_v = v.shape[-1]
-        q, k, v = _pad8(q, k, v)
-        mask = _window_mask(T, w)
-        kw = dict(attn_mask=mask, is_causal=mask is None, scale=scale)
-        return lambda: F.scaled_dot_product_attention(q, k, v, enable_gqa=True, **kw)[..., :hd_v]
-
-    lines = _attention_cases("flash_attention", flash_attention, flash_attention_reference, KERNEL_CASES, library)
+    lines = _attention_cases("flash_attention", flash_attention, flash_attention_reference, KERNEL_CASES,
+                             _flash_library)
     records["flash_attention"] = _record(
         "flash_attention", "modegpt_tpu_torch/csrc/flash_attention_hbm.cu",
         "modegpt_tpu/kernels/flash_attention.py:156", lines[0],
@@ -3215,7 +3243,7 @@ OPT_6_7B = dict(  # facebook/opt-6.7b config.json (weights here are random f32, 
 OPT_JOB = ["--qk_method", "svd", "--seq_len", "2048", "--calib_size", "8", "--calibs_batch_size", "2",
            "--eval_batch_size", "2", "--eval_max_samples", "4", "--compression_ratio", "0.3",
            "--solver_precision", "f32_device", "--dataset", "synthetic", "--device", "cuda"]
-OPT_SEARCH = dict(n_trials=3, top_k=1, proxy_seq_len=256, proxy_samples=8)
+OPT_SEARCH = dict(n_trials=2, top_k=1, proxy_seq_len=256, proxy_samples=8)
 # each layer's Q_h^T K_h, an f32 solve against the CPU's f64, relative:
 # the readings on an H100 were 1.1e-4 to 5.6e-3 (the last at layer 3,
 # whose cut at rank 49 falls between close singular values), and the three
@@ -3653,6 +3681,400 @@ def phase_stream(records: dict, main_out: dict) -> dict:
     return line
 
 
+# ---- the parallel phase: the compression job on a process mesh ----
+
+PARALLEL_LAYERS = 4  # Meta-Llama-3-8B widths, 32 -> 4 layers, as the main phase
+PARALLEL_JOB = dict(seq_len=2048, calib_size=8, calibs_batch_size=2, eval_batch_size=2, eval_max_samples=4,
+                    compression_ratio=0.3, dataset="synthetic", solver_precision="f32_device")
+# job name: (mesh, ranks, backend). One card: NCCL takes one rank a card,
+# so the meshes of several ranks share cuda:0 over gloo, asked for
+# explicitly; the NCCL path runs at world size 1.
+PARALLEL_RUNS = {
+    "a_nccl_data1": ("data:1", 1, "nccl"),
+    # (a) with its calibration batches in reverse order: the same sums in
+    # another order, the noise floor of the job's own float32 arithmetic
+    "a2_nccl_data1_reversed": ("data:1", 1, "nccl"),
+    "b_gloo_data2_model2": ("data:2,model:2", 4, "gloo"),
+    "c_gloo_stage4": ("stage:4", 4, "gloo"),
+    "d_gloo_context2": ("context:2", 2, "gloo"),
+}
+PARALLEL_STAT_TOL = 1e-4  # each Gram's relative Frobenius distance; BI and perplexity relative
+# The meshed job's compressed model against the one-rank job's, on one
+# eval window's last PARALLEL_LOGIT_ROWS positions: within the main
+# phase's logits tolerance, or within PARALLEL_NOISE_FACTOR times the
+# one-rank job's own distance from its reordered twin (a2). The meshed
+# job's Grams are the same sums in another order, which the solves
+# amplify by their conditioning; the factors' distances are printed
+# (relative Frobenius; V/O as each head's o_h v_g on probes, since the
+# SVD fixes a sign and a basis per head), and the selections (MLP
+# indices, rotary masks) must be equal.
+PARALLEL_LOGIT_TOL = dict(rtol=1e-3, atol=1e-3)
+PARALLEL_NOISE_FACTOR = 4.0
+PARALLEL_LOGIT_ROWS = 256
+PARALLEL_PPL_TOL = 2e-3  # the meshed job's perplexities against the one-rank job's
+PARALLEL_TIMEOUT_S = 600  # a launch; each collective times out at 300 s
+
+
+def _parallel_spec():
+    from modegpt_tpu_torch.models.spec import spec_from_hf_config
+
+    return spec_from_hf_config(SimpleNamespace(**{**LLAMA3_8B, "num_hidden_layers": PARALLEL_LAYERS}))
+
+
+def _parallel_params(spec):
+    """The main phase's weights (the card's generator, seed 0), moved to
+    host memory: the job places them (a rank's shard on the card)."""
+    import torch
+
+    from modegpt_tpu_torch.models.init import init_params
+
+    params = init_params(spec, torch.Generator(device="cuda").manual_seed(0), device="cuda")
+    return _tree_to(params, "cpu")
+
+
+def _tree_to(tree, device):
+    if isinstance(tree, dict):
+        return {k: _tree_to(v, device) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_tree_to(v, device) for v in tree]
+    return tree.to(device) if hasattr(tree, "to") else tree
+
+
+def _parallel_data(spec):
+    from modegpt_tpu_torch.calib.data import load_calibration_batches, load_eval_tokens
+
+    batches = load_calibration_batches(None, "synthetic", PARALLEL_JOB["calib_size"],
+                                       PARALLEL_JOB["calibs_batch_size"], PARALLEL_JOB["seq_len"],
+                                       vocab_size=spec.vocab_size)
+    tokens = load_eval_tokens(None, "synthetic", PARALLEL_JOB["seq_len"], PARALLEL_JOB["eval_max_samples"],
+                              vocab_size=spec.vocab_size)
+    return batches, tokens
+
+
+def _stat_errors(got, ref: dict) -> dict:
+    """Largest relative Frobenius distance of each statistic over the
+    layers, and BI's largest relative difference, against the reference
+    the parent saved."""
+    import torch
+
+    out = {}
+    for field in ("cov_mlp", "cov_q", "cov_k", "cov_x"):
+        worst = 0.0
+        for l, want in ref[field].items():
+            g = getattr(got, field)[l].to(device="cpu", dtype=torch.float64)
+            w = want.to(torch.float64)
+            worst = max(worst, float(torch.linalg.vector_norm(g - w) / torch.linalg.vector_norm(w)))
+        out[field] = worst
+    bi, want_bi = torch.tensor(got.bi_scores), torch.tensor(ref["bi"])
+    out["bi"] = float(((bi - want_bi).abs() / want_bi.abs()).max())
+    return out
+
+
+def parallel_rank(job: str, workdir: str) -> int:
+    """One rank of a parallel-phase job (this script re-run with
+    ``--parallel-rank``; RANK, WORLD_SIZE and MODEGPT_DIST_* in its
+    environment). Writes ``<workdir>/<job>.rank<r>.json``."""
+    import torch
+    import torch.distributed as dist
+
+    from modegpt_tpu_torch.kernels import flash_attention as fa_mod
+    from modegpt_tpu_torch.parallel.mesh import make_mesh, maybe_initialize_distributed
+
+    t_start = time.perf_counter()
+    assert maybe_initialize_distributed("cuda"), "not launched as a rank"
+    shape = PARALLEL_RUNS[job][0]
+    mesh = make_mesh(shape, device="cuda")
+    spec = _parallel_spec()
+    batches, tokens = _parallel_data(spec)
+    params = _parallel_params(spec)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    line = {"job": job, "mesh": shape, "rank": mesh.rank, "coords": mesh.coords, "backend": mesh.backend,
+            "device": str(mesh.device), "setup_seconds": time.perf_counter() - t_start}
+    if job.startswith("a2_"):
+        batches = batches[::-1]
+    t0 = time.perf_counter()
+    fa_mod.flash_attention.launches = 0
+    with _k1_shapes() as shapes:
+        if job.startswith(("a_", "a2_", "b_")):
+            from modegpt_tpu_torch.compress.pipeline import run_compression
+            from modegpt_tpu_torch.config import CompressionConfig
+
+            root = os.path.join(workdir, job)
+            config = CompressionConfig(
+                model="random-llama3-8b-widths", device="cuda", mesh_shape=shape, **PARALLEL_JOB,
+                output_dir=os.path.join(root, "out"), temp_storage_dir=os.path.join(root, "layers"),
+                metrics_dir=os.path.join(root, "metrics"),
+            ).validate()
+            results = run_compression(config, spec=spec, params=params, mesh=mesh,
+                                      calib_batches=batches, eval_tokens=tokens)
+            del params
+            cs = results["compressed_spec"]
+            if mesh.rank == 0:  # after the count below: these launches hold the model, not the job
+                compare = (cs, results["compressed_params"], tokens[:1])
+            line.update(
+                baseline_ppl=results["baseline_ppl"], compressed_ppl=results["compressed_ppl"],
+                step_seconds=results["step_seconds"], store=os.path.join(root, "layers"),
+                rank_lists={k: list(getattr(cs, f"{k}_ranks")) for k in ("q", "k", "v", "o", "gate")},
+            )
+            n_eval = math.ceil(PARALLEL_JOB["eval_max_samples"] / PARALLEL_JOB["eval_batch_size"])
+            n_calib = math.ceil(PARALLEL_JOB["calib_size"] / PARALLEL_JOB["calibs_batch_size"])
+            expected = PARALLEL_LAYERS * (2 * n_eval + n_calib)  # every rank runs every batch's forwards
+        elif job.startswith("c_"):
+            from modegpt_tpu_torch.parallel.pp import calibrate_pp, perplexity_pp
+
+            per = PARALLEL_LAYERS // mesh.size("stage")
+            mine = range(mesh.coord("stage") * per, (mesh.coord("stage") + 1) * per)
+            # a stage keeps its own layers (and the embeddings and head)
+            params["layers"] = [lp if l in mine else {} for l, lp in enumerate(params["layers"])]
+            calib = calibrate_pp(spec, params, batches, mesh)
+            ppl = perplexity_pp(spec, params, tokens, mesh, batch_size=PARALLEL_JOB["eval_batch_size"])
+            line["ppl"] = ppl
+            expected = per * (len(batches) + len(tokens) // PARALLEL_JOB["eval_batch_size"])
+        else:
+            from modegpt_tpu_torch.parallel.ring import calibrate_ring
+
+            params = _tree_to(params, mesh.device)
+            calib = calibrate_ring(spec, params, batches, range(PARALLEL_LAYERS), mesh)
+            expected = 0  # a ring step's products are plain torch ops, as in JAX
+        torch.cuda.synchronize()
+    line.update(seconds=time.perf_counter() - t0, comm_seconds=mesh.comm_seconds, comm_bytes=mesh.comm_bytes,
+                k1_launches=fa_mod.flash_attention.launches,
+                k1_expected=expected, k1_shapes=sorted(shapes, key=str),
+                max_memory_allocated=torch.cuda.max_memory_allocated())
+    if job.startswith(("a_", "a2_", "b_")) and mesh.rank == 0:
+        from modegpt_tpu_torch.models.forward import forward
+
+        cs, cp, ids = compare
+        logits = forward(cs, cp, torch.as_tensor(ids, device=mesh.device))[0][:, -PARALLEL_LOGIT_ROWS:]
+        torch.save(logits.cpu(), os.path.join(workdir, f"{job}.logits.pt"))
+        del logits, cp, compare
+    if job.startswith(("c_", "d_")) and mesh.rank == 0:
+        ref = torch.load(os.path.join(workdir, "reference.pt"), mmap=True, weights_only=True)
+        line["vs_one_rank"] = _stat_errors(calib, ref)
+        if "ppl" in line:
+            line["vs_one_rank"]["ppl"] = abs(line["ppl"] - ref["ppl"]) / ref["ppl"]
+    with open(os.path.join(workdir, f"{job}.rank{mesh.rank}.json"), "w") as f:
+        json.dump(line, f)
+    dist.destroy_process_group()
+    return 0
+
+
+def _launch_parallel(jobs, workdir: str) -> dict:
+    """Start every rank of ``jobs`` at once (this script,
+    ``--parallel-rank``), wait for all of them (PARALLEL_TIMEOUT_S), and
+    return each job's JSON lines with its launch seconds; a rank that
+    fails, or a launch that runs out of time, fails the phase with every
+    rank's log tail, and no rank is left running."""
+    t0 = time.perf_counter()
+    procs = []  # (job, rank, process, log)
+    for job in jobs:
+        shape, world, backend = PARALLEL_RUNS[job]
+        for r in range(world):
+            env = dict(os.environ, RANK=str(r), WORLD_SIZE=str(world), LOCAL_RANK=str(r), MODEGPT_DISTRIBUTED="1",
+                       MODEGPT_DIST_BACKEND=backend, MODEGPT_DIST_INIT_METHOD=f"file://{workdir}/{job}.rendezvous",
+                       MODEGPT_DIST_TIMEOUT="300")
+            env.setdefault("GLOO_SOCKET_IFNAME", "lo")  # every rank on this host
+            log = os.path.join(workdir, f"{job}.rank{r}.log")
+            with open(log, "w") as f:
+                procs.append((job, r, subprocess.Popen(
+                    [sys.executable, os.path.abspath(__file__), "--parallel-rank", job, workdir],
+                    env=env, stdout=f, stderr=subprocess.STDOUT,
+                ), log))
+    deadline = time.monotonic() + PARALLEL_TIMEOUT_S
+    try:
+        for _, _, p, _ in procs:
+            p.wait(timeout=max(1.0, deadline - time.monotonic()))
+    except subprocess.TimeoutExpired:
+        pass
+    finally:
+        for _, _, p, _ in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    failed = [(job, r, p.returncode, log) for job, r, p, log in procs if p.returncode]
+    if failed:
+        tails = "\n".join(f"--- {job} rank {r} (rc {rc}) ---\n" + open(log).read()[-4000:]
+                          for job, r, rc, log in failed)
+        raise AssertionError(f"parallel jobs {list(jobs)}: ranks failed\n{tails}")
+    out = {job: [json.load(open(os.path.join(workdir, f"{job}.rank{r}.json"))) for r in range(PARALLEL_RUNS[job][1])]
+           for job in jobs}
+    for lines in out.values():
+        lines[0]["launch_seconds"] = time.perf_counter() - t0
+    return out
+
+
+def _factor_distances(ref_dir: str, dirs: dict, spec) -> dict:
+    """Factor stores of one job solved from Grams summed in other orders,
+    each against the store at ``ref_dir``: selections (MLP indices,
+    rotary masks) must be equal; every other factor's largest relative
+    Frobenius distance over the layers, V/O as each head's o_h (v_g z)
+    on 8 seeded probe vectors z (the SVD's per-head sign and basis cancel
+    there), is reported. Float32 throughout: the distances are ~1e-3."""
+    import numpy as np
+
+    from modegpt_tpu_torch.compress.artifact import load_layer_factors
+
+    H, Hk, d = spec.n_heads, spec.n_kv_heads, spec.d_model
+    z = np.random.default_rng(0).standard_normal((d, 8)).astype(np.float32)
+
+    def rel(x, y):
+        return float(np.linalg.norm(x - y) / max(np.linalg.norm(y), 1e-30))
+
+    def heads(f):
+        v, o = np.asarray(f["v"], np.float32), np.asarray(f["o"], np.float32)
+        r = v.shape[0] // Hk
+        vz = (v @ z).reshape(Hk, r, -1)
+        return np.stack([o.reshape(d, H, r)[:, h] @ vz[h // (H // Hk)] for h in range(H)])
+
+    def layer(root, l):
+        f = {s_: load_layer_factors(root, l, s_) for s_ in ("mlp", "qk", "vo")}
+        return {"mlp.idx": f["mlp"]["idx"], "qk.rotary_mask": f["qk"]["rotary_mask"],
+                **{f"mlp.{k}": np.asarray(f["mlp"][k], np.float32) for k in ("up", "gate", "down")},
+                **{f"qk.{k}": np.asarray(f["qk"][k], np.float32) for k in ("q", "k")},
+                "vo.o_h v_g z": heads(f["vo"])}
+
+    out = {name: {"max_rel_fro": {}, "problems": []} for name in dirs}
+    for l in range(spec.n_layers):
+        ref = layer(ref_dir, l)
+        for name, root in dirs.items():
+            got, res = layer(root, l), out[name]
+            for key, want in ref.items():
+                if key in ("mlp.idx", "qk.rotary_mask"):
+                    if not np.array_equal(got[key], want):
+                        res["problems"].append(f"layer {l} {key} differs")
+                else:
+                    res["max_rel_fro"][key] = max(res["max_rel_fro"].get(key, 0.0), rel(got[key], want))
+    return out
+
+
+def _k1_holds(shape) -> dict:
+    """K1 at one (B, H, Hk, T, hd, hd_v, dtype, window) shape against the
+    plain attention on seeded inputs: its error and whether it is within
+    TOLERANCE."""
+    import torch
+
+    from modegpt_tpu_torch.kernels.flash_attention import flash_attention, flash_attention_reference
+
+    B, H, Hk, T, hd, hd_v, dtype, w = shape
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    dt = getattr(torch, dtype)
+    q, k, v = (torch.randn(s_, generator=gen, device="cuda").to(dt)
+               for s_ in ((B, H, T, hd), (B, Hk, T, hd), (B, Hk, T, hd_v)))
+    got = flash_attention(q, k, v, scale=hd**-0.5, window=w).float()
+    want = flash_attention_reference(q, k, v, scale=hd**-0.5, window=w).float()
+    return {"shape": list(shape), "max_abs_err": float((got - want).abs().max()),
+            "ok": bool(torch.allclose(got, want, **TOLERANCE[dtype])) and bool(torch.isfinite(got).all())}
+
+
+def _parallel_reference(workdir: str) -> dict:
+    """One-rank `calibrate` (every layer, float32 sums on the card, as
+    the stages accumulate) and `compute_perplexity` on the card, saved
+    for the stage and context jobs' rank 0 to compare with (3.3 GB)."""
+    import torch
+
+    from modegpt_tpu_torch.calib.engine import calibrate
+    from modegpt_tpu_torch.evals.perplexity import compute_perplexity
+
+    t0 = time.perf_counter()
+    spec = _parallel_spec()
+    batches, tokens = _parallel_data(spec)
+    params = _tree_to(_parallel_params(spec), "cuda")
+    calib = calibrate(spec, params, batches, range(PARALLEL_LAYERS), accumulate="device")
+    ppl = compute_perplexity(spec, params, tokens, PARALLEL_JOB["eval_batch_size"], progress=False)
+    del params
+    ref = {field: {l: g.cpu() for l, g in getattr(calib, field).items()}
+           for field in ("cov_mlp", "cov_q", "cov_k", "cov_x")}
+    ref.update(bi=list(calib.bi_scores), ppl=ppl)
+    torch.save(ref, os.path.join(workdir, "reference.pt"))
+    del calib, ref
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"seconds": time.perf_counter() - t0, "ppl": ppl}
+
+
+def phase_parallel(records: dict) -> dict:
+    """The compression job on a process mesh (module docstring, phase 12):
+    (a) the one-rank NCCL job, (b) the same job on data:2,model:2, (c)
+    calibrate_pp and perplexity_pp on stage:4 and (d) calibrate_ring on
+    context:2, each against one rank; then every K1 shape the ranks ran
+    held against the plain attention."""
+    import torch
+
+    problems = []
+    line = {"phase": "parallel", "model": "Meta-Llama-3-8B widths", "n_layers": PARALLEL_LAYERS,
+            "card": card_line(), "jobs": {}}
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="modegpt_smoke_parallel_") as tmp:
+        # (a) and (a2) together (15 GiB each), then (b) alone (4 x 14 GiB)
+        out = _launch_parallel(["a_nccl_data1", "a2_nccl_data1_reversed"], tmp)
+        out.update(_launch_parallel(["b_gloo_data2_model2"], tmp))
+        line["reference"] = _parallel_reference(tmp)
+        # (c) and (d) together: 6 ranks, peaks summing to ~50 GiB of the 80
+        out.update(_launch_parallel(["c_gloo_stage4", "d_gloo_context2"], tmp))
+
+        a, b = out["a_nccl_data1"][0], out["b_gloo_data2_model2"]
+        for r in b:
+            if r["rank_lists"] != a["rank_lists"]:
+                problems.append(f"b rank {r['rank']}: rank lists differ from the one-rank job's")
+            for key in ("baseline_ppl", "compressed_ppl"):
+                rel = abs(r[key] - a[key]) / a[key]
+                if not rel <= PARALLEL_PPL_TOL:
+                    problems.append(f"b rank {r['rank']}: {key} {r[key]} vs {a[key]} ({rel:.2e})")
+        a2 = out["a2_nccl_data1_reversed"][0]
+        if a2["rank_lists"] != a["rank_lists"]:
+            line["a2_rank_lists_differ"] = True  # reported: the noise floor is then not a floor
+        dist = _factor_distances(a["store"], {"b": b[0]["store"], "a2": a2["store"]}, _parallel_spec())
+        line["b_vs_a_factors"], line["a2_vs_a_factors"] = dist["b"], dist["a2"]
+        problems += [f"b vs a: {p}" for p in line["b_vs_a_factors"]["problems"]]
+        la, la2, lb = (torch.load(os.path.join(tmp, f"{job}.logits.pt"))
+                       for job in ("a_nccl_data1", "a2_nccl_data1_reversed", "b_gloo_data2_model2"))
+        err, noise = float((lb - la).abs().max()), float((la2 - la).abs().max())
+        ok = bool(torch.allclose(lb, la, **PARALLEL_LOGIT_TOL)) or err <= PARALLEL_NOISE_FACTOR * noise
+        line["b_vs_a_logits"] = {"rows": list(la.shape[:2]), "max_abs_err": err, "max_abs": float(la.abs().max()),
+                                 "a2_vs_a_max_abs_err": noise, "tolerance": PARALLEL_LOGIT_TOL,
+                                 "noise_factor": PARALLEL_NOISE_FACTOR, "ok": ok}
+        if not ok:
+            problems.append(f"b vs a: compressed logits beyond {PARALLEL_LOGIT_TOL} and {PARALLEL_NOISE_FACTOR}x "
+                            f"the reordered one-rank job's distance: {line['b_vs_a_logits']}")
+        for job in ("c_gloo_stage4", "d_gloo_context2"):
+            errs = out[job][0]["vs_one_rank"]
+            bad = {k: v for k, v in errs.items() if not v <= PARALLEL_STAT_TOL}
+            if bad:
+                problems.append(f"{job}: beyond {PARALLEL_STAT_TOL} of one rank: {bad}")
+
+    shapes = set()
+    for job, ranks in out.items():
+        for r in ranks:
+            shapes.update(tuple(s) for s in r["k1_shapes"])
+            if r["k1_launches"] != r["k1_expected"]:
+                problems.append(f"{job} rank {r['rank']}: K1 launched {r['k1_launches']} times, "
+                                f"expected {r['k1_expected']}")
+        line["jobs"][job] = {
+            "mesh": PARALLEL_RUNS[job][0], "backend": ranks[0]["backend"],
+            "launch_seconds": ranks[0]["launch_seconds"],
+            "ranks": [{k: r.get(k) for k in ("rank", "coords", "device", "setup_seconds", "seconds", "comm_seconds",
+                                             "comm_bytes", "max_memory_allocated", "k1_launches", "k1_expected")}
+                      for r in ranks],
+            **{k: ranks[0][k] for k in ("baseline_ppl", "compressed_ppl", "rank_lists", "step_seconds", "ppl",
+                                        "vs_one_rank") if k in ranks[0]},
+        }
+    # every K1 shape of the phase held against the plain attention: the
+    # kernel phase's cases (timed there), and the compressed evaluation's
+    # unrolled widths, which vary with the ranks (held here, untimed)
+    known = {(c["B"], c["H"], c["Hk"], c["T"], c["hd"], c["hd_v"], c["dtype"], c["window"]) for c in KERNEL_CASES}
+    held = [_k1_holds(s_) for s_ in sorted(shapes, key=str) if s_ not in known]
+    line["k1_shapes"] = {"total": len(shapes), "kernel_cases": len(shapes) - len(held), "held_here": held}
+    problems += [f"K1 at {c['shape']} disagrees with the plain attention" for c in held if not c["ok"]]
+    launches = sum(r["k1_launches"] for ranks in out.values() for r in ranks)
+    records["flash_attention"]["launches_by_phase"]["parallel"] = launches
+    line.update(k1_launches=launches, seconds=time.perf_counter() - t_phase)
+    emit(line)
+    if problems:
+        raise AssertionError("; ".join(problems))
+    return line
+
+
 def card_line() -> str:
     try:
         out = subprocess.run(
@@ -3666,10 +4088,12 @@ def card_line() -> str:
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--phases", default="build,kernel,main,serve,sched,server,stream,quant,moe,long,archs,opt,big")
+    ap.add_argument("--phases",
+                    default="build,kernel,main,serve,sched,server,stream,quant,moe,long,archs,opt,big,parallel")
     ap.add_argument("--profile", action="store_true",
                     help="trace the main job, the serve round, the quant phase's int8 rounds, the moe "
                     "job, the long job and the archs job with torch.profiler; print their device busy time")
+    ap.add_argument("--parallel-rank", nargs=2, metavar=("JOB", "WORKDIR"), help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     phases = args.phases.split(",")
     # every model and tokenizer here is local or made in code: never ask the hub
@@ -3687,6 +4111,8 @@ def main(argv=None) -> int:
     except ImportError as e:
         print(f"chip_smoke: the modegpt_tpu_torch package is missing: {e}", file=sys.stderr)
         return 2
+    if args.parallel_rank:  # one rank of the parallel phase's jobs
+        return parallel_rank(*args.parallel_rank)
 
     print(f"chip_smoke: torch {torch.__version__} cuda {torch.version.cuda} "
           f"python {sys.version.split()[0]}", file=sys.stderr)
@@ -3695,10 +4121,10 @@ def main(argv=None) -> int:
         emit(phase_build())
     if "kernel" in phases:
         phase_kernel(records)
-    if {"main", "serve", "sched", "server", "stream", "quant", "moe", "long", "archs", "opt", "big"} & set(phases) \
-            and "kernel" not in phases:
-        raise SystemExit("chip_smoke: the main, serve, sched, server, stream, quant, moe, long, archs, opt and big "
-                         "phases need the kernel phase's records")
+    if {"main", "serve", "sched", "server", "stream", "quant", "moe", "long", "archs", "opt", "big",
+            "parallel"} & set(phases) and "kernel" not in phases:
+        raise SystemExit("chip_smoke: the main, serve, sched, server, stream, quant, moe, long, archs, opt, big "
+                         "and parallel phases need the kernel phase's records")
     if {"main", "serve", "sched", "server", "stream", "quant"} & set(phases):
         main_out = phase_main(records, args.profile, keep_artifact=bool({"server", "stream"} & set(phases)))
         try:
@@ -3734,6 +4160,10 @@ def main(argv=None) -> int:
     if "big" in phases:
         torch.cuda.empty_cache()
         phase_big(records, args.profile)
+    if "parallel" in phases:
+        gc.collect()
+        torch.cuda.empty_cache()
+        phase_parallel(records)
     for rec in records.values():  # each path's launches, read just after it ran
         rec["launches"] = sum(rec["launches_by_phase"].values())
     emit({"kernels": list(records.values())})

@@ -19,6 +19,12 @@ batches where the JAX pipeline runs one pass per kind (the same sums).
 `calibrate_window` is the JAX package's windowed calibration (taps for
 one layer window, BI for every layer, float32 on the device); the
 streamed calibration is `compress.offload`.
+
+Under a `parallel.mesh.Mesh` every rank runs `calibrate` on its shard
+(rows over ``data``; heads over ``model`` for a tensor-parallel tree, or
+the sequence with ``shard_sequence``) and the sums meet at the end;
+`parallel.ring.calibrate_ring` runs the same body with the sequence
+split over ``context``.
 """
 
 from __future__ import annotations
@@ -26,13 +32,14 @@ from __future__ import annotations
 import dataclasses
 import logging
 from dataclasses import dataclass
-from typing import Dict, List, Sequence
+from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
 
 from modegpt_tpu_torch.models.forward import forward_taps
 from modegpt_tpu_torch.models.spec import ModelSpec
+from modegpt_tpu_torch.parallel.mesh import all_gather, all_reduce, reduce_to, shard_batch
 
 logger = logging.getLogger("modegpt_tpu_torch")
 
@@ -69,11 +76,15 @@ def calibrate(
     accumulate: str = "host",
     gram_precision: str = "highest",
     attn_impl: str = "auto",
+    mesh=None,
+    shard_sequence: bool = False,
+    shard_stats: bool = False,
 ) -> CalibrationResult:
     """Run calibration forwards and accumulate statistics.
 
     Args:
-      params: the parameter tree; the forwards run on its device.
+      params: the parameter tree; the forwards run on its device. Under
+        a mesh, this rank's tree (`parallel.mesh.param_shardings`).
       batches: list of [B, T] int token arrays (uniform T; B may vary on
         the last batch).
       target_layers: layers whose Grams are collected.
@@ -81,24 +92,58 @@ def calibrate(
         the model's device).
       attn_impl: the forward's attention ("auto": the CUDA kernel on the
         card, the plain version elsewhere).
+      mesh: a `parallel.mesh.Mesh` (JAX ``calib/engine.py:71-138``): each
+        batch's rows are split over its ``data`` axis, and every rank's
+        sums are all-reduced once, at the end (one collective per layer
+        and statistic, not one per batch). Tensor-parallel trees give
+        per-head Grams of this rank's heads, gathered over ``model`` at
+        the end (accumulation is linear).
+      shard_sequence: also split the sequence over the ``model`` axis
+        (``params`` replicated): attention all-gathers q/k/v along T and
+        runs on the full sequence (`models.forward._attention`); the
+        chunks' sums are all-reduced over ``model``, BI is the mean of
+        the equal chunks' means.
+      shard_stats: each ``data`` rank receives only the Grams of the
+        target layers it owns (``layer % data == coordinate``), reduced
+        to it instead of all-reduced; the others are absent from its
+        result. As in JAX, only when the target-layer count divides the
+        data axis; otherwise every rank gets every layer.
     """
+    seq_axis = "model" if (mesh is not None and shard_sequence and mesh.size("model") > 1) else None
+    return _calibrate(spec, params, batches, target_layers, accumulate, gram_precision, attn_impl,
+                      mesh, seq_axis, shard_stats)
+
+
+def _calibrate(spec, params, batches, target_layers, accumulate, gram_precision, attn_impl,
+               mesh=None, seq_axis: Optional[str] = None, shard_stats: bool = False) -> CalibrationResult:
+    """`calibrate`'s body; ``seq_axis`` is the mesh axis the sequence is
+    split over ("model" for shard_sequence, "context" for the ring)."""
     if accumulate not in ("host", "device"):
         raise ValueError(f"accumulate must be host or device, got {accumulate!r}")
     stats_layers = tuple(int(l) for l in target_layers)
     device = params["embed_tokens"].device
     acc_device = torch.device("cpu") if accumulate == "host" else device
     acc_dtype = torch.float64 if accumulate == "host" else torch.float32
+    n_seq = mesh.size(seq_axis) if seq_axis is not None else 1
 
     acc: Dict[str, Dict[int, torch.Tensor]] = {key: {} for key in _FIELDS}
     bi = torch.zeros(spec.n_layers, dtype=acc_dtype, device=acc_device)
     n_sequences = 0
     seq_len = int(batches[0].shape[1])
+    if seq_len % n_seq:
+        raise ValueError(f"seq_len {seq_len} not divisible by the {seq_axis} axis ({n_seq})")
     for batch in batches:
         n_sequences += int(batch.shape[0])
-        ids = torch.as_tensor(np.asarray(batch), device=device)
+        batch = np.asarray(batch)
+        if mesh is not None:
+            batch = shard_batch(mesh, batch)
+        if seq_axis is not None:
+            C, c = seq_len // n_seq, mesh.coord(seq_axis)
+            batch = batch[:, c * C : (c + 1) * C]
+        ids = torch.as_tensor(np.ascontiguousarray(batch), device=device)
         _, taps, bi_acc = forward_taps(
             spec, params, ids, stats_layers=stats_layers, attn_impl=attn_impl,
-            gram_precision=gram_precision, want_logits=False,
+            gram_precision=gram_precision, want_logits=False, mesh=mesh, seq_axis=seq_axis,
         )
         for l, layer_taps in taps.items():
             for key, gram in layer_taps.items():
@@ -110,6 +155,9 @@ def calibrate(
         del taps
         bi += bi_acc.to(device=acc_device, dtype=acc_dtype)
 
+    if mesh is not None:
+        bi, acc = _reduce_stats(spec, mesh, bi, acc, stats_layers, seq_axis, shard_stats)
+        bi = bi / n_seq  # the mean over T: the mean of equal chunks' means
     total_tokens = n_sequences * seq_len
     # Normalisation (reference: calibration.py:135-146): BI by sequence
     # count, covariances by token count (the actual seq_len, where the
@@ -134,6 +182,37 @@ def calibrate(
     )
 
 
+def _reduce_stats(spec, mesh, bi, acc, stats_layers, seq_axis, shard_stats):
+    """Every rank's sums combined over the mesh: BI and Grams summed over
+    ``data`` (and the sequence axis); with ``shard_stats`` each layer's
+    Grams only at its owner on ``data``; a tensor-parallel rank's per-head
+    Grams gathered over ``model``. Collectives run in one order on every
+    rank of each group: layers ascending, statistics in field order."""
+    axes = ("data",) + ((seq_axis,) if seq_axis else ())
+    n_data = mesh.size("data")
+    by_owner = shard_stats and n_data > 1 and len(stats_layers) % n_data == 0
+    bi = all_reduce(mesh, bi, axes)
+    out: Dict[str, Dict[int, torch.Tensor]] = {key: {} for key in _FIELDS}
+    for l in stats_layers:
+        for key in _FIELDS:
+            if l not in acc[key]:
+                continue
+            g = acc[key].pop(l)
+            if by_owner:
+                if seq_axis:
+                    g = all_reduce(mesh, g, seq_axis)
+                g = reduce_to(mesh, g, "data", l % n_data)
+                if g is None:
+                    continue
+            else:
+                g = all_reduce(mesh, g, axes)
+            heads = {"cov_q": spec.n_heads, "cov_k": spec.n_kv_heads}.get(key)
+            if heads is not None and g.shape[0] != heads:  # this rank's heads
+                g = all_gather(mesh, g, "model", dim=0)
+            out[key][l] = g
+    return bi, out
+
+
 def calibrate_window(
     spec: ModelSpec,
     params: Dict,
@@ -142,6 +221,7 @@ def calibrate_window(
     width: int,
     attn_impl: str = "auto",
     gram_precision: str = "highest",
+    mesh=None,
 ) -> CalibrationResult:
     """`calibrate` for the layer window ``[start, start+width)``, float32
     sums on the model's device (JAX ``calib/engine.py:432-488``): every
@@ -163,5 +243,5 @@ def calibrate_window(
     layers = [l for l in range(start, start + width) if l < spec.n_layers]
     return calibrate(
         spec, params, batches, layers, accumulate="device",
-        gram_precision=gram_precision, attn_impl=attn_impl,
+        gram_precision=gram_precision, attn_impl=attn_impl, mesh=mesh,
     )

@@ -3,6 +3,15 @@
 Takes the same flags as ``python -m modegpt_tpu.cli`` (one per
 `CompressionConfig` field); ``--device`` is a torch device ("cuda" by
 default, "cuda:N", N, or "cpu").
+
+A mesh job (``--mesh_shape data:2,model:2``) runs one process per rank
+(`parallel.mesh.maybe_initialize_distributed`)::
+
+    python -m torch.distributed.run --nproc_per_node 4 -m modegpt_tpu_torch.cli \
+        --mesh_shape data:2,model:2 ...
+
+NCCL with a card per rank; ranks that share a card need
+``MODEGPT_DIST_BACKEND=gloo``.
 """
 
 from __future__ import annotations
@@ -11,14 +20,27 @@ import logging
 
 
 def main(argv=None):
+    import torch.distributed as dist
+
     from modegpt_tpu_torch.compress.pipeline import run_compression
     from modegpt_tpu_torch.config import CompressionConfig
+    from modegpt_tpu_torch.parallel.mesh import maybe_initialize_distributed
     from modegpt_tpu_torch.utils.logging import setup_logging
 
     config = CompressionConfig.from_args(argv)
     logger = setup_logging(level=logging.DEBUG if config.debug else logging.INFO)
-    logger.info("config: %s", config.to_dict())
-    results = run_compression(config)
+    joined = maybe_initialize_distributed(config.device)
+    try:
+        if joined:
+            logger.info("torch.distributed: rank %d of %d, backend %s",
+                        dist.get_rank(), dist.get_world_size(), dist.get_backend())
+            if dist.get_world_size() > 1 and not config.mesh_shape:
+                raise ValueError("a job launched over several ranks needs --mesh_shape")
+        logger.info("config: %s", config.to_dict())
+        results = run_compression(config)  # builds this rank's mesh from --mesh_shape
+    finally:
+        if joined:
+            dist.destroy_process_group()
     summary = {
         k: v
         for k, v in results.items()

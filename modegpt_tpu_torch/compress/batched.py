@@ -69,6 +69,7 @@ from modegpt_tpu_torch.ops.qk import (
     qk_rope_mask,
 )
 from modegpt_tpu_torch.ops.vo import vo_factors_from_full, vo_full_factors
+from modegpt_tpu_torch.parallel.mesh import gather_objects
 
 logger = logging.getLogger("modegpt_tpu_torch")
 
@@ -130,20 +131,50 @@ def solve_chunk_batched(
     fetch: str = "host",
     scratch_params: bool = False,
     host_params: Optional[Dict[int, Dict]] = None,
+    mesh=None,
+    axis: Optional[str] = None,
+    device: Optional[torch.device] = None,
 ) -> Dict[str, Dict[int, Dict]]:
     """Solve every requested suffix (mlp, qk, vo) for ``target_layers``.
 
     Returns ``{suffix: {layer: {name: array}}}`` in HF layout: numpy
     under ``fetch="host"`` (the factor store's contents), device tensors
     for the kernel factors under ``fetch="device"``. ``params`` needs
-    only ``params["layers"]``; the solves run on its layers' device (or
-    the CPU under ``f64_cpu``). See the module docstring for
-    ``scratch_params`` and ``host_params``.
+    only ``params["layers"]``, the full (unsharded) layers; the solves
+    run on ``device`` (default its layers' device; the CPU under
+    ``f64_cpu``). See the module docstring for ``scratch_params`` and
+    ``host_params``.
+
+    ``mesh`` (a `parallel.mesh.Mesh`; the pipeline passes it under
+    ``solver_precision="f32_device"`` only, JAX ``batched.py:169-224``):
+    layer-parallel solves over ``axis`` (default the mesh's first axis).
+    The rank at coordinate c on it, and 0 on every other axis, solves the
+    layers with ``layer % n == c``; the others solve nothing. Layers are
+    independent, so there is no communication until the factors (numpy,
+    ``fetch="host"``) are gathered to rank 0, which returns them all;
+    every other rank returns empty dicts. Under ``shard_stats`` the
+    pipeline passes ``axis="data"``: the layers a rank solves are then
+    exactly those whose Grams `calib.engine.calibrate` reduced to it.
     """
     if fetch not in ("host", "device"):
         raise ValueError(f"fetch must be host or device, got {fetch!r}")
     layers = list(target_layers)
-    dev, dt = solver_placement(config, _tree_device(params["layers"][layers[0]]))
+    if mesh is not None:
+        if fetch != "host":
+            raise ValueError("layer-parallel solves gather host factors: fetch must be host")
+        axis = axis or mesh.axis_names[0]
+        none = {s: {} for s in ("mlp", "qk", "vo") if s in order}
+        if any(mesh.coord(a) for a in mesh.axis_names if a != axis):
+            return none
+        n, c = mesh.size(axis), mesh.coord(axis)
+        mine = [l for l in layers if l % n == c]
+        solved = solve_chunk_batched(spec, params, mine, keep_ratios, calib, config, order,
+                                     scratch_params=scratch_params, device=device) if mine else none
+        parts = gather_objects(mesh, solved, axis, owner=0)
+        if parts is None:
+            return none
+        return {s: {l: f for part in parts for l, f in part[s].items()} for s in none}
+    dev, dt = solver_placement(config, device or _tree_device(params["layers"][layers[0]]))
     whiten = "eigh" if config.solver_precision == "f64_cpu" else "cholesky"
     H, Hk = spec.n_heads, spec.n_kv_heads
     if fetch == "device" or not host_params or not all(l in host_params for l in layers):

@@ -60,17 +60,25 @@ def supports_fused(spec: ModelSpec) -> bool:
 
 
 @torch.no_grad()
-def fused_compress(spec: ModelSpec, params: Dict, batches: Sequence[np.ndarray], config: CompressionConfig):
+def fused_compress(spec: ModelSpec, params: Dict, batches: Sequence[np.ndarray], config: CompressionConfig,
+                   mesh=None):
     """Compress in one pass (module docstring), on the parameters'
     device. Returns (compressed_spec, compressed_params); ``params`` is
     not mutated, and the norms, embeddings and head pass through by
-    reference."""
+    reference.
+
+    ``mesh``: a data-parallel `parallel.mesh.Mesh` (JAX
+    ``fused.py:204-226``): with the full tree on every rank, each
+    calibration batch's rows are split over its ``data`` axis and the
+    Grams all-reduced; allocation, solves and surgery then run
+    replicated on every rank, as the JAX job runs them."""
     if not supports_fused(spec):
         raise ValueError(
             "fused_compress covers uniform dense RoPE-family stacks (gated MLP, pre-norm, bias-free attention)"
         )
     layers = list(range(spec.n_layers))
-    calib = calibrate(spec, params, batches, layers, accumulate="device", gram_precision=config.gram_precision)
+    calib = calibrate(spec, params, batches, layers, accumulate="device", gram_precision=config.gram_precision,
+                      mesh=mesh)
     # BI summed in float32 over the batches, divided by the sequence count
     # in float32 (the float64 quotient of two float32 values rounds to it)
     bi = torch.tensor(calib.bi_scores, dtype=torch.float32, device=params["embed_tokens"].device)

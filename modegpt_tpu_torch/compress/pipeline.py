@@ -40,13 +40,30 @@ Calibration and solve run one of four ways (JAX
 `compress_in_memory` is the compress-then-serve handoff: no disk, and no
 factor copy to the host.
 
+On a process mesh (``mesh_shape`` or ``mesh``, `parallel.mesh`; JAX
+``pipeline.py:338-700``) every rank runs this function. A mesh with a
+``stage`` axis that `parallel.pp.supports_pp` accepts stages both
+evaluations (`perplexity_pp`) and calibrates every layer in one pass
+(`calibrate_pp`); a ``context`` axis calibrates through the ring
+(`parallel.ring.calibrate_ring`) unless ``calib_exec="window"`` is asked
+for explicitly; otherwise a ``model`` axis shards the weights Megatron
+style (`param_shardings`; replicated under ``shard_sequence``, which
+splits the calibration sequence over it instead) and a ``data`` axis
+splits the calibration and evaluation rows. The streamed sweep runs
+only without a mesh. Under ``solver_precision="f32_device"`` the solves
+are layer-parallel over the mesh (`compress.batched`), otherwise rank 0
+solves. Under tensor or pipeline parallelism the full tree stays in
+host memory and each rank's device holds its shard. Only rank 0 writes
+the factor store, the artifact and the metrics JSON; every rank waits at
+a barrier after each write, then reloads the artifact for the compressed
+evaluation.
+
 ``profile_dir`` traces the calibrate + solve section (the fused job, the
 streamed sweep and the chunked loop) with `torch.profiler`
 (`utils.profiling.trace`) into one Chrome trace a job.
 
-Paths of the JAX pipeline that this port does not have raise
-NotImplementedError up front: meshes (data/model parallel, pipeline and
-ring) and orbax artifacts.
+The one path of the JAX pipeline this port does not have, orbax
+artifacts, raises NotImplementedError up front.
 """
 
 from __future__ import annotations
@@ -77,6 +94,9 @@ from modegpt_tpu_torch.evals.perplexity import compute_perplexity
 from modegpt_tpu_torch.models.forward import check_supported
 from modegpt_tpu_torch.models.spec import ModelSpec
 from modegpt_tpu_torch.ops.allocation import allocate_keep_ratios
+from modegpt_tpu_torch.parallel.mesh import Mesh, make_mesh, param_shardings
+from modegpt_tpu_torch.parallel.pp import calibrate_pp, perplexity_pp, supports_pp
+from modegpt_tpu_torch.parallel.ring import calibrate_ring, supports_ring
 from modegpt_tpu_torch.utils.device import DeviceLike, resolve_device
 from modegpt_tpu_torch.utils.metrics import MetricsRegistry
 from modegpt_tpu_torch.utils.profiling import trace
@@ -88,16 +108,9 @@ __all__ = ["run_compression", "compress_in_memory"]
 
 def _check_ported(config: CompressionConfig) -> None:
     """Raise for a knob that selects a path this port does not have."""
-    unported = {
-        f"mesh_shape={config.mesh_shape!r} (modegpt_tpu_torch.parallel)": bool(config.mesh_shape),
-        "shard_sequence": config.shard_sequence,
-        "shard_stats": config.shard_stats,
-        f"artifact_backend={config.artifact_backend}": config.artifact_backend != "npz",
-    }
-    names = [name for name, on in unported.items() if on]
-    if names:
+    if config.artifact_backend != "npz":
         raise NotImplementedError(
-            "modegpt_tpu_torch.compress.pipeline: not ported: " + ", ".join(names)
+            f"modegpt_tpu_torch.compress.pipeline: not ported: artifact_backend={config.artifact_backend}"
         )
 
 
@@ -190,11 +203,14 @@ def run_compression(
     calib_batches=None,
     eval_tokens=None,
     device: Optional[DeviceLike] = None,
+    mesh: Optional[Mesh] = None,
 ) -> Dict:
     """Run the full pipeline. Pass (spec, params[, tokenizer]) or let it
     load ``config.model`` from disk. Runs on ``device`` (default
     ``config.device``, itself "cuda" by default; asking for CUDA without
-    it raises). Returns a results dict with baseline/compressed PPL, the
+    it raises). ``mesh`` (default: built from ``config.mesh_shape``, on
+    every rank of a launched job) runs the job SPMD over it (module
+    docstring). Returns a results dict with baseline/compressed PPL, the
     artifact path, the reloaded compressed (spec, params) and the wall
     seconds of each step."""
     from modegpt_tpu_torch.utils.logging import setup_logging
@@ -202,6 +218,12 @@ def run_compression(
     setup_logging()
     _check_ported(config)
     dev = resolve_device(config.device if device is None else device)
+    if mesh is None and config.mesh_shape:
+        mesh = make_mesh(config.mesh_shape, device=dev)
+    if mesh is not None:
+        dev = mesh.device
+        logger.info("mesh: %s", mesh)
+    rank0 = mesh is None or mesh.rank == 0
     metrics = MetricsRegistry(config.metrics_dir)
     metrics["args"] = config.to_dict()
     metrics["note"] = config.note
@@ -209,15 +231,30 @@ def run_compression(
     steps = _Steps(dev)
 
     t0 = time.perf_counter()
-    # the streamed sweep stages layer leaves from wherever they are
-    stream = config.calib_exec == "stream" and not config.fused
+    # the streamed sweep stages layer leaves from wherever they are; it
+    # runs only without a mesh
+    stream = config.calib_exec == "stream" and not config.fused and mesh is None
     if spec is None or params is None:
         from modegpt_tpu_torch.models.hf import load_hf_model
 
-        spec, params, tokenizer = load_hf_model(config.model, device="cpu" if stream else dev)
+        spec, params, tokenizer = load_hf_model(config.model, device="cpu" if stream or mesh is not None else dev)
     check_supported(spec)
+    pp_mode = supports_pp(spec, mesh)
+    ring_mode = not pp_mode and config.calib_exec != "window" and supports_ring(spec, mesh)
+    # tensor parallelism: each rank's device holds its shard, the full
+    # tree (for the solves and surgery) stays in host memory, as it does
+    # for the pipeline's stages
+    tp = (mesh is not None and mesh.size("model") > 1 and not (pp_mode or ring_mode)
+          and not config.fused and not config.shard_sequence)
+    chunked = not (pp_mode or ring_mode or config.fused or config.calib_exec == "window")
+    if mesh is not None and config.shard_stats and chunked and config.solver_precision != "f32_device":
+        raise ValueError(
+            "shard_stats leaves each data rank only its own layers' Grams; it needs the "
+            "layer-parallel solves of solver_precision='f32_device'"
+        )
     model_dtype = torch.bfloat16 if config.model_dtype == "bfloat16" else None
-    params = _to_device(params, None if stream else dev, model_dtype)
+    params = _to_device(params, torch.device("cpu") if (tp or pp_mode) else None if stream else dev, model_dtype)
+    local = param_shardings(mesh, spec, params) if tp else params  # what this rank's forwards run
     host_staged = stream and offload._host_staged(params, dev)
     order = config.order or "mlp,qk,vo"
     # Cap sequence length by the model's positional capacity
@@ -236,11 +273,16 @@ def run_compression(
     if not config.skip_baseline_eval:
         # a host-staged model evaluates on the card from a temporary copy
         # (what the JAX jit does with host numpy), never on the CPU
-        eval_params = _to_device(params, dev) if host_staged else params
-        baseline_ppl = compute_perplexity(
-            spec, eval_params, eval_tokens, config.eval_batch_size, metrics=metrics.run, attn_impl=attn_impl
-        )
-        del eval_params
+        if pp_mode:
+            # stage-sharded: the dense model never has to fit one device
+            baseline_ppl = perplexity_pp(spec, params, eval_tokens, mesh, config.eval_batch_size, attn_impl)
+        else:
+            eval_params = _to_device(params, dev) if host_staged else local
+            baseline_ppl = compute_perplexity(
+                spec, eval_params, eval_tokens, config.eval_batch_size, metrics=metrics.run,
+                attn_impl=attn_impl, mesh=mesh,
+            )
+            del eval_params
         logger.info("Baseline ppl: %s", baseline_ppl)
         metrics["baseline-ppl"] = baseline_ppl
         results["baseline_ppl"] = baseline_ppl
@@ -254,7 +296,10 @@ def run_compression(
 
     # ---- calibrate + solve (reference: run_modegpt.py:107-156) ----
     t_compress = time.perf_counter()
-    _check_factor_store(config, spec, order)
+    if rank0:
+        _check_factor_store(config, spec, order)
+    if mesh is not None:
+        mesh.barrier()
     suffixes = _suffixes(order)
     factors: Dict[str, Dict[int, Dict]] = {s: {} for s in suffixes}
     accumulate = "device" if config.solver_precision == "f32_device" else "host"
@@ -266,7 +311,7 @@ def run_compression(
             # bypasses the factor store and resume
             from modegpt_tpu_torch.compress.fused import fused_compress
 
-            fused_result = fused_compress(spec, params, calib_batches, config)
+            fused_result = fused_compress(spec, params, calib_batches, config, mesh=mesh)
             t = steps("fused", t)
         elif stream:
             # one forward for the whole job, weights staged per layer; the
@@ -299,8 +344,10 @@ def run_compression(
                 metrics["smoothing"] = config.sparsity_smoothing
                 gc.collect()
                 t = steps("stream", t)
-        for start in range(0, 0 if fused_result else spec.n_layers, config.layers_per_step):
-            target_layers = list(range(start, min(spec.n_layers, start + config.layers_per_step)))
+        # the pipeline's stages split the accumulators: every layer in one pass
+        layers_per_step = spec.n_layers if pp_mode else config.layers_per_step
+        for start in range(0, 0 if fused_result else spec.n_layers, layers_per_step):
+            target_layers = list(range(start, min(spec.n_layers, start + layers_per_step)))
             # Resume: skip layers whose factors are all on disk already.
             pending = [
                 l for l in target_layers
@@ -308,17 +355,24 @@ def run_compression(
             ]
             t = time.perf_counter()
             if pending:
-                if config.calib_exec == "window":
+                if pp_mode:
+                    calib = calibrate_pp(spec, params, calib_batches, mesh, attn_impl)
+                elif ring_mode:
+                    # the sequence split over the context axis, K/V on a
+                    # ring; an explicit calib_exec="window" wins over it
+                    calib = calibrate_ring(spec, local, calib_batches, pending, mesh)
+                elif config.calib_exec == "window":
                     # taps for the window only, BI for every layer, one forward
                     # over every layer a batch (the weights stay in place)
                     calib = calibrate_window(
-                        spec, params, calib_batches, start, config.layers_per_step,
-                        gram_precision=config.gram_precision,
+                        spec, local, calib_batches, start, config.layers_per_step,
+                        gram_precision=config.gram_precision, mesh=mesh,
                     )
                 else:
                     calib = calibrate(
-                        spec, params, calib_batches, pending,
-                        accumulate=accumulate, gram_precision=config.gram_precision,
+                        spec, local, calib_batches, pending,
+                        accumulate=accumulate, gram_precision=config.gram_precision, mesh=mesh,
+                        shard_sequence=config.shard_sequence, shard_stats=config.shard_stats,
                     )
                 t = steps("calibrate", t)
                 keep_ratios, max_sp = allocate_keep_ratios(
@@ -328,80 +382,109 @@ def run_compression(
                 metrics["max_layer_sparsity"] = max_sp
                 metrics["smoothing"] = config.sparsity_smoothing
                 t = steps("allocate", t)
-                chunk = solve_chunk_batched(spec, params, pending, keep_ratios, calib, config, order)
+                if mesh is not None and config.solver_precision == "f32_device":
+                    # layer-parallel; the factors are gathered to rank 0
+                    chunk = solve_chunk_batched(
+                        spec, params, pending, keep_ratios, calib, config, order, mesh=mesh,
+                        axis="data" if config.shard_stats else None, device=dev,
+                    )
+                elif rank0:
+                    chunk = solve_chunk_batched(spec, params, pending, keep_ratios, calib, config, order, device=dev)
+                else:
+                    chunk = {}
                 t = steps("solve", t)
-                for s, by_layer in chunk.items():
-                    for l, f in by_layer.items():
-                        save_layer_factors(config.temp_storage_dir, l, s, f)
+                if rank0:
+                    for s, by_layer in chunk.items():
+                        for l, f in by_layer.items():
+                            save_layer_factors(config.temp_storage_dir, l, s, f)
+                if mesh is not None:
+                    mesh.barrier()  # every rank reads the same store next
                 del calib, chunk
                 gc.collect()
-            for l in target_layers:
-                for s in suffixes:
-                    factors[s][l] = load_layer_factors(config.temp_storage_dir, l, s)
+            if rank0:
+                for l in target_layers:
+                    for s in suffixes:
+                        factors[s][l] = load_layer_factors(config.temp_storage_dir, l, s)
             steps("factor_store", t)
     compress_seconds = time.perf_counter() - t_compress
     metrics["compress_seconds"] = compress_seconds
     results["compress_seconds"] = compress_seconds
 
-    # ---- surgery + artifact (reference: run_modegpt.py:158-166) ----
+    # ---- surgery + artifact (reference: run_modegpt.py:158-166), rank 0 ----
     # Count BEFORE surgery: release_dense pops replaced projections.
     t = time.perf_counter()
     n_before = count_params(params)
-    if fused_result is not None:
-        comp_spec, comp_params = fused_result
-    else:
-        # lands where the embedding is: a host-staged model is assembled
-        # on the CPU (the compressed weights may not fit the card either)
-        comp_spec, comp_params = apply_factors(
-            spec, params,
-            mlp_factors=factors.get("mlp"), qk_factors=factors.get("qk"), vo_factors=factors.get("vo"),
-            release_dense=config.release_dense,
-        )
-    del factors
-    n_after = count_params(comp_params)
-    metrics["params_before"] = n_before
-    metrics["params_after"] = n_after
-    metrics["achieved_compression"] = 1.0 - n_after / max(n_before, 1)
-    metrics["rank_lists"] = {
-        "q_ranks": list(comp_spec.q_ranks),
-        "k_ranks": list(comp_spec.k_ranks),
-        "v_ranks": list(comp_spec.v_ranks),
-        "o_ranks": list(comp_spec.o_ranks),
-        "gate_ranks": list(comp_spec.gate_ranks),
-        **({"shared_gate_ranks": list(comp_spec.shared_gate_ranks)} if comp_spec.shared_gate_ranks else {}),
-    }
-    results["params_before"] = n_before
-    results["params_after"] = n_after
-    logger.info(
-        "params: %.1fM -> %.1fM (%.1f%% reduction)",
-        n_before / 1e6, n_after / 1e6, 100 * (1 - n_after / max(n_before, 1)),
-    )
-    t = steps("surgery", t)
+    del local
     save_dir = os.path.join(config.output_dir, "model")
-    save_compressed_model(
-        save_dir, comp_spec, comp_params,
-        tokenizer_source=config.model,
-        metadata={"order": order, "compression_ratio": config.compression_ratio},
-        dtype=config.artifact_dtype or config.model_dtype,
-        backend=config.artifact_backend,
-    )
+    if rank0:
+        if fused_result is not None:
+            comp_spec, comp_params = fused_result
+        else:
+            # lands where the embedding is: a host-staged model is assembled
+            # on the CPU (the compressed weights may not fit the card either)
+            comp_spec, comp_params = apply_factors(
+                spec, params,
+                mlp_factors=factors.get("mlp"), qk_factors=factors.get("qk"), vo_factors=factors.get("vo"),
+                release_dense=config.release_dense,
+            )
+        del factors
+        n_after = count_params(comp_params)
+        metrics["params_before"] = n_before
+        metrics["params_after"] = n_after
+        metrics["achieved_compression"] = 1.0 - n_after / max(n_before, 1)
+        metrics["rank_lists"] = {
+            "q_ranks": list(comp_spec.q_ranks),
+            "k_ranks": list(comp_spec.k_ranks),
+            "v_ranks": list(comp_spec.v_ranks),
+            "o_ranks": list(comp_spec.o_ranks),
+            "gate_ranks": list(comp_spec.gate_ranks),
+            **({"shared_gate_ranks": list(comp_spec.shared_gate_ranks)} if comp_spec.shared_gate_ranks else {}),
+        }
+        results["params_before"] = n_before
+        results["params_after"] = n_after
+        logger.info(
+            "params: %.1fM -> %.1fM (%.1f%% reduction)",
+            n_before / 1e6, n_after / 1e6, 100 * (1 - n_after / max(n_before, 1)),
+        )
+        t = steps("surgery", t)
+        save_compressed_model(
+            save_dir, comp_spec, comp_params,
+            tokenizer_source=config.model,
+            metadata={"order": order, "compression_ratio": config.compression_ratio},
+            dtype=config.artifact_dtype or config.model_dtype,
+            backend=config.artifact_backend,
+        )
+    if mesh is not None:
+        mesh.barrier()  # the artifact is on disk for every rank
     results["artifact_dir"] = save_dir
     t = steps("save_artifact", t)
 
     # ---- reload + compressed PPL (reference: run_modegpt.py:179-194) ----
-    del comp_params, params
+    comp_params = params = fused_result = None
     gc.collect()
     if dev.type == "cuda":
         torch.cuda.empty_cache()
-    comp_spec, comp_params, _ = load_compressed_model(save_dir, device=dev)
+    # the pipeline's stages each copy their own layers to the device
+    comp_spec, comp_params, _ = load_compressed_model(save_dir, device="cpu" if pp_mode else dev)
     results["compressed_spec"] = comp_spec
     results["compressed_params"] = comp_params
+    if not rank0:
+        results["params_before"] = n_before
+        results["params_after"] = count_params(comp_params)
     t = steps("reload_artifact", t)
     if not config.skip_final_eval:
-        compressed_ppl = compute_perplexity(
-            comp_spec, comp_params, eval_tokens, config.eval_batch_size,
-            metrics=metrics.run, attn_impl=attn_impl, exec_mode=config.compressed_exec,
-        )
+        if pp_mode:
+            from modegpt_tpu_torch.models.padded import pad_to_uniform
+
+            compressed_ppl = perplexity_pp(
+                comp_spec, comp_params, eval_tokens, mesh, config.eval_batch_size, attn_impl,
+                padded=pad_to_uniform(comp_spec, comp_params),
+            )
+        else:
+            compressed_ppl = compute_perplexity(
+                comp_spec, comp_params, eval_tokens, config.eval_batch_size,
+                metrics=metrics.run, attn_impl=attn_impl, exec_mode=config.compressed_exec, mesh=mesh,
+            )
         logger.info("Compressed ppl: %s", compressed_ppl)
         metrics[f"ppl-{config.dataset}"] = compressed_ppl
         results["compressed_ppl"] = compressed_ppl
@@ -411,7 +494,8 @@ def run_compression(
     results["total_seconds"] = time.perf_counter() - t0
     metrics["step_seconds"] = steps.seconds
     metrics["total_seconds"] = results["total_seconds"]
-    metrics.save()
+    if rank0:
+        metrics.save()
     return results
 
 

@@ -23,7 +23,10 @@ generated text and, last, one JSON line of results.
 checkpoint, so an artifact evaluates on the offline ``synthetic`` corpus
 without it. ``--tasks``, ``--alpaca_per_sample`` and ``--generate`` need a
 tokenizer (files in the artifact directory, or the source it names).
-A ``--mesh_shape`` is not ported and raises NotImplementedError.
+``--mesh_shape`` (JAX ``evals/cli.py:89-132``) splits the ``--dataset``
+perplexity's windows over the mesh's ``data`` axis, one process per rank
+(launched as `modegpt_tpu_torch.cli` describes); only rank 0 prints the
+results line.
 """
 
 from __future__ import annotations
@@ -44,7 +47,9 @@ def _load_tokenizer(path: str, source: str):
             from transformers import AutoTokenizer
 
             tokenizer = AutoTokenizer.from_pretrained(cand, local_files_only=True)
-        except (ImportError, OSError, ValueError):
+        except (ImportError, OSError, ValueError, AttributeError):
+            # AttributeError: transformers' fast-tokenizer conversion on a
+            # checkpoint directory that has no tokenizer files
             continue
         if tokenizer.pad_token is None:
             tokenizer.pad_token = tokenizer.eos_token
@@ -95,7 +100,7 @@ def _parser() -> argparse.ArgumentParser:
     p.add_argument("--streaming_window", type=int, default=0,
                    help="attention-sink ring cache of this many positions for --generate (0 = off)")
     p.add_argument("--streaming_sinks", type=int, default=4, help="pinned sink tokens of --streaming_window")
-    p.add_argument("--mesh_shape", default="", help="not ported (one device)")
+    p.add_argument("--mesh_shape", default="", help="process mesh, e.g. data:4 (one process per rank)")
     p.add_argument("--compressed_exec", default="auto", choices=("auto", "unrolled", "padded"),
                    help="heterogeneous-rank execution path (see models/padded.py)")
     p.add_argument("--device", default="cuda", help="torch device: cuda, cuda:N, N or cpu")
@@ -103,14 +108,27 @@ def _parser() -> argparse.ArgumentParser:
 
 
 def main(argv=None):
-    from modegpt_tpu_torch.utils.device import resolve_device
+    import torch.distributed as dist
+
+    from modegpt_tpu_torch.parallel.mesh import maybe_initialize_distributed
     from modegpt_tpu_torch.utils.logging import setup_logging
 
     args = _parser().parse_args(argv)
-    if args.mesh_shape:
-        raise NotImplementedError("modegpt_tpu_torch.evals.cli: not ported: --mesh_shape (parallel/mesh.py)")
     logger = setup_logging()
-    device = resolve_device(args.device)
+    joined = maybe_initialize_distributed(args.device)
+    try:
+        return _run(args, logger)
+    finally:
+        if joined:
+            dist.destroy_process_group()
+
+
+def _run(args, logger):
+    from modegpt_tpu_torch.parallel.mesh import make_mesh
+    from modegpt_tpu_torch.utils.device import resolve_device
+
+    mesh = make_mesh(args.mesh_shape, device=resolve_device(args.device))
+    device = mesh.device if mesh is not None else resolve_device(args.device)
     spec, params, tokenizer = _load_any(args.model, device)
     logger.info("loaded %s on %s: %s layers, dense=%s", args.model, device, spec.n_layers, spec.is_dense)
     results = {}
@@ -134,7 +152,8 @@ def main(argv=None):
             tokenizer, args.dataset, args.seq_len, args.eval_max_samples, vocab_size=spec.vocab_size
         )
         ppl = compute_perplexity(
-            spec, params, tokens, args.eval_batch_size, metrics=results, exec_mode=args.compressed_exec
+            spec, params, tokens, args.eval_batch_size, metrics=results, exec_mode=args.compressed_exec,
+            mesh=mesh,
         )
         results[f"ppl-{args.dataset}"] = ppl
         logger.info("ppl-%s: %.4f", args.dataset, ppl)
@@ -188,7 +207,8 @@ def main(argv=None):
         results["generation"] = text
         print(text)
 
-    print(json.dumps({k: v for k, v in results.items() if k != "generation"}, default=str))
+    if mesh is None or mesh.rank == 0:
+        print(json.dumps({k: v for k, v in results.items() if k != "generation"}, default=str))
     return results
 
 

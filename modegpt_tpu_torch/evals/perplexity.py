@@ -27,6 +27,7 @@ import torch.nn.functional as F
 from modegpt_tpu_torch.models.forward import forward
 from modegpt_tpu_torch.models.padded import forward_padded, pad_to_uniform, padding_overhead
 from modegpt_tpu_torch.models.spec import ModelSpec
+from modegpt_tpu_torch.parallel.mesh import all_reduce, shard_batch
 
 logger = logging.getLogger("modegpt_tpu_torch")
 
@@ -68,11 +69,24 @@ def compute_perplexity(
     progress: bool = True,
     attn_impl: str = "auto",
     exec_mode: str = "auto",
+    mesh=None,
 ) -> float:
     """Perplexity over pre-chunked eval windows [n, seq_len], on the
     parameters' device. exec_mode: auto | unrolled | padded (see
-    `resolve_exec_mode`)."""
+    `resolve_exec_mode`).
+
+    ``mesh`` (a `parallel.mesh.Mesh`, JAX ``perplexity.py:82-102``): each
+    batch's windows are split over its ``data`` axis (the batch size must
+    divide it) and the NLL sums all-reduced over it; ``params`` may be a
+    tensor-parallel tree of its ``model`` axis. A mesh without a ``data``
+    axis (stage-only) splits nothing. The padded path is single-device:
+    with a ``data`` axis the unrolled one runs, with a warning, as in
+    JAX."""
     mode = resolve_exec_mode(spec, exec_mode)
+    rows_mesh = mesh if (mesh is not None and "data" in mesh.axis_names) else None
+    if mode == "padded" and rows_mesh is not None:
+        logger.warning("exec_mode=padded is single-device; the unrolled path runs because a mesh was passed")
+        mode = "unrolled"
     if mode == "padded":
         pm = pad_to_uniform(spec, params)
         logger.info("eval: padded-uniform execution (%.1f%% FLOP overhead)", (padding_overhead(spec) - 1) * 100)
@@ -81,24 +95,32 @@ def compute_perplexity(
             return forward_padded(pm.spec, pm.layers, pm.other, pm.q_hd_true, batch, attn_impl=attn_impl)
     else:
         def logits_of(batch):
-            return forward(spec, params, batch, attn_impl=attn_impl)[0]
+            return forward(spec, params, batch, attn_impl=attn_impl, mesh=mesh)[0]
 
     device = params["embed_tokens"].device
+    progress = progress and (mesh is None or mesh.rank == 0)
     n_samples, seq_len = eval_tokens.shape
     total_nll = 0.0
+    local_rows = 0
     t_start = time.perf_counter()
     for i in range(0, n_samples, batch_size):
         j = min(i + batch_size, n_samples)
-        batch = torch.as_tensor(np.asarray(eval_tokens[i:j]), device=device)
+        rows = np.asarray(eval_tokens[i:j])
+        if rows_mesh is not None:
+            rows = shard_batch(rows_mesh, rows)
+        batch = torch.as_tensor(rows, device=device)
         total_nll += float(_nll_from_logits(logits_of(batch), batch))
+        local_rows += rows.shape[0]
         if progress and i > 0:
             elapsed = time.perf_counter() - t_start
-            running = math.exp(total_nll / (j * (seq_len - 1)))
+            running = math.exp(total_nll / (local_rows * (seq_len - 1)))
             print(
                 f"\rsample {j}/{n_samples} | ppl: {running:.2f} | "
                 f"{j * seq_len / max(elapsed, 1e-9):,.0f} tok/s | {elapsed:.1f}s   ",
                 end="", flush=True,
             )
+    if rows_mesh is not None:
+        total_nll = float(all_reduce(rows_mesh, torch.tensor(total_nll, dtype=torch.float64), "data"))
     elapsed = time.perf_counter() - t_start  # float() above synchronised the device
     tps = n_samples * seq_len / max(elapsed, 1e-9)
     if progress:

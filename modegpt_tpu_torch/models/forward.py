@@ -72,6 +72,7 @@ from modegpt_tpu_torch.kernels.flash_attention import (
 )
 from modegpt_tpu_torch.models.spec import ARCHS, ModelSpec
 from modegpt_tpu_torch.ops.rope import apply_rope, masked_flat_rms_norm, masked_head_rms_norm, rope_cos_sin
+from modegpt_tpu_torch.parallel.mesh import all_gather, all_reduce
 
 __all__ = ["forward", "forward_taps", "CalibStats", "check_supported", "SUPPORTED_ARCHS"]
 
@@ -338,11 +339,27 @@ def _qk_norms(spec: ModelSpec, p: Dict, q: torch.Tensor, k: torch.Tensor, rotary
     return q, k
 
 
-def _attn_output(spec: ModelSpec, p: Dict, residual: torch.Tensor, attn: torch.Tensor) -> torch.Tensor:
+def _row_linear(x: torch.Tensor, p: Dict, tp) -> torch.Tensor:
+    """A projection whose input is this rank's slice of features under
+    tensor parallelism (row-parallel o and down): the partial product
+    summed over the mesh's ``model`` axis, then the replicated bias added
+    once. ``_linear`` itself when ``tp`` is None."""
+    if tp is None:
+        return _linear(x, p)
+    y = all_reduce(tp, _linear(x, {k: v for k, v in p.items() if k != "bias"}), "model")
+    return y + p["bias"] if "bias" in p else y
+
+
+def _out_width(p: Dict) -> int:
+    """A projection's output width (float or weight-only kernel)."""
+    return (p["kernel"] if "kernel" in p else p["scale"]).shape[-1]
+
+
+def _attn_output(spec: ModelSpec, p: Dict, residual: torch.Tensor, attn: torch.Tensor, tp=None) -> torch.Tensor:
     """The o projection and the residual add: gemma2's and olmo2's
     post-attention norm on the projection before the add, post-LN OPT's
-    norm after it."""
-    a_out = _linear(attn, p["o"])
+    norm after it. ``tp``: the mesh when o is row-parallel."""
+    a_out = _row_linear(attn, p["o"], tp)
     if spec.post_norms:
         a_out = _norm(a_out, p["post_attn_norm"], spec.norm, spec.norm_eps)
     x = residual + a_out
@@ -596,6 +613,8 @@ def _attention(
     window: Optional[int],
     impl: str = "xla",
     softcap: Optional[float] = None,
+    mesh=None,
+    seq_axis: Optional[str] = None,
 ) -> torch.Tensor:
     """Causal (optionally sliding-window) attention; q [B,H,T,r],
     k/v [B,Hk,T,r_k]. impl="flash" takes the CUDA kernel K1 for
@@ -603,7 +622,22 @@ def _attention(
     "xla" (the JAX name of the plain path) takes the masked float32-softmax
     version, which runs over blocks of query rows at any T. ``softcap``
     (gemma2's cap on the scores, before the mask) takes the plain version
-    whatever impl says, as the JAX forward does: neither kernel has a cap."""
+    whatever impl says, as the JAX forward does: neither kernel has a cap.
+
+    Sequence-sharded inputs (this rank's chunk of T on ``seq_axis`` of
+    ``mesh``): impl="ring" is `parallel.ring.ring_attention` (JAX
+    forward.py:447-453); any other impl all-gathers q, k and v along T,
+    attends over the full sequence (K1 needs it whole and square) and
+    keeps this rank's rows, the gather GSPMD inserts for the JAX
+    package's ``shard_sequence``."""
+    if impl == "ring":
+        from modegpt_tpu_torch.parallel.ring import ring_attention
+
+        return ring_attention(q, k, v, scaling, mesh, softcap=softcap, window=window)
+    if seq_axis is not None:
+        C, c = q.shape[2], mesh.coord(seq_axis)
+        full = [all_gather(mesh, t, seq_axis, dim=2) for t in (q, k, v)]
+        return _attention(*full, scaling, window, impl, softcap)[:, :, c * C : (c + 1) * C]
     T = q.shape[2]
     if impl == "flash" and T >= FLASH_MIN_T and softcap is None:
         kernel = flash_attention_hbm if T > FLASH_MAX_T else flash_attention
@@ -621,26 +655,53 @@ def _layer(
     collect: bool,
     attn_impl: str = "xla",
     gram_precision: str = "highest",
+    mesh=None,
+    seq_axis: Optional[str] = None,
 ):
-    """One decoder layer. Returns (x_out, taps or None)."""
+    """One decoder layer. Returns (x_out, taps or None).
+
+    Tensor parallelism (`parallel.mesh.param_shardings`): the local head
+    counts come from the sharded q/k kernels' widths; when they are
+    short of the spec's, the layer runs its heads and its d_int slice
+    and sums the row-parallel o and down products over ``mesh``'s
+    ``model`` axis (one all-reduce each). Its taps are then: ``cov_x``
+    replicated, ``cov_q``/``cov_k`` this rank's heads (the caller gathers
+    them), ``cov_mlp`` the Gram of ``h`` all-gathered along its features.
+    ``seq_axis``: x is this rank's chunk of the sequence on that axis
+    (see `_attention`)."""
     B, T, _ = x.shape
     H, Hk = spec.n_heads, spec.n_kv_heads
     q_hd = spec.q_ranks[layer_idx] // H
     v_hd = spec.v_ranks[layer_idx] // Hk
     rotary_mask = p.get("rotary_mask")
     taps = {}
+    Hl, Hkl = _out_width(p["q"]) // q_hd, _out_width(p["k"]) // q_hd
+    tp = None
+    if Hl != H:
+        if mesh is None or mesh.size("model") * Hl != H or seq_axis is not None:
+            raise ValueError(
+                f"layer {layer_idx} holds {Hl} of {H} heads: a tensor-parallel layer needs the mesh "
+                "whose model axis sharded it (and no sequence sharding)"
+            )
+        tp = mesh
 
     # ---- attention ----
     residual = x
     x_ln = _attn_input(spec, p, x)
-    q = _linear(x_ln, p["q"]).reshape(B, T, H, q_hd)
-    k = _linear(x_ln, p["k"]).reshape(B, T, Hk, q_hd)
-    v = _linear(x_ln, p["v"]).reshape(B, T, Hk, v_hd)
+    q = _linear(x_ln, p["q"]).reshape(B, T, Hl, q_hd)
+    k = _linear(x_ln, p["k"]).reshape(B, T, Hkl, q_hd)
+    v = _linear(x_ln, p["v"]).reshape(B, T, Hkl, v_hd)
     if collect:
         taps["cov_x"] = _gram(x_ln.reshape(-1, spec.d_model), gram_precision)
         taps["cov_q"] = _head_gram(q, gram_precision)
         taps["cov_k"] = _head_gram(k, gram_precision)
-    q, k = _qk_norms(spec, p, q, k, rotary_mask)
+    if tp is not None and spec.flat_qk_norm:
+        # olmo2's norm spans every head: normalise the gathered heads
+        c = tp.coord("model")
+        q, k = _qk_norms(spec, p, all_gather(tp, q, "model", 2), all_gather(tp, k, "model", 2), rotary_mask)
+        q, k = q[:, :, c * Hl : (c + 1) * Hl], k[:, :, c * Hkl : (c + 1) * Hkl]
+    else:
+        q, k = _qk_norms(spec, p, q, k, rotary_mask)
     q = q.transpose(1, 2)  # [B, H, T, q_hd]
     k = k.transpose(1, 2)
     v = v.transpose(1, 2)
@@ -650,11 +711,13 @@ def _layer(
     window = None
     if spec.layer_types and spec.layer_types[layer_idx] == "sliding_attention":
         window = spec.sliding_window
-    attn = _attention(q, k, v, _attn_scale(spec, q_hd), window, attn_impl, spec.attn_logit_softcap)
-    attn = attn.transpose(1, 2).reshape(B, T, H * v_hd)
-    x = _attn_output(spec, p, residual, attn)
+    attn = _attention(
+        q, k, v, _attn_scale(spec, q_hd), window, attn_impl, spec.attn_logit_softcap, mesh, seq_axis
+    )
+    attn = attn.transpose(1, 2).reshape(B, T, Hl * v_hd)
+    x = _attn_output(spec, p, residual, attn, tp)
 
-    x, h, h_shared = _mlp_block(spec, p, x, layer_idx, collect)
+    x, h, h_shared = _mlp_block(spec, p, x, layer_idx, collect, tp=tp)
     if collect:
         if spec.is_moe_layer(layer_idx):
             taps["cov_mlp"] = _moe_gram(h)  # "highest" whatever gram_precision says, as JAX
@@ -674,6 +737,7 @@ def _mlp_block(
     moe: str = "dense",
     moe_capacity: float = 2.0,
     token_valid: Optional[torch.Tensor] = None,
+    tp=None,
 ):
     """A layer's MLP half with its residual: the pre-MLP norm (none for
     olmo2), gemma2's and olmo2's post-MLP norm on the down projection
@@ -683,7 +747,9 @@ def _mlp_block(
     h, h_shared): h the post-activation intermediate the calibration taps
     (on a MoE layer the routed [B, T, E, D] intermediate, None unless
     ``collect`` and never under dispatch), h_shared the shared expert's
-    (or None)."""
+    (or None). ``tp``: the mesh when up/gate are column- and down
+    row-parallel; h is then gathered along its features when
+    ``collect``."""
     pre_ln = spec.do_layer_norm_before
     residual = x
     x_ln2 = _norm(x, p["mlp_norm"], spec.norm, spec.norm_eps) if (pre_ln and spec.pre_norms) else x
@@ -697,9 +763,11 @@ def _mlp_block(
             h = _act(_linear(x_ln2, p["gate"]), spec.act) * _linear(x_ln2, p["up"])
         else:
             h = _act(_linear(x_ln2, p["up"]), spec.act)
-        y = _linear(h, p["down"])
+        y = _row_linear(h, p["down"], tp)
         if spec.post_norms:
             y = _norm(y, p["post_mlp_norm"], spec.norm, spec.norm_eps)
+        if tp is not None and collect:
+            h = all_gather(tp, h, "model", dim=-1)
     x = residual + y
     if not pre_ln:
         x = _norm(x, p["mlp_norm"], spec.norm, spec.norm_eps)
@@ -725,6 +793,7 @@ def forward(
     attn_impl: str = "auto",
     gram_precision: str = "highest",
     want_logits: bool = True,
+    mesh=None,
 ):
     """Run the model. Returns (logits | None, CalibStats | None).
 
@@ -740,9 +809,12 @@ def forward(
         elsewhere), "flash" or "xla" (plain).
       want_logits: False skips the final norm and LM head (the JAX
         calibration path's dead-code-eliminated logits); logits is None.
+      mesh: the `parallel.mesh.Mesh` whose ``model`` axis sharded
+        ``params`` (`parallel.mesh.param_shardings`); ignored for a full
+        tree. The taps are then as `_layer` describes.
     """
     logits, taps_by_layer, bi = forward_taps(
-        spec, params, input_ids, stats_layers, attn_impl, gram_precision, want_logits
+        spec, params, input_ids, stats_layers, attn_impl, gram_precision, want_logits, mesh
     )
     stats = None
     if stats_layers:
@@ -769,19 +841,26 @@ def forward_taps(
     attn_impl: str = "auto",
     gram_precision: str = "highest",
     want_logits: bool = True,
+    mesh=None,
+    seq_axis: Optional[str] = None,
 ) -> Tuple[Optional[torch.Tensor], Dict[int, Dict[str, torch.Tensor]], Optional[torch.Tensor]]:
     """`forward` with the taps left per layer: (logits | None,
     {layer: {"cov_mlp", "cov_q", "cov_k", "cov_x"[, "cov_shared"]}},
     bi_acc [n_layers] | None). A mixed dense/MoE stack taps every layer
-    in one pass this way."""
+    in one pass this way. ``seq_axis``: ``input_ids`` is this rank's
+    chunk of the sequence on that axis of ``mesh`` (the positions, RoPE
+    and learned, are the chunk's global ones; attention per `_attention`,
+    ``attn_impl="ring"`` for the ring); every tap and BI piece is then
+    this chunk's share, for the caller to sum."""
     check_supported(spec)
     B, T = input_ids.shape
     ids = input_ids.long()
-    x = _embed(spec, params, ids)
+    start = mesh.coord(seq_axis) * T if seq_axis is not None else 0
+    positions = torch.arange(start, start + T, device=ids.device, dtype=torch.int32)
+    x = _embed(spec, params, ids, positions)
 
     cos = sin = None
     if spec.uses_rope:
-        positions = torch.arange(T, device=ids.device, dtype=torch.int32)
         cos, sin = rope_cos_sin(positions, spec.head_dim, spec.rope_theta, dtype=x.dtype, scaling=spec.rope_scaling)
 
     if attn_impl == "auto":
@@ -794,7 +873,7 @@ def forward_taps(
         h_in = x
         x, taps = _layer(
             spec, l, params["layers"][l], x, cos, sin,
-            collect and (l in stats_layers), attn_impl, gram_precision,
+            collect and (l in stats_layers), attn_impl, gram_precision, mesh, seq_axis,
         )
         if collect:
             bi.append(_bi_piece(h_in, x))

@@ -79,7 +79,7 @@ any batch, fused or not, prefilled per slot or batched.
 
 Still raising NotImplementedError, with this module named: the
 constructor's ``mesh`` (tensor-parallel serving comes with
-``parallel``).
+``parallel.mesh.shard_serving``, not ported yet).
 """
 
 from __future__ import annotations
@@ -671,7 +671,8 @@ class ContinuousBatcher:
             raise ValueError(f"prefill_exec must be per_slot or batched, got {prefill_exec!r}")
         if moe not in ("dense", "dispatch"):
             raise ValueError(f"moe must be dense or dispatch, got {moe!r}")
-        _not_ported(["mesh (tensor-parallel serving comes with parallel)"] if mesh is not None else [])
+        _not_ported(["mesh (tensor-parallel serving comes with modegpt_tpu_torch.parallel.mesh.shard_serving)"]
+                    if mesh is not None else [])
         self.pm = pm
         self.device = _device(pm)
         self.slots = slots

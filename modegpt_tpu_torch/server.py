@@ -68,7 +68,7 @@ CLI: ``python -m modegpt_tpu_torch.server --model <artifact-or-hf-dir>
 --port 8000`` with the JAX server's flags, plus ``--device`` (a torch
 device: "cuda" by default, "cuda:N", N, or "cpu"). ``--tensor_parallel``
 above 1 raises NotImplementedError (tensor-parallel serving comes with
-``parallel``).
+``parallel.mesh.shard_serving``, not ported yet).
 """
 
 from __future__ import annotations
@@ -960,7 +960,7 @@ def main(argv=None):
     args = _parser().parse_args(argv)
     if args.tensor_parallel > 1:
         raise NotImplementedError("modegpt_tpu_torch.server: --tensor_parallel > 1 is not ported "
-                                  "(tensor-parallel serving comes with parallel)")
+                                  "(tensor-parallel serving comes with modegpt_tpu_torch.parallel.mesh.shard_serving)")
     logger = setup_logging()
 
     from modegpt_tpu_torch.evals.cli import _load_any

@@ -916,3 +916,40 @@ def test_streaming_step_on_the_card_matches_the_cpu(cuda_device):
     assert len(logits["card"]) == 20 + 27
     for a, b in zip(logits["card"], logits["cpu"]):
         torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4)
+
+
+def test_ranks_sharing_the_card_match_one_rank(cuda_device, tmp_path):
+    """2 ranks on the one card over gloo (asked for explicitly: NCCL
+    takes one rank a card): a data:2 calibrate and a model:2 forward
+    (K1 on each rank's heads, T = 160), each against this process's
+    single-rank result on the card."""
+    import os
+    import sys
+
+    from modegpt_tpu_torch.calib.engine import calibrate
+
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from test_torch_parallel_ranks import Launch
+
+    spec, params = _tiny_llama_on(cuda_device)
+    rng = np.random.default_rng(7)
+    batches = [rng.integers(0, 256, (2, 160)).astype(np.int32) for _ in range(2)]
+    ids = rng.integers(0, 256, (2, 160)).astype(np.int32)
+    host = _tree_to(params, "cpu")
+    cases = {
+        "calibrate": dict(kind="calibrate", mesh="data:2", spec=spec, params=host, batches=batches, targets=[0, 1]),
+        "forward": dict(kind="forward", mesh="model:2", spec=spec, params=host, ids=ids, attn_impl="auto"),
+    }
+    torch.save(cases, tmp_path / "inputs.pt")
+    ranks = os.path.join(os.path.dirname(os.path.abspath(__file__)), "test_torch_parallel_ranks.py")
+    outs = Launch(2, tmp_path, [ranks, str(tmp_path), "cuda"], name="card").outputs()
+
+    want = calibrate(spec, params, batches, [0, 1])
+    logits, _ = forward(spec, params, torch.as_tensor(ids, device=cuda_device))
+    for out in outs:
+        got = out["calibrate"]
+        for field in ("cov_mlp", "cov_q", "cov_k", "cov_x"):
+            for l in (0, 1):
+                np.testing.assert_allclose(got[field][l], getattr(want, field)[l].numpy(), rtol=1e-5, atol=1e-6)
+        np.testing.assert_allclose(got["bi"], want.bi_scores, rtol=1e-5)
+        np.testing.assert_allclose(out["forward"]["logits"], logits.cpu().double().numpy(), rtol=2e-4, atol=2e-4)

@@ -10,7 +10,7 @@
   (tests/fixtures/task_docs.json), winogrande partial scoring and the
   truncation boundary included; `compute_perplexity_alpaca` with given
   texts; greedy `generate` with and without a repetition penalty and EOS.
-* The unported ``--mesh_shape`` raises NotImplementedError, and the CLI's
+* ``--mesh_shape`` on one process (a world of 1) raises, and the CLI's
   default device (cuda) raises without a card.
 """
 
@@ -119,7 +119,7 @@ def test_eval_clis_agree(artifact, monkeypatch, capsys):
 
 def test_eval_cli_unported_options_and_devices(artifact, monkeypatch, tmp_path):
     base = ["--model", artifact, "--dataset", "synthetic", "--seq_len", "16", "--device", "cpu"]
-    with pytest.raises(NotImplementedError, match="modegpt_tpu_torch.evals.cli"):
+    with pytest.raises(ValueError, match="world size is 1"):  # one process per rank
         t_main(base + ["--mesh_shape", "data:2"])
     # an artifact without tokenizer files: what needs one exits, as the JAX CLI does
     bare = tmp_path / "bare"
