@@ -13,6 +13,7 @@
     python3 chip_smoke.py --phases build,kernel,opt
     python3 chip_smoke.py --phases build,kernel,main,stream
     python3 chip_smoke.py --phases build,kernel,parallel
+    python3 chip_smoke.py --phases build,kernel,main,tpserve
 
 Phases, each printing one JSON line:
 
@@ -123,7 +124,7 @@ Phases, each printing one JSON line:
 
 7. long   — one compression job at the published Meta-Llama-3.1-8B
    widths (the main phase's, plus llama3 rope scaling to 131072
-   positions), 4 layers, at seq_len=16384, so that every forward (both
+   positions), 2 layers, at seq_len=16384, so that every forward (both
    evals and calibration) takes the long-context kernel K2; then the
    port's eval CLI (`modegpt_tpu_torch.evals.cli.main`) on the artifact at
    the same length. K1's and K2's counters are zeroed just before the job
@@ -212,6 +213,27 @@ Phases, each printing one JSON line:
    backend and K1's launches, each equal to what its forwards give (0 on
    the ring: its products are plain ops, as in JAX); every K1 shape a
    rank ran held against the plain attention.
+
+13. tpserve — tensor- and expert-parallel serving on data:1,model:2, two
+   ranks (``--parallel-rank tpserve``) sharing cuda:0 over gloo, asked
+   for explicitly, each through K3 on its own heads, while this process
+   runs the same rounds on one rank: (e) the main artifact, padded,
+   serving the serve phase's 16 requests greedy in batched prefill with
+   fused decode, once f32 and once int8 weights with W8A8 prefill and int8
+   KV, then one padded prefill step (128 tokens) and one decode step from
+   an empty pool; (f) the moe phase's seeded Qwen3-30B-A3B-width weights
+   (2 layers, uncompressed: 64 whole experts a rank) serving 4 requests
+   with every expert on every token and by dispatch at E / k. Tokens
+   equal to one rank's, a divergence allowed only where the one-rank
+   model's logits of the two tokens lie within 1e-3 (counted), the
+   steps' logits within 1e-3 and equal on both ranks, K3's launches on
+   each rank equal to the layers times its dispatches, every K3 shape a
+   rank ran a kernel case or held here against the plain version; per
+   rank tok/s, dispatch ms, collective seconds and bytes, peak bytes.
+   Then (g) `python -m modegpt_tpu_torch.server --tensor_parallel 2` on
+   two ranks on the main artifact: 8 concurrent completions (greedy and
+   seeded sampled, some with logprobs), each JSON equal to the in-process
+   one-process server's, and SIGINT on rank 0 stops both ranks.
 
 Then a `{"kernels": [...]}` line (each kernel's launches summed over the
 paths that ran it, and by path), the card's name and power limit as
@@ -383,6 +405,17 @@ RAGGED_CASES += [
 # sums wrongly at one row count shows here
 ROW_SWEEP = [(1, 1), (2, 1), (1, 3), (4, 1), (1, 5), (8, 1), (4, 3), (8, 2)]
 RAGGED_CASES += [dict(_DECODE, name=f"rows{G * S}_G{G}_S{S}", Hk=32 // G, S=S) for G, S in ROW_SWEEP]
+# the tpserve phase's ranks on data:1,model:2: each attends its 16 of 32
+# heads over 4 of 8 kv heads (the main artifact, Llama-3-8B widths, G = 4)
+# or over 2 of 4 (Qwen3-30B-A3B widths, uncompressed, G = 8)
+RAGGED_CASES += [
+    dict(_DECODE, name="tp_decode_H16_Hk4", H=16, Hk=4),
+    dict(_DECODE, name="tp_decode_H16_Hk4_int8", H=16, Hk=4, int8=True),
+    dict(_DECODE, name="tp_batched_chunk_H16_Hk4_S128", H=16, Hk=4, S=128, pos="batched"),
+    dict(_DECODE, name="tp_batched_chunk_H16_Hk4_S128_int8", H=16, Hk=4, S=128, pos="batched", int8=True),
+    dict(_DECODE, name="tp_moe_decode_H16_Hk2", H=16, Hk=2, Rq=128, Rv=128),
+    dict(_DECODE, name="tp_moe_chunk_H16_Hk2_S128", H=16, Hk=2, Rq=128, Rv=128, B=1, S=128, pos=[384]),
+]
 # the one-row form (multi-head decode) in the pool's other dtypes
 RAGGED_CASES += [
     dict(_DECODE, name="rows1_G1_S1_bf16", Hk=32, dtype="bfloat16"),
@@ -412,6 +445,9 @@ LLAMA31_8B = dict(  # meta-llama/Llama-3.1-8B config.json
 )
 # The long phase's job: one calibration and eval window per batch at
 # 16384 tokens, so every forward runs K2 (T > 8192) and none runs K1.
+# Meta-Llama-3.1-8B's 32 layers cut to 2 (4 until the tpserve phase joined
+# the command, which must stay within its time limit).
+LONG_LAYERS = 2
 LONG = dict(seq_len=16384, calib_size=4, calibs_batch_size=1, eval_batch_size=1, eval_max_samples=2)
 
 MOE_LAYERS = 2  # Qwen3-30B-A3B's 48 layers cut to 2: 2.49 GB of f32 weights a layer
@@ -2232,7 +2268,7 @@ def phase_quant(records: dict, main_out: dict, profile: bool = False) -> dict:
 
 def phase_long(records: dict, profile: bool = False) -> dict:
     """A compression job and the eval CLI at 16384 tokens (Llama-3.1-8B
-    widths, 4 layers): every forward takes K2, none K1."""
+    widths, 2 layers): every forward takes K2, none K1."""
     import torch
 
     from modegpt_tpu_torch.calib.data import load_eval_tokens
@@ -2254,7 +2290,7 @@ def phase_long(records: dict, profile: bool = False) -> dict:
         return {"flash_attention": fa_mod.flash_attention.launches,
                 "flash_attention_hbm": fa_mod.flash_attention_hbm.launches}
 
-    spec = spec_from_hf_config(SimpleNamespace(**{**LLAMA31_8B, "num_hidden_layers": N_LAYERS}))
+    spec = spec_from_hf_config(SimpleNamespace(**{**LLAMA31_8B, "num_hidden_layers": LONG_LAYERS}))
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     params = init_params(spec, torch.Generator(device="cuda").manual_seed(0), device="cuda")
@@ -2283,7 +2319,7 @@ def phase_long(records: dict, profile: bool = False) -> dict:
         n_batches = 2 * math.ceil(n_eval / config.eval_batch_size) + math.ceil(
             config.calib_size / config.calibs_batch_size
         )
-        expected_job = {"flash_attention": 0, "flash_attention_hbm": N_LAYERS * n_batches}
+        expected_job = {"flash_attention": 0, "flash_attention_hbm": LONG_LAYERS * n_batches}
         cspec = results["compressed_spec"]
 
         # logits of the positions only the long route reaches, on the first
@@ -2322,12 +2358,12 @@ def phase_long(records: dict, profile: bool = False) -> dict:
         ])
         cli_launches = counts()
         t_cli = time.perf_counter() - t_cli
-    expected_cli = {"flash_attention": 0, "flash_attention_hbm": N_LAYERS * n_eval}
+    expected_cli = {"flash_attention": 0, "flash_attention_hbm": LONG_LAYERS * n_eval}
     cli_ppl = cli["ppl-synthetic"]
 
     records["flash_attention_hbm"]["launches_by_phase"]["long"] = job_launches["flash_attention_hbm"]
     line = {
-        "phase": "long", "model": "Meta-Llama-3.1-8B widths", "n_layers": N_LAYERS, **LONG,
+        "phase": "long", "model": "Meta-Llama-3.1-8B widths", "n_layers": LONG_LAYERS, **LONG,
         "compressed_eval_path": resolve_exec_mode(cspec, config.compressed_exec),
         "padding_overhead": padding_overhead(cspec),
         "init_seconds": init_s,
@@ -3697,6 +3733,7 @@ PARALLEL_RUNS = {
     "b_gloo_data2_model2": ("data:2,model:2", 4, "gloo"),
     "c_gloo_stage4": ("stage:4", 4, "gloo"),
     "d_gloo_context2": ("context:2", 2, "gloo"),
+    "tpserve": ("data:1,model:2", 2, "gloo"),  # the tpserve phase's ranks (`tpserve_rank`)
 }
 PARALLEL_STAT_TOL = 1e-4  # each Gram's relative Frobenius distance; BI and perplexity relative
 # The meshed job's compressed model against the one-rank job's, on one
@@ -3780,6 +3817,8 @@ def parallel_rank(job: str, workdir: str) -> int:
     from modegpt_tpu_torch.kernels import flash_attention as fa_mod
     from modegpt_tpu_torch.parallel.mesh import make_mesh, maybe_initialize_distributed
 
+    if job == "tpserve":
+        return tpserve_rank(workdir)
     t_start = time.perf_counter()
     assert maybe_initialize_distributed("cuda"), "not launched as a rank"
     shape = PARALLEL_RUNS[job][0]
@@ -3860,9 +3899,10 @@ def parallel_rank(job: str, workdir: str) -> int:
     return 0
 
 
-def _launch_parallel(jobs, workdir: str) -> dict:
+def _launch_parallel(jobs, workdir: str, during=None) -> dict:
     """Start every rank of ``jobs`` at once (this script,
-    ``--parallel-rank``), wait for all of them (PARALLEL_TIMEOUT_S), and
+    ``--parallel-rank``), call ``during()`` (this process's own work
+    beside them) if given, wait for all of them (PARALLEL_TIMEOUT_S), and
     return each job's JSON lines with its launch seconds; a rank that
     fails, or a launch that runs out of time, fails the phase with every
     rank's log tail, and no rank is left running."""
@@ -3883,6 +3923,8 @@ def _launch_parallel(jobs, workdir: str) -> dict:
                 ), log))
     deadline = time.monotonic() + PARALLEL_TIMEOUT_S
     try:
+        if during is not None:
+            during()
         for _, _, p, _ in procs:
             p.wait(timeout=max(1.0, deadline - time.monotonic()))
     except subprocess.TimeoutExpired:
@@ -4075,6 +4117,490 @@ def phase_parallel(records: dict) -> dict:
     return line
 
 
+# The tpserve phase: tensor- and expert-parallel serving on data:1,model:2,
+# two ranks (processes of this script, ``--parallel-rank tpserve``) on
+# cuda:0 over gloo, asked for explicitly, beside one-rank references that
+# the parent computes meanwhile; then the server CLI with
+# --tensor_parallel 2 on two ranks against the one-process server.
+TPSERVE = dict(
+    mesh="data:1,model:2", moe_requests=4, step_prompt=128, logit_tol=dict(rtol=1e-3, atol=1e-3),
+    near_tie=1e-3, server_requests=8, server_prompt=192, server_new_tokens=16, server_lp_tol=1e-4,
+    server_timeout=600,
+)
+# (e): the main artifact's rounds, both in batched prefill with fused decode
+TPSERVE_ROUNDS = {
+    "f32": dict(prefill_exec="batched", steps_per_dispatch=4),
+    "int8_w8a8_kv8": dict(prefill_exec="batched", steps_per_dispatch=4, a8_prefill=True, kv_dtype="int8"),
+}
+
+
+def _k3_shapes():
+    """Record the shape of every K3 call the padded layers make (their
+    ``_CACHE_ATTENTION["ragged"]`` entry), keyed as `_k3_case_key` keys
+    RAGGED_CASES; a context manager yielding the set."""
+    from modegpt_tpu_torch.models import padded
+
+    shapes = set()
+    kernel = padded._CACHE_ATTENTION["ragged"]
+
+    def recorded(q, k, v, pos, k_scale=None, v_scale=None, window=None, softcap=None):
+        B, H, S, Rq = q.shape
+        shapes.add((B, H, k.shape[1], k.shape[2], S, Rq, v.shape[-1], str(q.dtype).split(".")[-1],
+                    window or None, softcap, k_scale is not None))
+        return kernel(q, k, v, pos, k_scale=k_scale, v_scale=v_scale, window=window, softcap=softcap)
+
+    @contextlib.contextmanager
+    def swapped():
+        padded._CACHE_ATTENTION["ragged"] = recorded
+        try:
+            yield shapes
+        finally:
+            padded._CACHE_ATTENTION["ragged"] = kernel
+
+    return swapped()
+
+
+def _k3_case_key(case) -> tuple:
+    return (case["B"], case["H"], case["Hk"], case["T"], case["S"], case["Rq"], case["Rv"], case["dtype"],
+            case["window"], case["softcap"], case["int8"])
+
+
+def _k3_holds(shape) -> dict:
+    """K3 at one recorded shape against its plain version on seeded
+    inputs (a row past the pool's end when B > 1)."""
+    import numpy as np
+    import torch
+
+    from modegpt_tpu_torch.kernels.ragged_decode import ragged_gqa_attend, ragged_gqa_attend_reference
+
+    B, H, Hk, T, S, Rq, Rv, dtype, w, cap, int8 = shape
+    rng = np.random.default_rng(1)
+    dt = getattr(torch, dtype)
+    q = torch.from_numpy((rng.standard_normal((B, H, S, Rq)) * Rq**-0.5).astype(np.float32)).cuda().to(dt)
+    ks = vs = None
+    if int8:
+        k = torch.from_numpy(rng.integers(-127, 128, (B, Hk, T, Rq), dtype=np.int8)).cuda()
+        v = torch.from_numpy(rng.integers(-127, 128, (B, Hk, T, Rv), dtype=np.int8)).cuda()
+        ks, vs = (torch.from_numpy(rng.uniform(0.5, 1.5, (B, Hk, T)).astype(np.float32) / 127).cuda()
+                  for _ in range(2))
+    else:
+        k, v = (torch.from_numpy(rng.standard_normal(s_).astype(np.float32)).cuda().to(dt)
+                for s_ in ((B, Hk, T, Rq), (B, Hk, T, Rv)))
+    pos_host = rng.integers(0, T, size=B)
+    if B > 1:
+        pos_host[-1] = T + 3
+    pos = torch.tensor(pos_host, dtype=torch.int32, device="cuda")
+    kw = dict(k_scale=ks, v_scale=vs, window=w, softcap=cap)
+    got = ragged_gqa_attend(q, k, v, pos, **kw).float()
+    want = ragged_gqa_attend_reference(q, k, v, pos, **kw).float()
+    return {"shape": list(shape), "max_abs_err": float((got - want).abs().max()),
+            "ok": bool(torch.allclose(got, want, **TOLERANCE[dtype])) and bool(torch.isfinite(got).all())}
+
+
+def _tpserve_moe_model():
+    """The moe phase's seeded Qwen3-30B-A3B-width weights (2 layers),
+    uncompressed and padded, on the card."""
+    import torch
+
+    from modegpt_tpu_torch.models.init import init_params
+    from modegpt_tpu_torch.models.padded import pad_to_uniform
+    from modegpt_tpu_torch.models.spec import spec_from_hf_config
+
+    spec = spec_from_hf_config(SimpleNamespace(**{**QWEN3_30B_A3B, "num_hidden_layers": MOE_LAYERS}))
+    params = init_params(spec, torch.Generator(device="cuda").manual_seed(0), device="cuda")
+    pm = pad_to_uniform(spec, params)
+    del params
+    return pm
+
+
+def _tp_round(name: str, model, prompts, mesh, out: dict, **round_kw) -> None:
+    """One serve round of `prompts` (greedy, the serve phase's pool) on
+    `mesh` (None: one rank) into out[name]: tokens, time, dispatches, K3
+    launches with what the dispatches give, collectives, peak."""
+    import torch
+
+    from modegpt_tpu_torch.kernels import ragged_decode as rd_mod
+    from modegpt_tpu_torch.models import serving
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    comm0 = (mesh.comm_seconds, mesh.comm_bytes) if mesh is not None else (0.0, 0)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    rd_mod.ragged_gqa_attend.launches = 0
+    with _counted_dispatches() as (counts, seconds):
+        b = serving.ContinuousBatcher(model, mesh=mesh, slots=SERVE["slots"], max_len=SERVE["max_len"],
+                                      prefill_bucket=SERVE["prefill_bucket"], temperature=0.0, decode_attn="auto",
+                                      **round_kw)
+        done, rids, wall = _serve_round(b, prompts, gen)
+    n_new = sum(len(done[r]) - len(p) for r, p in zip(rids, prompts))
+    out[name] = {
+        "tokens": [list(map(int, done[r])) for r in rids], "decode_attn": b.decode_attn,
+        "wall_seconds": wall, "generated_tokens_per_s": n_new / wall,
+        "dispatches": {k: v for k, v in counts.items() if v},
+        "dispatch_ms": {k: 1e3 * seconds[k] / counts[k] for k in seconds if counts[k]},
+        "k3_launches": rd_mod.ragged_gqa_attend.launches, "k3_expected": counts["layer_dispatches"],
+        "pool_kv_heads": int(b.state.cache_k.shape[2]), "peak_device_bytes": torch.cuda.max_memory_allocated(),
+    }
+    if mesh is not None:
+        out[name].update(comm_seconds=mesh.comm_seconds - comm0[0], comm_bytes=mesh.comm_bytes - comm0[1])
+    del b
+
+
+def _tp_llama_rounds(pm, mesh):
+    """(e): the main artifact's f32 and int8 (W8A8 prefill, int8 KV)
+    rounds of the serve phase's 16 requests, then one padded prefill step
+    (the first prompt's first 128 tokens) and one decode step from an
+    empty one-slot pool. Returns (rounds, the steps' last logits rows)."""
+    import torch
+
+    from modegpt_tpu_torch.kernels import ragged_decode as rd_mod
+    from modegpt_tpu_torch.models import serving
+    from modegpt_tpu_torch.models.padded import _model_step_padded
+    from modegpt_tpu_torch.models.quantize import quantize_padded
+    from modegpt_tpu_torch.parallel.mesh import shard_serving
+
+    out = {}
+    prompts, _ = _serve_prompts(pm.spec.vocab_size, SERVE["requests"])
+    _tp_round("f32", pm, prompts, mesh, out, **TPSERVE_ROUNDS["f32"])
+    _tp_round("int8_w8a8_kv8", quantize_padded(pm), prompts, mesh, out, **TPSERVE_ROUNDS["int8_w8a8_kv8"])
+
+    st_pm, state = pm, serving.init_serve_state(pm, 1, SERVE["max_len"])
+    if mesh is not None:
+        st_pm, state = shard_serving(mesh, pm, state)
+    P = TPSERVE["step_prompt"]
+    ids = torch.as_tensor(prompts[0][:P], device="cuda")[None]
+    rd_mod.ragged_gqa_attend.launches = 0
+    with torch.no_grad():
+        lp, _ = _model_step_padded(st_pm.spec, st_pm.layers, st_pm.other, st_pm.q_hd_true, ids, state.cache_k,
+                                   state.cache_v, 0, decode_attn="ragged", logits_at=P - 1, mesh=st_pm.mesh)
+        nxt = lp[:, -1].argmax(-1, keepdim=True)
+        ld, _ = _model_step_padded(st_pm.spec, st_pm.layers, st_pm.other, st_pm.q_hd_true, nxt, state.cache_k,
+                                   state.cache_v, P, decode_attn="ragged", mesh=st_pm.mesh)
+    out["steps"] = {"k3_launches": rd_mod.ragged_gqa_attend.launches, "k3_expected": 2 * pm.spec.n_layers}
+    return out, {"prefill": lp[0, -1].float().cpu(), "decode": ld[0, -1].float().cpu()}
+
+
+def _tp_moe_rounds(moe_pm, mesh) -> dict:
+    """(f): the MoE stack's rounds, every expert on every token and by
+    dispatch at E / k (nothing dropped), TPSERVE["moe_requests"] requests."""
+    out = {}
+    capacity = moe_pm.spec.n_experts / moe_pm.spec.experts_per_tok
+    prompts, _ = _serve_prompts(moe_pm.spec.vocab_size, TPSERVE["moe_requests"])
+    for moe in ("dense", "dispatch"):
+        _tp_round(f"moe_{moe}", moe_pm, prompts, mesh, out, moe=moe, moe_capacity=capacity)
+    return out
+
+
+def tpserve_rank(workdir: str) -> int:
+    """One rank of the tpserve phase (``--parallel-rank tpserve``): (e)
+    and (f) on data:1,model:2; writes ``<workdir>/tpserve.rank<r>.json``
+    and its steps' logits rows."""
+    import torch
+    import torch.distributed as dist
+
+    from modegpt_tpu_torch.compress.artifact import load_compressed_model
+    from modegpt_tpu_torch.models.padded import pad_to_uniform
+    from modegpt_tpu_torch.parallel.mesh import make_mesh, maybe_initialize_distributed
+
+    t_start = time.perf_counter()
+    assert maybe_initialize_distributed("cuda"), "not launched as a rank"
+    mesh = make_mesh(TPSERVE["mesh"], device="cuda")
+    artifact = json.load(open(os.path.join(workdir, "tpserve_inputs.json")))["artifact_dir"]
+    cspec, cparams, _ = load_compressed_model(artifact, device="cuda")
+    pm = pad_to_uniform(cspec, cparams)
+    del cparams
+    line = {"rank": mesh.rank, "coords": mesh.coords, "backend": mesh.backend, "device": str(mesh.device)}
+    with _k3_shapes() as shapes:
+        line["setup_seconds"] = time.perf_counter() - t_start
+        rounds, logits = _tp_llama_rounds(pm, mesh)
+        del pm
+        gc.collect()
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        moe_pm = _tpserve_moe_model()
+        line["moe_setup_seconds"] = time.perf_counter() - t0
+        rounds.update(_tp_moe_rounds(moe_pm, mesh))
+    line.update(rounds=rounds, seconds=time.perf_counter() - t_start, comm_seconds=mesh.comm_seconds,
+                comm_bytes=mesh.comm_bytes, k3_shapes=sorted(shapes, key=str))
+    torch.save(logits, os.path.join(workdir, f"tpserve.rank{mesh.rank}.logits.pt"))
+    with open(os.path.join(workdir, f"tpserve.rank{mesh.rank}.json"), "w") as f:
+        json.dump(line, f)
+    dist.destroy_process_group()
+    return 0
+
+
+def _first_divergence(got, want, logits_of, P: int):
+    """Where two greedy sequences of one prompt part: None when equal,
+    else (index, |gap| between the two tokens in the reference model's
+    logits at that step, from ``logits_of(ids [1, T]) -> [1, T, V]`` over
+    the reference sequence)."""
+    import torch
+
+    if got == want:
+        return None
+    j = next((i for i, (a, b) in enumerate(zip(got, want)) if a != b), min(len(got), len(want)))
+    if j < P or j >= min(len(got), len(want)):
+        return (j, float("inf"))
+    with torch.no_grad():
+        row = logits_of(torch.tensor([want[:j]], device="cuda"))[0, -1].float()
+    return (j, float((row[want[j]] - row[got[j]]).abs()))
+
+
+def _start_tp_server(workdir: str, artifact: str) -> dict:
+    """(g), started: ``python -m modegpt_tpu_torch.server
+    --tensor_parallel 2`` on two ranks (gloo, sharing cuda:0) on
+    `artifact` (its padded MLP width must split in two, or shard_serving
+    raises, as JAX's does), each loading and padding it on its card."""
+    import socket
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    flags = ["--slots", str(SERVE["slots"]), "--max_len", str(SERVE["max_len"]), "--prefill_bucket",
+             str(SERVE["prefill_bucket"])]
+    procs, logs, t0 = [], [], time.perf_counter()
+    for r in range(2):
+        env = dict(os.environ, RANK=str(r), WORLD_SIZE="2", LOCAL_RANK=str(r), MODEGPT_DISTRIBUTED="1",
+                   MODEGPT_DIST_BACKEND="gloo", MODEGPT_DIST_INIT_METHOD=f"file://{workdir}/server.rendezvous",
+                   MODEGPT_DIST_TIMEOUT="300", PYTHONPATH=root + os.pathsep + os.environ.get("PYTHONPATH", ""))
+        env.setdefault("GLOO_SOCKET_IFNAME", "lo")
+        logs.append(os.path.join(workdir, f"server.rank{r}.log"))
+        with open(logs[-1], "w") as f:
+            procs.append(subprocess.Popen(
+                [sys.executable, "-m", "modegpt_tpu_torch.server", "--model", artifact, "--port", str(port),
+                 "--tensor_parallel", "2", *flags], cwd=root, env=env, stdout=f, stderr=subprocess.STDOUT))
+    return {"procs": procs, "logs": logs, "port": port, "t0": t0, "artifact": artifact}
+
+
+def _stop(procs) -> None:
+    """Kill every process of `procs` still running, and reap it."""
+    for p in procs:
+        if p.poll() is None:
+            p.kill()
+            p.wait()
+
+
+def _tpserve_server(main_out: dict, started: dict, tok) -> dict:
+    """(g), checked: the one-process server in this process on the main
+    model and the two ranks `_start_tp_server` started each take 8
+    concurrent completions (greedy, seeded sampled, some with logprobs);
+    every answer's JSON equal (ids aside, logprobs within server_lp_tol);
+    SIGINT on rank 0 ends both ranks."""
+    import signal
+    import threading
+    from concurrent.futures import ThreadPoolExecutor
+
+    from modegpt_tpu_torch import server as server_mod
+    from modegpt_tpu_torch.models import serving
+
+    procs, logs, port, t0, artifact = (started[k] for k in ("procs", "logs", "port", "t0", "artifact"))
+    one = server_mod.InferenceServer(
+        serving.ContinuousBatcher(main_out["pm"], slots=SERVE["slots"], max_len=SERVE["max_len"],
+                                  prefill_bucket=SERVE["prefill_bucket"], prefill_exec="batched",
+                                  per_request_sampling=True, eos_token_id=tok.eos_token_id, decode_attn="auto"),
+        tokenizer=tok, model_id=artifact)
+    httpd = server_mod.make_http_server(one, host="127.0.0.1", port=0)
+    threading.Thread(target=httpd.serve_forever, daemon=True).start()
+    prompts, _ = _serve_prompts(main_out["spec"].vocab_size, TPSERVE["server_requests"])
+    n = TPSERVE["server_new_tokens"]
+    bodies = []
+    for i, p in enumerate(prompts):
+        body = {"prompt_ids": [int(t) for t in p[: TPSERVE["server_prompt"]]], "max_tokens": n}
+        if i % 2:  # top_k: a near-uniform random model's draw over every token would follow its 1e-5 noise
+            body.update(temperature=0.8, top_k=20, seed=100 + i)
+        if i % 4 == 0:
+            body.update(logprobs=True, top_logprobs=3)
+        bodies.append(body)
+    out = {"port": port, "requests": len(bodies), "max_tokens": n, "problems": []}
+
+    def post(port_no, body):
+        status, data, _ = _http(port_no, "POST", "/v1/completions", body)
+        return status, json.loads(data)
+
+    try:
+        while True:
+            dead = [r for r, p in enumerate(procs) if p.poll() is not None]
+            if dead:
+                out["problems"].append(f"server ranks {dead} exited: " + open(logs[dead[0]]).read()[-1500:])
+                return out
+            if time.perf_counter() - t0 > TPSERVE["server_timeout"]:
+                out["problems"].append("the tensor-parallel server never answered /health")
+                return out
+            try:
+                status, data, _ = _http(port, "GET", "/health", timeout=10)
+                break
+            except OSError:
+                time.sleep(0.5)
+        out["ready_seconds"] = time.perf_counter() - t0
+        with ThreadPoolExecutor(len(bodies)) as pool:
+            t1 = time.perf_counter()
+            got = list(pool.map(lambda b: post(port, b), bodies))
+            out["tp_seconds"] = time.perf_counter() - t1
+            t1 = time.perf_counter()
+            want = list(pool.map(lambda b: post(httpd.server_address[1], b), bodies))
+            out["one_process_seconds"] = time.perf_counter() - t1
+        out["tp_generated_tokens_per_s"] = len(bodies) * n / out["tp_seconds"]
+        out["one_process_generated_tokens_per_s"] = len(bodies) * n / out["one_process_seconds"]
+        lp_err = 0.0
+        for i, ((gs, g), (ws, w)) in enumerate(zip(got, want)):
+            if gs != 200 or ws != 200:
+                out["problems"].append(f"request {i}: status {gs} / {ws}")
+                continue
+            g.pop("id", None), w.pop("id", None)
+            for gc_, wc in zip(g["choices"], w["choices"]):
+                if wc.get("logprobs"):
+                    a, b = gc_.pop("logprobs"), wc.pop("logprobs")
+                    lp_err = max(lp_err, max(abs(x - y) for x, y in zip(a["token_logprobs"], b["token_logprobs"])))
+            if g != w:
+                out["problems"].append(f"request {i}: the TP answer differs from the one-process server's")
+        out["logprob_max_abs_diff"] = lp_err
+        if lp_err > TPSERVE["server_lp_tol"]:
+            out["problems"].append(f"logprobs differ by {lp_err}")
+    finally:
+        httpd.shutdown()
+        one.close()
+        procs[0].send_signal(signal.SIGINT)
+        try:
+            for p in procs:
+                p.wait(timeout=120)
+        except subprocess.TimeoutExpired:
+            out["problems"].append("a server rank did not stop after SIGINT on rank 0")
+        _stop(procs)
+        out["rank_exit_codes"] = [p.returncode for p in procs]
+        out["seconds"] = time.perf_counter() - t0
+    if any(out["rank_exit_codes"]):
+        out["problems"].append(f"server ranks exited {out['rank_exit_codes']}: " + open(logs[1]).read()[-1500:])
+    return out
+
+
+def phase_tpserve(records: dict, main_out: dict) -> dict:
+    """Tensor- and expert-parallel serving (module docstring, phase 13):
+    (e) the main artifact on data:1,model:2 and (f) the MoE stack, on two
+    ranks beside the same rounds on one rank in this process; tokens
+    equal but at near-ties, the steps' logits within 1e-3, K3's launches
+    as counted on each rank and every K3 shape the ranks ran held against
+    its plain version; then (g) the server CLI with --tensor_parallel 2."""
+    import torch
+
+    from modegpt_tpu_torch.models.forward import forward
+    from modegpt_tpu_torch.models.padded import _model_step_padded, forward_padded
+    from modegpt_tpu_torch.models.quantize import quantize_padded
+
+    t_phase = time.perf_counter()
+    problems = []
+    line = {"phase": "tpserve", "mesh": TPSERVE["mesh"], "backend": "gloo", "card": card_line(),
+            "model": "main artifact (Meta-Llama-3-8B widths, 4 layers); Qwen3-30B-A3B widths, 2 layers"}
+    cspec, cparams, pm = main_out["spec"], main_out["params"], main_out["pm"]
+    tok = _full_vocab_tokenizer(cspec.vocab_size)
+    if not os.path.exists(os.path.join(main_out["artifact_dir"], "tokenizer.json")):
+        tok.save_pretrained(main_out["artifact_dir"])
+    with tempfile.TemporaryDirectory(prefix="modegpt_smoke_tpserve_") as tmp:
+        # (g)'s ranks load and pad the artifact while (e) and (f) run
+        server = _start_tp_server(tmp, main_out["artifact_dir"])
+        try:
+            with open(os.path.join(tmp, "tpserve_inputs.json"), "w") as f:
+                json.dump({"artifact_dir": main_out["artifact_dir"]}, f)
+            ref = {}
+
+            def one_rank():
+                t0 = time.perf_counter()
+                ref["rounds"], ref["logits"] = _tp_llama_rounds(pm, None)
+                ref["moe_pm"] = _tpserve_moe_model()
+                ref["rounds"].update(_tp_moe_rounds(ref["moe_pm"], None))
+                ref["seconds"] = time.perf_counter() - t0
+
+            ranks = _launch_parallel(["tpserve"], tmp, during=one_rank)["tpserve"]
+            logits = [torch.load(os.path.join(tmp, f"tpserve.rank{r}.logits.pt")) for r in range(2)]
+            moe_pm = ref.pop("moe_pm")
+            prompts, _ = _serve_prompts(cspec.vocab_size, SERVE["requests"])
+            moe_prompts, _ = _serve_prompts(moe_pm.spec.vocab_size, TPSERVE["moe_requests"])
+            pm8 = quantize_padded(pm)
+
+            def int8_logits(ids):  # the int8 round's model over a sequence into an int8 cache (plain attention)
+                from modegpt_tpu_torch.models import serving
+
+                st = serving.init_serve_state(pm8, 1, ids.shape[1], kv_dtype="int8")
+                return _model_step_padded(pm8.spec, pm8.layers, pm8.other, pm8.q_hd_true, ids, st.cache_k,
+                                          st.cache_v, 0, cache_scales=st.scales)[0]
+
+            logits_of = {
+                "f32": lambda ids: forward(cspec, cparams, ids)[0],
+                "int8_w8a8_kv8": int8_logits,
+                "moe_dense": lambda ids: forward_padded(moe_pm.spec, moe_pm.layers, moe_pm.other, moe_pm.q_hd_true,
+                                                        ids, attn_impl="xla"),
+            }
+            logits_of["moe_dispatch"] = logits_of["moe_dense"]
+            rounds = {}
+            for name, want in ref["rounds"].items():
+                if name == "steps":
+                    continue
+                got = ranks[0]["rounds"][name]
+                ps = moe_prompts if name.startswith("moe") else prompts
+                ties, diverged = [], []
+                for i, (g, w) in enumerate(zip(got["tokens"], want["tokens"])):
+                    d = _first_divergence(g, w, logits_of[name], len(ps[i]))
+                    if d is not None:
+                        (ties if d[1] <= TPSERVE["near_tie"] else diverged).append({"request": i, "at": d[0],
+                                                                                    "gap": d[1]})
+                rounds[name] = {
+                    "tp": {k: [r["rounds"][name][k] for r in ranks] for k in (
+                        "generated_tokens_per_s", "wall_seconds", "dispatch_ms", "dispatches", "k3_launches",
+                        "k3_expected", "comm_seconds", "comm_bytes", "peak_device_bytes", "pool_kv_heads")},
+                    "one_rank": {k: want[k] for k in ("generated_tokens_per_s", "dispatch_ms", "k3_launches",
+                                                      "peak_device_bytes")},
+                    "near_tie_divergences": ties, "divergences": diverged,
+                }
+                if diverged:
+                    problems.append(f"{name}: TP tokens part from one rank's beyond a near-tie: {diverged}")
+                if any(r["rounds"][name]["tokens"] != got["tokens"] for r in ranks):
+                    problems.append(f"{name}: the ranks served different tokens")
+                for r in ranks:
+                    rr = r["rounds"][name]
+                    if rr["k3_launches"] != rr["k3_expected"] or rr["decode_attn"] != "ragged":
+                        problems.append(f"{name} rank {r['rank']}: K3 launched {rr['k3_launches']} times, expected "
+                                        f"{rr['k3_expected']} ({rr['decode_attn']})")
+            line["rounds"] = rounds
+            steps = {}
+            for key in ("prefill", "decode"):
+                a, b = logits[0][key], ref["logits"][key]
+                steps[key] = {"max_abs_err": float((a - b).abs().max()), "max_abs": float(b.abs().max()),
+                              "ranks_equal": bool(torch.equal(logits[0][key], logits[1][key]))}
+                if not torch.allclose(a, b, **TPSERVE["logit_tol"]) or not steps[key]["ranks_equal"]:
+                    problems.append(f"{key} step logits: TP vs one rank {steps[key]}")
+            line["steps"] = steps
+            for r in ranks:
+                if r["rounds"]["steps"]["k3_launches"] != r["rounds"]["steps"]["k3_expected"]:
+                    problems.append(f"rank {r['rank']}: the steps launched K3 {r['rounds']['steps']['k3_launches']} "
+                                    f"times, expected {r['rounds']['steps']['k3_expected']}")
+            line["ranks"] = [{k: r[k] for k in ("rank", "coords", "device", "setup_seconds", "moe_setup_seconds",
+                                                "seconds", "comm_seconds", "comm_bytes", "launch_seconds")
+                              if k in r} for r in ranks]
+            line["one_rank_seconds"] = ref["seconds"]
+            del moe_pm, pm8, logits_of
+            gc.collect()
+            torch.cuda.empty_cache()
+
+            # every K3 shape the ranks ran: a timed kernel case, or held here
+            shapes = {tuple(s) for r in ranks for s in r["k3_shapes"]}
+            known = {_k3_case_key(c) for c in RAGGED_CASES}
+            held = [_k3_holds(s) for s in sorted(shapes, key=str) if s not in known]
+            line["k3_shapes"] = {"total": len(shapes), "kernel_cases": len(shapes) - len(held), "held_here": held}
+            problems += [f"K3 at {c['shape']} disagrees with its plain version" for c in held if not c["ok"]]
+            line["server"] = _tpserve_server(main_out, server, tok)
+        finally:
+            _stop(server["procs"])  # whatever is still running when a check above raised
+        problems += [f"server: {p}" for p in line["server"].pop("problems")]
+    launches = sum(r["rounds"][name]["k3_launches"] for r in ranks for name in rounds)
+    records["ragged_gqa_attend"]["launches_by_phase"]["tpserve"] = launches
+    line.update(k3_launches=launches, seconds=time.perf_counter() - t_phase)
+    emit(line)
+    if problems:
+        raise AssertionError("; ".join(problems))
+    return line
+
+
 def card_line() -> str:
     try:
         out = subprocess.run(
@@ -4089,7 +4615,8 @@ def card_line() -> str:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--phases",
-                    default="build,kernel,main,serve,sched,server,stream,quant,moe,long,archs,opt,big,parallel")
+                    default="build,kernel,main,serve,sched,server,stream,quant,tpserve,moe,long,archs,opt,big,"
+                    "parallel")
     ap.add_argument("--profile", action="store_true",
                     help="trace the main job, the serve round, the quant phase's int8 rounds, the moe "
                     "job, the long job and the archs job with torch.profiler; print their device busy time")
@@ -4121,12 +4648,13 @@ def main(argv=None) -> int:
         emit(phase_build())
     if "kernel" in phases:
         phase_kernel(records)
-    if {"main", "serve", "sched", "server", "stream", "quant", "moe", "long", "archs", "opt", "big",
+    if {"main", "serve", "sched", "server", "stream", "quant", "tpserve", "moe", "long", "archs", "opt", "big",
             "parallel"} & set(phases) and "kernel" not in phases:
-        raise SystemExit("chip_smoke: the main, serve, sched, server, stream, quant, moe, long, archs, opt, big "
-                         "and parallel phases need the kernel phase's records")
-    if {"main", "serve", "sched", "server", "stream", "quant"} & set(phases):
-        main_out = phase_main(records, args.profile, keep_artifact=bool({"server", "stream"} & set(phases)))
+        raise SystemExit("chip_smoke: the main, serve, sched, server, stream, quant, tpserve, moe, long, archs, "
+                         "opt, big and parallel phases need the kernel phase's records")
+    if {"main", "serve", "sched", "server", "stream", "quant", "tpserve"} & set(phases):
+        main_out = phase_main(records, args.profile,
+                              keep_artifact=bool({"server", "stream", "tpserve"} & set(phases)))
         try:
             if "serve" in phases:
                 phase_serve(records, main_out, args.profile)
@@ -4142,6 +4670,10 @@ def main(argv=None) -> int:
             if "quant" in phases:
                 torch.cuda.empty_cache()
                 phase_quant(records, main_out, args.profile)
+            if "tpserve" in phases:
+                gc.collect()
+                torch.cuda.empty_cache()
+                phase_tpserve(records, main_out)
         finally:
             if main_out["tmp"]:
                 shutil.rmtree(main_out["tmp"], ignore_errors=True)

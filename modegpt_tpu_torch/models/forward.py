@@ -343,11 +343,61 @@ def _row_linear(x: torch.Tensor, p: Dict, tp) -> torch.Tensor:
     """A projection whose input is this rank's slice of features under
     tensor parallelism (row-parallel o and down): the partial product
     summed over the mesh's ``model`` axis, then the replicated bias added
-    once. ``_linear`` itself when ``tp`` is None."""
+    once. ``_linear`` itself when ``tp`` is None.
+
+    W8A8 (``kernel_qa``) stays the unsharded product exactly, as GSPMD
+    partitions it: the per-token activation scale comes from the maximum
+    over every rank's features (one max all-reduce), each rank's int8
+    codes against its rows give int32 partial sums, and those are summed
+    over the axis in int32 (exact) before the float rescale."""
     if tp is None:
         return _linear(x, p)
-    y = all_reduce(tp, _linear(x, {k: v for k, v in p.items() if k != "bias"}), "model")
+    if "kernel_qa" in p:
+        xf = x.to(torch.float32)
+        amax = all_reduce(tp, torch.amax(torch.abs(xf), dim=-1, keepdim=True), "model", op="max")
+        xs = torch.where(amax == 0.0, torch.ones_like(amax), true_div(amax, 127.0))
+        xq = torch.clamp(torch.round(xf / xs), -127, 127).to(torch.int8)
+        kq = p["kernel_qa"]
+        acc = _int_mm(xq.reshape(-1, x.shape[-1]), kq).reshape(*x.shape[:-1], kq.shape[-1])
+        acc = all_reduce(tp, acc, "model")
+        y = (acc.to(torch.float32) * xs * p["scale"].to(torch.float32)).to(x.dtype)
+    else:
+        y = all_reduce(tp, _linear(x, {k: v for k, v in p.items() if k != "bias"}), "model")
     return y + p["bias"] if "bias" in p else y
+
+
+def _tp_of(spec: ModelSpec, q_width: int, head_dim: int, mesh, what: str):
+    """The mesh a layer holding ``q_width`` columns of q (``head_dim`` a
+    head) is tensor-parallel over, or None for a full layer. A layer short
+    of the spec's heads needs the mesh whose model axis sharded it."""
+    Hl = q_width // head_dim
+    if Hl == spec.n_heads:
+        return None
+    if mesh is None or mesh.size("model") * Hl != spec.n_heads:
+        raise ValueError(
+            f"{what} holds {Hl} of {spec.n_heads} heads: a tensor-parallel layer needs the mesh whose "
+            "model axis sharded it"
+        )
+    return mesh
+
+
+def _tp_qk_norms(spec: ModelSpec, p: Dict, q: torch.Tensor, k: torch.Tensor, rotary_mask, tp, r_true=None):
+    """`_qk_norms` on this rank's heads q [B, T, Hl, r], k [B, T, Hkl, r]
+    under tensor parallelism (``tp`` the mesh, or None). The rotary mask
+    and the q/k norm weights are replicated (the JAX layout); the rank
+    takes its kv heads' mask rows (its q heads are kv-head-major, so they
+    group with them). olmo2's whole-projection norm spans every head:
+    the heads are gathered, normalised with the full mask and weights,
+    and the rank keeps its own. Returns (q, k, the rank's mask rows)."""
+    if tp is None:
+        return (*_qk_norms(spec, p, q, k, rotary_mask, r_true), rotary_mask)
+    Hl, Hkl, c = q.shape[2], k.shape[2], tp.coord("model")
+    local = None if rotary_mask is None else rotary_mask[c * Hkl : (c + 1) * Hkl]
+    if spec.flat_qk_norm:
+        q, k = _qk_norms(spec, p, all_gather(tp, q, "model", 2), all_gather(tp, k, "model", 2), rotary_mask,
+                         r_true)
+        return q[:, :, c * Hl : (c + 1) * Hl], k[:, :, c * Hkl : (c + 1) * Hkl], local
+    return (*_qk_norms(spec, p, q, k, local, r_true), local)
 
 
 def _out_width(p: Dict) -> int:
@@ -479,7 +529,21 @@ def _expert_down_sum(h: torch.Tensor, ep: Dict, w_full: torch.Tensor) -> torch.T
     return hw @ kd.reshape(E * D, -1)
 
 
-def _moe_mlp(spec: ModelSpec, p: Dict, x: torch.Tensor, collect: bool):
+def _expert_range(spec: ModelSpec, p: Dict, tp) -> Tuple[int, int]:
+    """(first expert, number of experts) of the stack this rank holds:
+    (0, E) for a whole stack; under expert parallelism (`parallel.mesh`)
+    its coordinate's E/n experts."""
+    ep = p["experts"]["gate"]
+    El = next(v for k, v in ep.items() if k.startswith("kernel")).shape[0]
+    if El == spec.n_experts:
+        return 0, El
+    if tp is None or tp.size("model") * El != spec.n_experts:
+        raise ValueError(f"an expert stack of {El} of {spec.n_experts} experts needs the mesh whose model axis "
+                         "sharded it")
+    return tp.coord("model") * El, El
+
+
+def _moe_mlp(spec: ModelSpec, p: Dict, x: torch.Tensor, collect: bool, tp=None):
     """Sparse-MoE MLP with every expert on every token (HF semantics,
     modeling_mixtral.MixtralSparseMoeBlock; JAX forward.py:186): the
     non-selected experts' outputs are weighted by zero.
@@ -495,37 +559,50 @@ def _moe_mlp(spec: ModelSpec, p: Dict, x: torch.Tensor, collect: bool):
     scaled by the routing weight), the rows each expert's down projection
     sees, and h_shared [B, T, Ds] the shared expert's intermediate; both
     None unless ``collect`` (h_shared also None without a shared expert).
+
+    Under expert parallelism (``tp`` the mesh; `_expert_range`) the
+    router runs whole on every rank, the rank's experts give their part
+    of the routed-weighted sum, and one all-reduce over ``model`` adds
+    the parts; the shared expert is column/row split (`_shared_expert`).
+    h_routed and h_shared are then gathered over the axis.
     """
     B, T, d = x.shape
     N, E = B * T, spec.n_experts
+    e0, El = _expert_range(spec, p, tp)
     x2 = x.reshape(N, d)
     w, idx = _route(spec, p, x2)
     ek = p["experts"]
     h = _act(_expert_mm(x2, ek["gate"]), spec.act)
-    h = h.mul_(_expert_mm(x2, ek["up"]))  # [E, N, D]
+    h = h.mul_(_expert_mm(x2, ek["up"]))  # [El, N, D]
     D = h.shape[-1]
     w_full = torch.zeros((N, E), dtype=torch.float32, device=x.device).scatter_(-1, idx, w)
-    y = _expert_down_sum(h, ek["down"], w_full.to(x.dtype)).view(B, T, d)
+    y = _expert_down_sum(h, ek["down"], w_full[:, e0 : e0 + El].to(x.dtype)).view(B, T, d)
+    if El < E:
+        y = all_reduce(tp, y, "model")
     h_routed = h_shared = None
     if collect:
-        routed = torch.zeros((N, E), dtype=h.dtype, device=x.device).scatter_(-1, idx, 1.0)
-        h_routed = h.mul_(routed.T[..., None]).transpose(0, 1).reshape(B, T, E, D)
+        routed = torch.zeros((N, E), dtype=h.dtype, device=x.device).scatter_(-1, idx, 1.0)[:, e0 : e0 + El]
+        h_routed = h.mul_(routed.T[..., None]).transpose(0, 1).reshape(B, T, El, D)
+        if El < E:
+            h_routed = all_gather(tp, h_routed, "model", dim=2)
     del h
     if "shared" in p:
-        ys, hs = _shared_expert(spec, p, x)
+        ys, hs = _shared_expert(spec, p, x, tp)
         y = y + ys
         if collect:
-            h_shared = hs
+            h_shared = hs if tp is None else all_gather(tp, hs, "model", dim=-1)
     return y, h_routed, h_shared
 
 
-def _shared_expert(spec: ModelSpec, p: Dict, x: torch.Tensor):
+def _shared_expert(spec: ModelSpec, p: Dict, x: torch.Tensor, tp=None):
     """qwen2_moe's shared expert: a dense gated MLP over all tokens,
     scaled by a per-token sigmoid gate computed in float32 when the layer
-    has one (HF Qwen2MoeSparseMoeBlock.forward). Returns (y, h)."""
+    has one (HF Qwen2MoeSparseMoeBlock.forward). Returns (y, h). Under
+    tensor parallelism (``tp``) gate/up are this rank's columns and down
+    its rows (`_row_linear`), h the rank's slice."""
     sp = p["shared"]
     hs = _act(_linear(x, sp["gate"]), spec.act) * _linear(x, sp["up"])
-    ys = _linear(hs, sp["down"])
+    ys = _row_linear(hs, sp["down"], tp)
     if "shared_gate" in p:
         gate = torch.sigmoid(_linear(x, p["shared_gate"]).to(torch.float32))
         ys = ys * gate.to(ys.dtype)
@@ -544,6 +621,7 @@ def _moe_mlp_dispatch(
     x: torch.Tensor,
     capacity_factor: float,
     token_valid: Optional[torch.Tensor] = None,
+    tp=None,
 ) -> torch.Tensor:
     """Capacity-based token dispatch (JAX forward.py:283): the (token,
     expert) assignments sorted by expert, each expert given
@@ -561,9 +639,15 @@ def _moe_mlp_dispatch(
     port clamps those indices into range and adds zeros there (an
     out-of-range index on a CUDA tensor is a device-side assert); kept
     assignments have unique (expert, slot) pairs.
+
+    Under expert parallelism (``tp``, `_expert_range`) every rank routes
+    and sorts every token (the capacity is the global one, so the same
+    assignments are dropped), fills and runs only its experts' buffers,
+    and one all-reduce over ``model`` adds the ranks' sums.
     """
     B, T, d = x.shape
     N, E, k = B * T, spec.n_experts, spec.experts_per_tok
+    e0, El = _expert_range(spec, p, tp)
     C = max(1, min(N, int(math.ceil(capacity_factor * N * k / E))))
     dev = x.device
     xf = x.reshape(N, d)
@@ -580,11 +664,11 @@ def _moe_mlp_dispatch(
     counts = torch.bincount(expert_of, minlength=E + 1)
     starts = torch.cumsum(counts, 0) - counts
     slot = torch.arange(N * k, device=dev) - starts[sorted_e]
-    keep = (slot < C) & (sorted_e < E)
-    e_ix, s_ix = sorted_e.clamp(max=E - 1), slot.clamp(max=C - 1)
+    keep = (slot < C) & (sorted_e >= e0) & (sorted_e < e0 + El)  # a real expert of this rank's
+    e_ix, s_ix = (sorted_e - e0).clamp(0, El - 1), slot.clamp(max=C - 1)
     tok_sorted = token_of[order]
 
-    buf = torch.zeros((E, C, d), dtype=x.dtype, device=dev)
+    buf = torch.zeros((El, C, d), dtype=x.dtype, device=dev)
     vals = torch.where(keep[:, None], xf[tok_sorted], torch.zeros((), dtype=x.dtype, device=dev))
     buf.index_put_((e_ix, s_ix), vals, accumulate=True)  # dropped ones add zeros
 
@@ -600,8 +684,10 @@ def _moe_mlp_dispatch(
     contrib = torch.empty_like(picked)
     contrib[order] = picked
     y = contrib.view(N, k, d).sum(dim=1).view(B, T, d)
+    if El < E:
+        y = all_reduce(tp, y, "model")
     if "shared" in p:
-        y = y + _shared_expert(spec, p, x)[0]
+        y = y + _shared_expert(spec, p, x, tp)[0]
     return y
 
 
@@ -662,9 +748,10 @@ def _layer(
 
     Tensor parallelism (`parallel.mesh.param_shardings`): the local head
     counts come from the sharded q/k kernels' widths; when they are
-    short of the spec's, the layer runs its heads and its d_int slice
-    and sums the row-parallel o and down products over ``mesh``'s
-    ``model`` axis (one all-reduce each). Its taps are then: ``cov_x``
+    short of the spec's, the layer runs its heads (with its kv heads'
+    rows of the rotary mask) and its d_int slice or experts, and sums
+    the row-parallel o and down products over ``mesh``'s ``model`` axis
+    (one all-reduce each). Its taps are then: ``cov_x``
     replicated, ``cov_q``/``cov_k`` this rank's heads (the caller gathers
     them), ``cov_mlp`` the Gram of ``h`` all-gathered along its features.
     ``seq_axis``: x is this rank's chunk of the sequence on that axis
@@ -676,14 +763,9 @@ def _layer(
     rotary_mask = p.get("rotary_mask")
     taps = {}
     Hl, Hkl = _out_width(p["q"]) // q_hd, _out_width(p["k"]) // q_hd
-    tp = None
-    if Hl != H:
-        if mesh is None or mesh.size("model") * Hl != H or seq_axis is not None:
-            raise ValueError(
-                f"layer {layer_idx} holds {Hl} of {H} heads: a tensor-parallel layer needs the mesh "
-                "whose model axis sharded it (and no sequence sharding)"
-            )
-        tp = mesh
+    tp = _tp_of(spec, _out_width(p["q"]), q_hd, mesh, f"layer {layer_idx}")
+    if tp is not None and seq_axis is not None:
+        raise ValueError(f"layer {layer_idx}: a tensor-parallel layer takes no sequence sharding")
 
     # ---- attention ----
     residual = x
@@ -695,13 +777,7 @@ def _layer(
         taps["cov_x"] = _gram(x_ln.reshape(-1, spec.d_model), gram_precision)
         taps["cov_q"] = _head_gram(q, gram_precision)
         taps["cov_k"] = _head_gram(k, gram_precision)
-    if tp is not None and spec.flat_qk_norm:
-        # olmo2's norm spans every head: normalise the gathered heads
-        c = tp.coord("model")
-        q, k = _qk_norms(spec, p, all_gather(tp, q, "model", 2), all_gather(tp, k, "model", 2), rotary_mask)
-        q, k = q[:, :, c * Hl : (c + 1) * Hl], k[:, :, c * Hkl : (c + 1) * Hkl]
-    else:
-        q, k = _qk_norms(spec, p, q, k, rotary_mask)
+    q, k, rotary_mask = _tp_qk_norms(spec, p, q, k, rotary_mask, tp)
     q = q.transpose(1, 2)  # [B, H, T, q_hd]
     k = k.transpose(1, 2)
     v = v.transpose(1, 2)
@@ -748,16 +824,16 @@ def _mlp_block(
     (on a MoE layer the routed [B, T, E, D] intermediate, None unless
     ``collect`` and never under dispatch), h_shared the shared expert's
     (or None). ``tp``: the mesh when up/gate are column- and down
-    row-parallel; h is then gathered along its features when
-    ``collect``."""
+    row-parallel (a MoE layer's experts split by whole experts); h is then
+    gathered along its features (its experts) when ``collect``."""
     pre_ln = spec.do_layer_norm_before
     residual = x
     x_ln2 = _norm(x, p["mlp_norm"], spec.norm, spec.norm_eps) if (pre_ln and spec.pre_norms) else x
     h = h_shared = None
     if spec.is_moe_layer(layer_idx) and moe == "dispatch":
-        y = _moe_mlp_dispatch(spec, p, x_ln2, moe_capacity, token_valid)
+        y = _moe_mlp_dispatch(spec, p, x_ln2, moe_capacity, token_valid, tp)
     elif spec.is_moe_layer(layer_idx):
-        y, h, h_shared = _moe_mlp(spec, p, x_ln2, collect)
+        y, h, h_shared = _moe_mlp(spec, p, x_ln2, collect, tp)
     else:
         if spec.gated_mlp:
             h = _act(_linear(x_ln2, p["gate"]), spec.act) * _linear(x_ln2, p["up"])

@@ -59,8 +59,14 @@ attention.
 
 MoE layers run every expert on every token (``moe="dense"``) or by
 capacity-based token dispatch (``moe="dispatch"``, with ``token_valid``
-marking the rows whose tokens may claim expert capacity). Tensor
-parallelism is not ported.
+marking the rows whose tokens may claim expert capacity).
+
+Tensor parallelism (`parallel.mesh.shard_serving`): each rank holds its
+heads' columns of q/k/v, rows of o, its slice of the MLP or its whole
+experts, and its kv heads of the pools; `_layer_padded` runs the rank's
+heads (K3 on them, no collective) and reduces o and down over the
+``model`` axis, so the residual stream and the logits are whole on every
+rank.
 """
 
 from __future__ import annotations
@@ -78,7 +84,9 @@ from modegpt_tpu_torch.models.forward import (
     _embed,
     _linear,
     _mlp_block,
-    _qk_norms,
+    _out_width,
+    _tp_of,
+    _tp_qk_norms,
     _unembed,
     check_supported,
 )
@@ -102,12 +110,14 @@ class PaddedModel(NamedTuple):
     """Uniform-shape stacked model: `spec` has the PADDED ranks; `layers`
     holds [L, ...] stacked leaves; `q_hd_true` [L] float32 the true
     per-head q/k dim of each layer (everything else is exact through
-    zeros)."""
+    zeros). `mesh`: the `parallel.mesh.Mesh` whose ``model`` axis
+    sharded the stack (`parallel.mesh.shard_serving`), else None."""
 
     spec: ModelSpec
     layers: Dict
     other: Dict
     q_hd_true: torch.Tensor
+    mesh: object = None
 
 
 def _pad_head_axis(x: torch.Tensor, n_heads: int, r_true: int, R: int, rope: bool, axis: int):
@@ -341,6 +351,7 @@ def _layer_padded(
     moe: str = "dense",
     moe_capacity: float = 2.0,
     token_valid: Optional[torch.Tensor] = None,
+    mesh=None,
 ) -> torch.Tensor:
     """One padded layer (``layer``: its index in the stack). Without a
     cache: full causal self-attention (attn_impl "flash" or "xla"). With
@@ -350,11 +361,21 @@ def _layer_padded(
     kernel on the card, or "xla", its plain version: the masked
     contraction over the whole pool). A MoE layer's experts run by ``moe``
     ("dense" or "dispatch" at ``moe_capacity``, where ``token_valid``
-    [B, S] keeps masked rows from claiming expert capacity)."""
+    [B, S] keeps masked rows from claiming expert capacity).
+
+    Tensor parallelism (`parallel.mesh.shard_serving`; ``mesh`` the mesh
+    that sharded the stack): the local head counts come from the sharded
+    q/k widths, cut at the padded width R. The q heads are kv-head-major,
+    so the rank's column shard of q groups with its kv heads and its
+    shard of the pool ([B, Hk/n, T, R]): the attention (K3 on the card)
+    runs on the rank's H/n heads with no collective, the JAX
+    ``shard_map`` over ``model`` in SPMD form. o and down are reduced over
+    the axis, a MoE layer's experts by expert parallelism."""
     B, S, _ = x.shape
-    H, Hk = spec.n_heads, spec.n_kv_heads
-    Rq = spec.q_ranks[0] // H
-    Rv = spec.v_ranks[0] // Hk
+    Rq = spec.q_ranks[0] // spec.n_heads
+    Rv = spec.v_ranks[0] // spec.n_kv_heads
+    tp = _tp_of(spec, _out_width(p["q"]), Rq, mesh, f"padded layer {layer}")
+    H, Hk = _out_width(p["q"]) // Rq, _out_width(p["k"]) // Rq  # this rank's heads
     rotary_mask = p.get("rotary_mask")
 
     residual = x
@@ -362,7 +383,7 @@ def _layer_padded(
     q = _linear(x_ln, p["q"]).reshape(B, S, H, Rq)
     k = _linear(x_ln, p["k"]).reshape(B, S, Hk, Rq)
     v = _linear(x_ln, p["v"]).reshape(B, S, Hk, Rv)
-    q, k = _qk_norms(spec, p, q, k, rotary_mask, q_hd_true)
+    q, k, rotary_mask = _tp_qk_norms(spec, p, q, k, rotary_mask, tp, q_hd_true)
     q = q.transpose(1, 2)
     k = k.transpose(1, 2)
     v = v.transpose(1, 2)
@@ -397,8 +418,8 @@ def _layer_padded(
             q, ck, cv, pos, k_scale=scales[0], v_scale=scales[1], window=window, softcap=softcap
         )
     attn = attn.transpose(1, 2).reshape(B, S, H * Rv)
-    x = _attn_output(spec, p, residual, attn)
-    return _mlp_block(spec, p, x, layer, False, moe, moe_capacity, token_valid)[0]
+    x = _attn_output(spec, p, residual, attn, tp)
+    return _mlp_block(spec, p, x, layer, False, moe, moe_capacity, token_valid, tp)[0]
 
 
 @torch.no_grad()
@@ -411,13 +432,15 @@ def forward_padded(
     attn_impl: str = "auto",
     moe: str = "dense",
     moe_capacity: float = 2.0,
+    mesh=None,
 ) -> torch.Tensor:
     """Full causal forward over the padded stack; returns logits. Same
     numerics as `forward(orig_spec, orig_params, ...)`. attn_impl "auto"
     takes the CUDA flash-attention kernels on the card (K1 for
     128 <= T <= 8192, K2 beyond) and the plain version elsewhere, through
     `forward`'s attention route. moe: "dense" or "dispatch" (MoE layers,
-    see `_layer_padded`)."""
+    see `_layer_padded`). ``mesh``: the mesh that sharded ``layers``
+    (`parallel.mesh.shard_serving`), or None."""
     check_supported(spec)
     T = input_ids.shape[1]
     x = _embed(spec, other, input_ids)
@@ -432,7 +455,7 @@ def forward_padded(
     for l in range(spec.n_layers):
         x = _layer_padded(
             spec, _layer_params(layers, l), q_hd_true[l], x, cos, sin, attn_impl, _layer_window(spec, l),
-            layer=l, moe=moe, moe_capacity=moe_capacity,
+            layer=l, moe=moe, moe_capacity=moe_capacity, mesh=mesh,
         )
     return _unembed(spec, other, x)
 
@@ -509,6 +532,7 @@ def _model_step_padded(
     moe_capacity: float = 2.0,
     token_valid: Optional[torch.Tensor] = None,
     index: Optional[StepIndex] = None,
+    mesh=None,
 ):
     """New tokens [B, S] through the padded stack with a stacked cache.
 
@@ -528,6 +552,10 @@ def _model_step_padded(
     moe_capacity: MoE execution (`_layer_padded`); token_valid [B, S]
     bool: the rows and positions whose tokens may claim dispatch-MoE
     expert capacity (masked slots and padded chunk tails may not).
+    ``mesh``: the mesh that sharded the stack and the pools
+    (`parallel.mesh.shard_serving`; ``pm.mesh``), or None. Every rank of
+    its ``model`` axis runs the step on its heads with the same tokens
+    and lengths; the logits come out whole on every rank.
 
     Returns (logits [B, S or 1, V], length + S as a host value)."""
     check_supported(spec)
@@ -547,7 +575,7 @@ def _model_step_padded(
         x = _layer_padded(
             spec, _layer_params(layers, l), q_hd_true[l], x, cos, sin, decode_attn,
             _layer_window(spec, l), cache=tuple(c[l] for c in pools), pos=index.pos, write_ix=index.write_ix,
-            layer=l, moe=moe, moe_capacity=moe_capacity, token_valid=token_valid,
+            layer=l, moe=moe, moe_capacity=moe_capacity, token_valid=token_valid, mesh=mesh,
         )
     if isinstance(logits_at, torch.Tensor):
         x = x[torch.arange(B, device=dev), logits_at][:, None]

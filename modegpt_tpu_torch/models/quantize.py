@@ -102,7 +102,7 @@ def quantize_padded(pm: PaddedModel) -> PaddedModel:
     other = dict(pm.other)
     if pm.other.get("lm_head") is not None:
         other["lm_head"] = quantize_linear(pm.other["lm_head"])
-    return PaddedModel(spec=pm.spec, layers=_quantize_layer(pm.layers), other=other, q_hd_true=pm.q_hd_true)
+    return pm._replace(layers=_quantize_layer(pm.layers), other=other)
 
 
 def _qa_view_linear(p: Dict) -> Dict:
@@ -136,7 +136,7 @@ def with_act_quant(pm):
     does everything that is not int8 (float kernels, packed int4): on an
     unquantised model the view is the identity."""
     if isinstance(pm, PaddedModel):
-        return PaddedModel(spec=pm.spec, layers=_qa_view_layer(pm.layers), other=pm.other, q_hd_true=pm.q_hd_true)
+        return pm._replace(layers=_qa_view_layer(pm.layers))
     out = dict(pm)
     out["layers"] = [_qa_view_layer(lp) for lp in pm["layers"]]
     return out

@@ -77,9 +77,15 @@ alternatives for ``top_logprobs``). A seeded request draws row by row
 from a hash of (seed, draw index), so its stream is the same alone, in
 any batch, fused or not, prefilled per slot or batched.
 
-Still raising NotImplementedError, with this module named: the
-constructor's ``mesh`` (tensor-parallel serving comes with
-``parallel.mesh.shard_serving``, not ported yet).
+Tensor- and expert-parallel serving (``mesh``, JAX ``serving.py:1014-1026``):
+SPMD, one process per rank of a `parallel.mesh.Mesh`. The batcher
+shards its model, the draft model and their pools with
+`parallel.mesh.shard_serving`; every dispatch runs each rank's heads
+(K3 on them on the card) and experts and reduces o and down over the
+``model`` axis, so the logits, and with them every host decision, are
+the same on every rank. Every rank must see the same submits and
+cancels in the same order and step with generators seeded alike
+(`server.follow` keeps the server's ranks so).
 """
 
 from __future__ import annotations
@@ -106,9 +112,6 @@ __all__ = [
     "TOP_LP_K",
     "ContinuousBatcher",
 ]
-
-_MODULE = "modegpt_tpu_torch.models.serving"
-
 
 class ServeState(NamedTuple):
     cache_k: torch.Tensor  # [L, slots, Hk, max_len, Rq] (int8 codes when quantized)
@@ -177,7 +180,7 @@ def _chunks(prompt: np.ndarray, bucket: int) -> List[Tuple[np.ndarray, int, bool
 def _step(pm: PaddedModel, state: ServeState, tokens: torch.Tensor, length, **kw):
     """`_model_step_padded` of `pm` over the whole slot table of `state`."""
     return _model_step_padded(pm.spec, pm.layers, pm.other, pm.q_hd_true, tokens, state.cache_k,
-                              state.cache_v, length, cache_scales=state.scales, **kw)[0]
+                              state.cache_v, length, cache_scales=state.scales, mesh=pm.mesh, **kw)[0]
 
 
 # device-side top-logprobs width: OpenAI caps top_logprobs at 20, and the
@@ -318,7 +321,7 @@ def _prefill_chunk(pm: PaddedModel, state: ServeState, slot: int, piece: np.ndar
         pm.spec, pm.layers, pm.other, pm.q_hd_true, upload(chunk, dev),
         state.cache_k[:, view], state.cache_v[:, view], pos0, cache_scales=scales,
         decode_attn=decode_attn, logits_at=real_len - 1,
-        moe=moe, moe_capacity=moe_capacity, token_valid=tail_valid,
+        moe=moe, moe_capacity=moe_capacity, token_valid=tail_valid, mesh=pm.mesh,
     )
     state.lengths[slot] = pos0 + real_len
     if not commit:
@@ -575,11 +578,6 @@ def decode_slots(pm: PaddedModel, state: ServeState, active, temperature: float 
     return state, nxt
 
 
-def _not_ported(names: List[str]) -> None:
-    if names:
-        raise NotImplementedError(f"{_MODULE}: not ported: " + ", ".join(names))
-
-
 class _Queued(NamedTuple):
     """A submitted request waiting for a slot."""
 
@@ -632,7 +630,9 @@ class ContinuousBatcher:
     (capacity-based token dispatch at ``moe_capacity``; nothing is
     dropped at moe_capacity >= n_experts / experts_per_tok).
     ``a8_prefill``: prefill dispatches run W8A8 on an int8 model (see the
-    module docstring).
+    module docstring). ``mesh``: a `parallel.mesh.Mesh` to serve on, each
+    rank its shard (`parallel.mesh.shard_serving`; quantise before, as
+    the scales of row-parallel projections span every rank's rows).
     """
 
     def __init__(self, pm: PaddedModel, slots: int = 8, max_len: int = 512,
@@ -671,8 +671,18 @@ class ContinuousBatcher:
             raise ValueError(f"prefill_exec must be per_slot or batched, got {prefill_exec!r}")
         if moe not in ("dense", "dispatch"):
             raise ValueError(f"moe must be dense or dispatch, got {moe!r}")
-        _not_ported(["mesh (tensor-parallel serving comes with modegpt_tpu_torch.parallel.mesh.shard_serving)"]
-                    if mesh is not None else [])
+        draft_pm = draft_pm if spec_decode == "draft" else None
+        state = init_serve_state(pm, slots, max_len, kv_dtype=kv_dtype)
+        draft_state = init_serve_state(draft_pm, slots, max_len, kv_dtype=kv_dtype) if draft_pm is not None else None
+        # tensor-parallel serving (JAX serving.py:1014-1026): this rank's
+        # shard of the stack and of its pools, the draft model's too;
+        # every rank steps the same host decisions over its own heads
+        if mesh is not None:
+            from modegpt_tpu_torch.parallel.mesh import shard_serving
+
+            pm, state = shard_serving(mesh, pm, state)
+            if draft_pm is not None:
+                draft_pm, draft_state = shard_serving(mesh, draft_pm, draft_state)
         self.pm = pm
         self.device = _device(pm)
         self.slots = slots
@@ -717,12 +727,10 @@ class ContinuousBatcher:
         self.mixed_prefill_decode = mixed_prefill_decode
         self.decode_attn = resolve_decode_attn(decode_attn, self.device)
         self.kv_dtype = kv_dtype
-        self.state = init_serve_state(pm, slots, max_len, kv_dtype=kv_dtype)
+        self.state = state
         # the draft model's own pool, mirrored by every prefill path
-        self.draft_pm = draft_pm if spec_decode == "draft" else None
-        self.draft_state = (
-            init_serve_state(draft_pm, slots, max_len, kv_dtype=kv_dtype) if self.draft_pm is not None else None
-        )
+        self.draft_pm = draft_pm
+        self.draft_state = draft_state
         # W8A8 prefill: the prefill dispatches run on the int8 model's
         # W8A8 view (it shares every tensor with pm); decode stays
         # weight-only (JAX serving.py:1036-1047)

@@ -12,8 +12,10 @@ shard and calls the collectives below explicitly.
   (`shard_batch`); Gram sums and NLL sums are all-reduced over it.
 * ``model`` axis: Megatron tensor parallelism (`param_shardings`):
   column-parallel q/k/v/up/gate, row-parallel o/down with one
-  all-reduce each; or, with ``shard_sequence``, the calibration
-  sequence split over it.
+  all-reduce each, expert stacks split by whole experts; or, with
+  ``shard_sequence``, the calibration sequence split over it. Serving
+  (`shard_serving`) cuts the padded stack the same way and the K/V
+  pools by kv head.
 * ``stage`` axis: the GPipe pipeline of `parallel.pp`.
 * ``context`` axis: the ring attention of `parallel.ring`.
 
@@ -67,7 +69,6 @@ __all__ = [
 ]
 
 DEFAULT_TIMEOUT_S = 600.0
-_SERVING_MODULE = "modegpt_tpu_torch.parallel.mesh.shard_serving"
 
 
 def maybe_initialize_distributed(device: Union[str, torch.device] = "cuda") -> bool:
@@ -265,9 +266,13 @@ def _staged(mesh: Mesh, t: torch.Tensor) -> torch.Tensor:
     return t.contiguous()
 
 
-def all_reduce(mesh: Mesh, t: torch.Tensor, axes: Union[str, Sequence[str]]) -> torch.Tensor:
-    """Sum of ``t`` over the ranks of each axis in ``axes`` (axes of
-    size 1 skipped); a tensor on ``t``'s device."""
+_OPS = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX}
+
+
+def all_reduce(mesh: Mesh, t: torch.Tensor, axes: Union[str, Sequence[str]], op: str = "sum") -> torch.Tensor:
+    """Sum (or, with ``op="max"``, maximum) of ``t`` over the ranks of
+    each axis in ``axes`` (axes of size 1 skipped); a tensor on ``t``'s
+    device."""
     for axis in (axes,) if isinstance(axes, str) else tuple(axes):
         if mesh.size(axis) == 1:
             continue
@@ -275,7 +280,7 @@ def all_reduce(mesh: Mesh, t: torch.Tensor, axes: Union[str, Sequence[str]]) -> 
             buf = _staged(mesh, t)
             if buf is t:
                 buf = t.clone()
-            dist.all_reduce(buf, group=mesh.group(axis)[0])
+            dist.all_reduce(buf, op=_OPS[op], group=mesh.group(axis)[0])
             t = buf.to(t.device)
     return t
 
@@ -373,6 +378,11 @@ def gather_objects(mesh: Mesh, obj, axis: str, owner: int = 0) -> Optional[list]
 # ---- parameter sharding ----
 
 
+_COLUMN = ("q", "k", "v", "up", "gate")  # split on the out axis (-1)
+_ROW = ("o", "down")  # split on the in axis (-2)
+_CODES = ("kernel", "kernel_q", "kernel_qa")
+
+
 def _split(t: torch.Tensor, dim: int, n: int, c: int, what: str) -> torch.Tensor:
     if t.shape[dim] % n:
         raise ValueError(f"{what}: dimension {t.shape[dim]} does not divide the model axis ({n})")
@@ -380,85 +390,141 @@ def _split(t: torch.Tensor, dim: int, n: int, c: int, what: str) -> torch.Tensor
     return t.narrow(dim, c * step, step)
 
 
+def _owned(t: torch.Tensor, dev: torch.device) -> torch.Tensor:
+    """A shard view copied to ``dev`` into memory of its own (the full
+    tensor is not kept alive through it), in its source's layout:
+    column-major int8 codes (`models.forward.column_major`, what the
+    card's int8 GEMM takes without a copy) stay column-major."""
+    col_major = t.dim() >= 2 and t.stride(-2) == 1 and t.stride(-1) != 1
+    src = t.transpose(-1, -2) if col_major else t
+    out = torch.empty(src.shape, dtype=src.dtype, device=dev)
+    out.copy_(src)
+    return out.transpose(-1, -2) if col_major else out
+
+
+def _tree_to(t, dev: torch.device):
+    if isinstance(t, dict):
+        return {k: _tree_to(v, dev) for k, v in t.items()}
+    if isinstance(t, (list, tuple)):
+        return [_tree_to(v, dev) for v in t]
+    return t.to(dev) if isinstance(t, torch.Tensor) else t
+
+
+def _shard_layers(mesh: Mesh, spec, layers: Dict, lead: int, dev: torch.device) -> Dict:
+    """The Megatron layout of one layer's leaves (``lead`` = 0: a layer
+    dict of the unrolled tree) or of the padded stack's ``[L, ...]``
+    leaves (``lead`` = 1, every rule one axis right), cut to this rank's
+    shard on the mesh's ``model`` axis and placed on ``dev``. Negative
+    axes serve both: q/k/v/up/gate split their out axis (-1; codes,
+    per-out-channel ``scale`` and bias alike), o/down their in axis (-2;
+    scale and bias replicated: the row-parallel bias is added once, after
+    the reduction); expert stacks ``[(L,) E, ., .]`` split their expert
+    axis when ``n_experts`` divides the model axis (expert parallelism:
+    E/n whole experts a rank, scales with them) and are replicated
+    otherwise; the shared expert takes the column/row split; everything
+    else (norms, router, shared_gate, rotary masks, q/k norm weights) is
+    replicated, as in the JAX layout."""
+    n, c = mesh.size("model"), mesh.coord("model")
+
+    def rep(t):
+        return _tree_to(t, dev)
+
+    def cut(t, dim, what):
+        return _owned(_split(t, dim, n, c, what), dev)
+
+    def linear(sub, name, col: bool):
+        out = {}
+        for key, t in sub.items():
+            what = f"{name}.{key}"
+            if key in _CODES:
+                if col and t.dtype == torch.uint8 and (sub["scale"].shape[-1] // n) % 2:
+                    raise ValueError(f"{what}: packed int4 codes split on whole bytes; each rank's "
+                                     f"{sub['scale'].shape[-1] // n} columns must be even")
+                out[key] = cut(t, -1 if col else -2, what)
+            elif key in ("scale", "bias"):
+                out[key] = cut(t, -1, what) if col else rep(t)
+            else:
+                raise ValueError(f"modegpt_tpu_torch.parallel.mesh: unknown projection leaf {what}")
+        return out
+
+    out = {}
+    for name, sub in layers.items():
+        if name in _COLUMN or name in _ROW:
+            out[name] = linear(sub, name, col=name in _COLUMN)
+        elif name == "experts" and spec.n_experts % n == 0:
+            out[name] = {k: {key: cut(t, lead, f"experts.{k}.{key}") if key != "bias" else rep(t)
+                             for key, t in v.items()} for k, v in sub.items()}
+        elif name == "shared":
+            out[name] = {k: linear(v, f"shared.{k}", col=k != "down") for k, v in sub.items()}
+        else:
+            out[name] = rep(sub)
+    return out
+
+
 def param_shardings(mesh: Mesh, spec, params: Dict, device: Optional[torch.device] = None) -> Dict:
     """This rank's parameter tree under the mesh's ``model`` axis: the
-    JAX ``param_shardings`` Megatron layout, applied to the full tree
-    (the output of the port's weight conversion):
+    JAX ``param_shardings`` Megatron layout (``mesh.py:110-171``),
+    applied to the full tree (the output of the port's weight
+    conversion):
 
       q/k/v kernel [d, H*hd] and bias  -> column-parallel: this rank's heads
       up/gate      [d, d_int] and bias -> column-parallel: its d_int slice
       o kernel     [H*hd, d]           -> row-parallel: its heads' rows
       down         [d_int, d]          -> row-parallel: its d_int rows
+      experts      [E, ., .]           -> expert-parallel: E/n whole experts
+                                          (replicated when n does not divide E)
+      shared expert                    -> column/row split, as a dense MLP
       o/down bias, norms, embeddings,
-      router, LM head                  -> replicated (the row-parallel bias
+      router, rotary masks, LM head    -> replicated (the row-parallel bias
                                           is added once, after the reduction)
 
-    Each leaf lands on ``device`` (default the mesh's); only the rank's
-    shard is copied there. Without a ``model`` axis > 1 the tree is the
-    full one, on ``device``. ``models.forward`` reads the local head
-    counts from the sharded kernels' widths. Expert stacks under a
-    ``model`` axis > 1 (expert parallelism), and compressed layers
-    (rotary-masked) or quantised leaves, raise NotImplementedError: they
-    come with tensor-parallel serving (``shard_serving``)."""
+    A quantised projection's codes (``kernel_q``, ``kernel_qa``) split like
+    the kernel they replace, its per-out-channel ``scale`` with the out
+    axis (cut for column-parallel, replicated for row-parallel). Each leaf
+    lands on ``device`` (default the mesh's); only the rank's shard is
+    copied there. Without a ``model`` axis > 1 the tree is the full one,
+    on ``device``. ``models.forward`` reads the local head and expert
+    counts from the sharded widths, and this rank's rows of a replicated
+    rotary mask from its coordinate."""
     dev = mesh.device if device is None else torch.device(device)
+    if mesh.size("model") == 1:
+        return _tree_to(params, dev)
+    return {k: ([_shard_layers(mesh, spec, lp, 0, dev) for lp in v] if k == "layers" else _tree_to(v, dev))
+            for k, v in params.items()}
 
-    def put(t):
-        return t.to(dev) if isinstance(t, torch.Tensor) else t
 
-    def tree(t):
-        if isinstance(t, dict):
-            return {k: tree(v) for k, v in t.items()}
-        if isinstance(t, (list, tuple)):
-            return [tree(v) for v in t]
-        return put(t)
+def shard_serving(mesh: Mesh, pm, state):
+    """This rank's serving stack over the mesh's ``model`` axis (JAX
+    ``mesh.py:174-258``): returns ``(PaddedModel, ServeState)``.
 
+    The padded stack's ``[L, ...]`` leaves take `param_shardings`' layout
+    shifted one axis right (L leads, whole on every rank); the K/V pools
+    ``[L, slots, Hk, max_len, R]`` and the int8 KV scales
+    ``[L, slots, Hk, max_len]`` keep this rank's Hk/n kv heads, matching
+    the k/v projections, so the cache writes and the ragged attention
+    (K3 on the rank's own heads) stay local: the o and down reductions
+    are a layer's only collectives. Lengths (host), last tokens,
+    ``q_hd_true`` and ``other`` (embeddings, final norm, LM head) are
+    replicated. Without a ``model`` axis > 1 everything is replicated on
+    the mesh's device. The model records the mesh (``pm.mesh``), which
+    the step functions hand to the layers. n_kv_heads must divide by
+    the model axis (head-sharded attention)."""
+    dev = mesh.device
     n = mesh.size("model")
-    if n == 1:
-        return tree(params)
-    c = mesh.coord("model")
+    if n > 1 and pm.spec.n_kv_heads % n != 0:
+        raise ValueError(
+            f"serving TP needs n_kv_heads ({pm.spec.n_kv_heads}) divisible by the model axis ({n})"
+        )
+    layers = _shard_layers(mesh, pm.spec, pm.layers, 1, dev) if n > 1 else _tree_to(pm.layers, dev)
+    pm = pm._replace(layers=layers, other=_tree_to(pm.other, dev), q_hd_true=pm.q_hd_true.to(dev), mesh=mesh)
 
-    def linear(sub, name, col: bool):
-        out = {}
-        for key, t in sub.items():
-            if key == "kernel":
-                out[key] = put(_split(t, 1 if col else 0, n, c, f"{name}.kernel"))
-            elif key == "bias":
-                out[key] = put(_split(t, 0, n, c, f"{name}.bias")) if col else put(t)
-            else:
-                raise NotImplementedError(
-                    f"modegpt_tpu_torch.parallel.mesh: a {name}.{key} leaf under a model axis > 1 "
-                    f"(quantised tensor parallelism comes with {_SERVING_MODULE})"
-                )
-        return out
+    def pool(t):
+        if t is None:
+            return None
+        return _owned(_split(t, 2, n, mesh.coord("model"), "kv pool"), dev) if n > 1 else t.to(dev)
 
-    def layer(lp):
-        if "experts" in lp:
-            raise NotImplementedError(
-                "modegpt_tpu_torch.parallel.mesh: expert stacks under a model axis > 1 (expert "
-                f"parallelism comes with {_SERVING_MODULE})"
-            )
-        if "rotary_mask" in lp:
-            raise NotImplementedError(
-                "modegpt_tpu_torch.parallel.mesh: a compressed (rotary-masked) layer under a model "
-                f"axis > 1 (tensor-parallel compressed models come with {_SERVING_MODULE})"
-            )
-        out = {}
-        for name, sub in lp.items():
-            if name in ("q", "k", "v", "up", "gate"):
-                out[name] = linear(sub, name, col=True)
-            elif name in ("o", "down"):
-                out[name] = linear(sub, name, col=False)
-            else:
-                out[name] = tree(sub)
-        return out
-
-    return {k: ([layer(lp) for lp in v] if k == "layers" else tree(v)) for k, v in params.items()}
-
-
-def shard_serving(mesh, pm, state):
-    """Tensor-parallel placement of the serving stack (JAX
-    ``mesh.py:174-258``): not ported yet."""
-    raise NotImplementedError(
-        f"{_SERVING_MODULE}: tensor-parallel serving (the padded stack, its K/V pools and the "
-        "ragged decode through K3 over a model axis) is not ported yet"
+    state = state._replace(
+        cache_k=pool(state.cache_k), cache_v=pool(state.cache_v), lengths=np.array(state.lengths),
+        last_token=state.last_token.to(dev), k_scale=pool(state.k_scale), v_scale=pool(state.v_scale),
     )
+    return pm, state

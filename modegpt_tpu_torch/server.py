@@ -66,9 +66,22 @@ steps_per_dispatch and prefill execution stay server-level settings.
 
 CLI: ``python -m modegpt_tpu_torch.server --model <artifact-or-hf-dir>
 --port 8000`` with the JAX server's flags, plus ``--device`` (a torch
-device: "cuda" by default, "cuda:N", N, or "cpu"). ``--tensor_parallel``
-above 1 raises NotImplementedError (tensor-parallel serving comes with
-``parallel.mesh.shard_serving``, not ported yet).
+device: "cuda" by default, "cuda:N", N, or "cpu").
+
+Tensor parallelism (``--tensor_parallel N``): SPMD, one process per rank
+(``python -m torch.distributed.run --nproc_per_node N -m
+modegpt_tpu_torch.server ... --tensor_parallel N``; NCCL with a card a
+rank, gloo on the CPU or when asked for with
+``MODEGPT_DIST_BACKEND=gloo``). The world's W ranks form the mesh
+data:W/N,model:N (W a multiple of N), and each rank's batcher holds its
+shard (`parallel.mesh.shard_serving`). Rank 0 alone runs the HTTP server
+and the scheduler thread; every round that thread broadcasts to the
+other ranks the submits and cancels it applied before the step (one
+pickled list; an empty one every `KEEPALIVE_S` seconds when idle, and a
+stop at shutdown), and each of them (`follow`) applies them to its own
+batcher and steps in lockstep. Where the JAX server is one controller
+over every device, the port's ranks are processes kept alike by that
+broadcast.
 """
 
 from __future__ import annotations
@@ -131,8 +144,13 @@ class InferenceServer:
     """
 
     def __init__(self, batcher, tokenizer=None, model_id: str = "modegpt-tpu-torch",
-                 max_queue: Optional[int] = None):
+                 max_queue: Optional[int] = None, mesh=None):
         self.batcher = batcher
+        # tensor-parallel serving: this is rank 0 of `mesh`'s world; each
+        # round the scheduler thread sends the other ranks (`follow`) the
+        # submits and cancels it applied, and a keep-alive when idle
+        self._mesh = mesh if mesh is not None and mesh.initialized else None
+        self._sent: List = []  # records of this round's batcher operations (scheduler thread only)
         self.tokenizer = tokenizer
         self.model_id = model_id
         # back-pressure bound on requests waiting for a slot (in-flight
@@ -223,9 +241,11 @@ class InferenceServer:
                 if waiting >= self.max_queue:
                     raise QueueFull(f"queue full ({len(self.batcher.queue)} waiting for {free} free slots, "
                                     f"max_queue {self.max_queue})")
-            rid = self.batcher.submit(ids, max_new_tokens=max_new_tokens, stop=stop, logprobs=logprobs,
-                                      top_logprobs=top_logprobs, guide=guide, logit_bias=logit_bias,
-                                      min_tokens=min_tokens, **(sampling or {}))
+            kw = dict(max_new_tokens=max_new_tokens, stop=stop, logprobs=logprobs, top_logprobs=top_logprobs,
+                      guide=guide, logit_bias=logit_bias, min_tokens=min_tokens, **(sampling or {}))
+            rid = self.batcher.submit(ids, **kw)
+            if self._mesh is not None:
+                self._sent.append(("submit", ids, kw))
             holdback = max((len(q) for q in stop), default=1) - 1 if stop else 0
             req = _Request(rid, int(ids.shape[0]), streaming, holdback=holdback,
                            want_lp=logprobs or top_logprobs > 0, top_k_lp=int(top_logprobs))
@@ -323,6 +343,8 @@ class InferenceServer:
         False when `rid` is unknown or already finished."""
         def op():
             ok = self.batcher.cancel(rid)
+            if self._mesh is not None:
+                self._sent.append(("cancel", rid))
             req = self._requests.pop(rid, None)
             if req is not None:
                 if req.stream_q is not None:
@@ -390,14 +412,21 @@ class InferenceServer:
         if device.type == "cuda" and device.index is not None:
             torch.cuda.set_device(device)
         generator = torch.Generator(device=device).manual_seed(0)
+        # idle, the followers still hear from rank 0 within every
+        # keep-alive period, well inside their collective timeout
+        heartbeat = None if self._mesh is None else KEEPALIVE_S
         while True:
             with self._work:
                 while not self._stop and not self._ops and not self._outstanding():
-                    self._work.wait()
+                    if not self._work.wait(heartbeat):
+                        break  # the keep-alive
                 ops, self._ops = self._ops, []
                 stop = self._stop
             for op in ops:
                 op()
+            if self._mesh is not None:
+                sent, self._sent = self._sent, []
+                _exchange(self._mesh, (sent, stop))
             if stop:
                 for req in self._requests.values():
                     if req.stream_q is not None:
@@ -925,7 +954,9 @@ def _parser():
                    help="reuse cache-resident KV for bucket-aligned shared prompt prefixes instead of "
                    "prefilling them again")
     p.add_argument("--tensor_parallel", type=int, default=1,
-                   help="shard the model and KV pools over this many devices (not ported: above 1 raises)")
+                   help="shard the model and KV pools over this many ranks (Megatron TP over a 'model' mesh "
+                   "axis; a multiple of it replicates over 'data'); one process per rank, launched by "
+                   "torchrun; rank 0 serves HTTP; needs n_kv_heads %% tensor_parallel == 0")
     p.add_argument("--compress_ratio", type=float, default=None,
                    help="compress the dense checkpoint in memory at this ratio before serving")
     p.add_argument("--compress_dataset", default="wikitext")
@@ -953,21 +984,81 @@ def _resolve_eos(model_dir: str, tokenizer, override: Optional[int]) -> Optional
     return eos
 
 
+KEEPALIVE_S = 1.0  # rank 0's longest silence towards the followers
+
+
+def _exchange(mesh, payload=None):
+    """Rank 0's round of operations to every rank of the world (one
+    broadcast of a pickled object); the other ranks receive it."""
+    import torch.distributed as dist
+
+    box = [payload]
+    with mesh.counted():
+        dist.broadcast_object_list(box, src=0)
+    return box[0]
+
+
+def follow(batcher, mesh) -> None:
+    """A rank other than 0 of a tensor-parallel server: no HTTP. Each
+    round it receives rank 0's submits and cancels (`InferenceServer`
+    sends them from its scheduler thread), applies them to its own
+    batcher in the same order, and steps when rank 0 steps, with a
+    generator seeded as rank 0's, so every rank runs the same dispatches
+    over its shard. Returns when rank 0 shuts down; raises when rank 0
+    is lost (the broadcast fails, or times out after the process
+    group's timeout)."""
+    import torch
+
+    device = batcher.device
+    if device.type == "cuda" and device.index is not None:
+        torch.cuda.set_device(device)
+    generator = torch.Generator(device=device).manual_seed(0)
+    while True:
+        sent, stop = _exchange(mesh)
+        for record in sent:
+            if record[0] == "submit":
+                batcher.submit(record[1], **record[2])
+            else:
+                batcher.cancel(record[1])
+        if stop:
+            return
+        if batcher.queue or any(r is not None for r in batcher.slot_req):
+            batcher.step(generator)
+
+
+def _serving_mesh(tensor_parallel: int, device):
+    """The mesh of ``--tensor_parallel N`` (JAX server.py:964-981): the
+    world's W ranks as data:W/N,model:N; W must be a multiple of N."""
+    import torch.distributed as dist
+
+    from modegpt_tpu_torch.parallel.mesh import make_mesh, maybe_initialize_distributed
+
+    maybe_initialize_distributed(device)
+    world = dist.get_world_size() if dist.is_initialized() else 1
+    if world % tensor_parallel:
+        raise ValueError(
+            f"--tensor_parallel {tensor_parallel} does not divide the world size {world}: run a multiple of "
+            f"{tensor_parallel} ranks (python -m torch.distributed.run --nproc_per_node {tensor_parallel} "
+            "-m modegpt_tpu_torch.server ...)"
+        )
+    return make_mesh(f"data:{world // tensor_parallel},model:{tensor_parallel}", device=device)
+
+
 def main(argv=None):
     from modegpt_tpu_torch.utils.device import resolve_device
     from modegpt_tpu_torch.utils.logging import setup_logging
 
     args = _parser().parse_args(argv)
-    if args.tensor_parallel > 1:
-        raise NotImplementedError("modegpt_tpu_torch.server: --tensor_parallel > 1 is not ported "
-                                  "(tensor-parallel serving comes with modegpt_tpu_torch.parallel.mesh.shard_serving)")
+    device = resolve_device(args.device)
+    mesh = _serving_mesh(args.tensor_parallel, device) if args.tensor_parallel > 1 else None
+    if mesh is not None:
+        device = mesh.device  # this rank's card
     logger = setup_logging()
 
     from modegpt_tpu_torch.evals.cli import _load_any
     from modegpt_tpu_torch.models.padded import pad_to_uniform
     from modegpt_tpu_torch.models.serving import ContinuousBatcher
 
-    device = resolve_device(args.device)
     spec, params, tokenizer = _load_any(args.model, device)
     if args.compress_ratio is not None:
         from modegpt_tpu_torch.compress.pipeline import compress_in_memory
@@ -994,12 +1085,23 @@ def main(argv=None):
         repetition_penalty=args.repetition_penalty, moe=args.moe_exec, moe_capacity=args.moe_capacity,
         kv_dtype=args.kv_dtype, steps_per_dispatch=args.steps_per_dispatch, prefill_exec=args.prefill_exec,
         prefix_cache=args.prefix_cache, per_request_sampling=args.per_request_sampling,
-        decode_attn=args.decode_attn, a8_prefill=args.a8_prefill,
+        decode_attn=args.decode_attn, a8_prefill=args.a8_prefill, mesh=mesh,
     )
-    server = InferenceServer(batcher, tokenizer=tokenizer, model_id=args.model, max_queue=args.max_queue)
+    del pm  # a tensor-parallel batcher keeps its shard alone
+    if mesh is not None and mesh.rank != 0:
+        logger.info("rank %d of %s follows rank 0", mesh.rank, mesh)
+        try:
+            follow(batcher, mesh)
+        finally:
+            import torch.distributed as dist
+
+            dist.destroy_process_group()
+        return 0
+    server = InferenceServer(batcher, tokenizer=tokenizer, model_id=args.model, max_queue=args.max_queue,
+                             mesh=mesh)
     httpd = make_http_server(server, host=args.host, port=args.port, default_max_tokens=args.max_tokens_default)
-    logger.info("serving %s on http://%s:%d (%s, slots=%d, max_len=%d)",
-                args.model, args.host, args.port, device, args.slots, args.max_len)
+    logger.info("serving %s on http://%s:%d (%s, slots=%d, max_len=%d%s)", args.model, args.host, args.port,
+                batcher.device, args.slots, args.max_len, "" if mesh is None else f", {mesh}")
     try:
         httpd.serve_forever()
     except KeyboardInterrupt:
@@ -1007,6 +1109,10 @@ def main(argv=None):
     finally:
         httpd.shutdown()
         server.close()
+        if mesh is not None and mesh.initialized:
+            import torch.distributed as dist
+
+            dist.destroy_process_group()
     return 0
 
 

@@ -253,6 +253,15 @@ RAGGED_CASES = {
     "batched_chunk_B8_S128_int8": dict(B=8, H=8, Hk=2, T=300, S=128, Rq=32, Rv=32, int8=True,
                                        pos=[0, 250, 305, 17, 120, 64, 199, 3]),
     "verify_B8_S5": dict(B=8, H=8, Hk=2, T=300, S=5, Rq=32, Rv=32),
+    # a rank of tensor-parallel serving on model:2: its 16 of 32 heads over
+    # 4 of 8 kv heads (Llama-3-8B widths, the main artifact's ranks of 126)
+    # or over 2 of 4 (Qwen3-30B-A3B widths, G = 8)
+    "tp_H16_Hk4_decode": dict(B=8, H=16, Hk=4, T=1024, S=1, Rq=126, Rv=126),
+    "tp_H16_Hk4_batched_chunk": dict(B=8, H=16, Hk=4, T=1024, S=128, Rq=126, Rv=126,
+                                     pos=[0, 964, 1029, 17, 120, 64, 199, 3]),
+    "tp_H16_Hk4_decode_int8": dict(B=8, H=16, Hk=4, T=1024, S=1, Rq=126, Rv=126, int8=True),
+    "tp_H16_Hk2_decode": dict(B=8, H=16, Hk=2, T=1024, S=1, Rq=128, Rv=128),
+    "tp_H16_Hk2_chunk": dict(B=1, H=16, Hk=2, T=1024, S=128, Rq=128, Rv=128, pos=384),
 }
 
 
@@ -953,3 +962,35 @@ def test_ranks_sharing_the_card_match_one_rank(cuda_device, tmp_path):
                 np.testing.assert_allclose(got[field][l], getattr(want, field)[l].numpy(), rtol=1e-5, atol=1e-6)
         np.testing.assert_allclose(got["bi"], want.bi_scores, rtol=1e-5)
         np.testing.assert_allclose(out["forward"]["logits"], logits.cpu().double().numpy(), rtol=2e-4, atol=2e-4)
+
+
+def test_tp_serving_ranks_run_k3_on_their_heads(cuda_device, tmp_path):
+    """The batcher on model:2, 2 ranks sharing the card over gloo, each
+    through K3 on its 2 of 4 heads over 1 of 2 kv heads (batched prefill,
+    fused decode): the tokens of this process's one-rank batcher on the
+    card, and K3 launched on each rank."""
+    import os
+    import sys
+
+    from modegpt_tpu_torch.models.padded import pad_to_uniform
+    from modegpt_tpu_torch.models.serving import ContinuousBatcher
+
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from test_torch_parallel_ranks import Launch
+
+    spec, params = _tiny_llama_on(cuda_device)
+    rng = np.random.default_rng(9)
+    prompts = [rng.integers(1, 256, n) for n in (5, 19, 11)]
+    kw = dict(slots=2, max_len=64, prefill_bucket=8, prefill_exec="batched", steps_per_dispatch=3,
+              decode_attn="auto")
+    host = pad_to_uniform(spec, _tree_to(params, "cpu"))
+    torch.save({"serve": dict(kind="serve", mesh="data:1,model:2", pm=host, kw=kw, prompts=prompts,
+                              budgets=[8] * 3)}, tmp_path / "inputs.pt")
+    ranks = os.path.join(os.path.dirname(os.path.abspath(__file__)), "test_torch_tp_serving_ranks.py")
+    outs = Launch(2, tmp_path, [ranks, str(tmp_path), "cuda"], name="tp_card").outputs()
+    b = ContinuousBatcher(pad_to_uniform(spec, params), **kw)
+    rids = [b.submit(p, max_new_tokens=8) for p in prompts]
+    done = b.run()
+    for out in outs:
+        assert out["serve"]["tokens"] == [list(map(int, done[r])) for r in rids]
+        assert out["serve"]["pool_heads"] == spec.n_kv_heads // 2 and out["serve"]["k3_launches"] > 0

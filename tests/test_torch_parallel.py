@@ -446,10 +446,26 @@ def test_more_ranks_than_cards_under_nccl_raises(monkeypatch):
 
 
 def test_experts_under_a_model_axis_raise():
+    """Expert stacks under a model axis split by whole experts (expert
+    parallelism; the shared expert column/row split), and a sharded stack
+    run without the mesh that sharded it raises. The meshed forwards are
+    held to JAX's in tests/test_torch_tp_serving.py."""
+    from modegpt_tpu_torch.models.forward import _moe_mlp
+
     _, _, spec, params = _both(_qwen2_moe())
-    model2 = types.SimpleNamespace(size=lambda axis: 2 if axis == "model" else 1, coord=lambda axis: 0,
-                                   device=torch.device("cpu"))
-    with pytest.raises(NotImplementedError, match="parallel.mesh.shard_serving"):
-        t_mesh.param_shardings(model2, spec, params)
-    with pytest.raises(NotImplementedError, match="parallel.mesh.shard_serving"):
-        t_mesh.shard_serving(model2, None, None)
+    for c in range(2):
+        model2 = types.SimpleNamespace(size=lambda axis: 2 if axis == "model" else 1, coord=lambda axis, c=c: c,
+                                       device=torch.device("cpu"))
+        local = t_mesh.param_shardings(model2, spec, params)
+        for l, lp in enumerate(local["layers"]):
+            full = params["layers"][l]
+            for k in ("gate", "up", "down"):
+                torch.testing.assert_close(lp["experts"][k]["kernel"], full["experts"][k]["kernel"][2 * c : 2 * c + 2],
+                                           rtol=0, atol=0)
+            torch.testing.assert_close(lp["shared"]["up"]["kernel"], full["shared"]["up"]["kernel"].chunk(2, 1)[c],
+                                       rtol=0, atol=0)
+            torch.testing.assert_close(lp["shared"]["down"]["kernel"],
+                                       full["shared"]["down"]["kernel"].chunk(2, 0)[c], rtol=0, atol=0)
+            torch.testing.assert_close(lp["router"]["kernel"], full["router"]["kernel"], rtol=0, atol=0)
+    with pytest.raises(ValueError, match="needs the mesh whose model axis sharded it"):
+        _moe_mlp(spec, local["layers"][0], torch.zeros(1, 2, spec.d_model), collect=False)

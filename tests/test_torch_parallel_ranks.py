@@ -34,11 +34,12 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 class Launch:
     """``world`` ranks of ``argv`` (arguments to ``sys.executable``),
     started at once from the repository root; `wait` waits for them
-    (120 s in all), kills any left, fails with every rank's log tail if
-    one failed, and returns the logs; `outputs` returns the results the
-    ranks script wrote."""
+    (``timeout`` seconds from the start, 120 by default, which also
+    bounds every collective), kills any left, fails with every rank's log
+    tail if one failed, and returns the logs; `outputs` returns the
+    results the ranks script wrote."""
 
-    def __init__(self, world: int, workdir, argv, name: str = "launch"):
+    def __init__(self, world: int, workdir, argv, name: str = "launch", timeout: float = TIMEOUT_S):
         self.world, self.workdir, self.name = world, str(workdir), name
         os.makedirs(self.workdir, exist_ok=True)
         self.logs = [os.path.join(self.workdir, f"{name}.rank{r}.log") for r in range(world)]
@@ -47,13 +48,13 @@ class Launch:
             env = dict(
                 os.environ, RANK=str(r), WORLD_SIZE=str(world), LOCAL_RANK=str(r), MODEGPT_DISTRIBUTED="1",
                 MODEGPT_DIST_BACKEND="gloo", MODEGPT_DIST_INIT_METHOD=f"file://{self.workdir}/{name}.rendezvous",
-                MODEGPT_DIST_TIMEOUT=str(TIMEOUT_S), OMP_NUM_THREADS="1", PYTHONPATH=REPO,
+                MODEGPT_DIST_TIMEOUT=str(timeout), OMP_NUM_THREADS="1", PYTHONPATH=REPO,
                 USE_TF="0", USE_FLAX="0",  # a rank's transformers (tokenizers) imports neither
             )
             with open(self.logs[r], "w") as log:
                 self.procs.append(subprocess.Popen([sys.executable, *argv], cwd=REPO, env=env, stdout=log,
                                                    stderr=subprocess.STDOUT))
-        self.deadline = time.monotonic() + TIMEOUT_S
+        self.deadline = time.monotonic() + timeout
         self._done = False
 
     def wait(self):

@@ -351,11 +351,15 @@ def _free_port():
         return s.getsockname()[1]
 
 
-def test_server_cli_on_cpu(hf_model, tmp_path):
+def test_server_cli_on_cpu(hf_model, tmp_path, monkeypatch):
     """`python -m modegpt_tpu_torch.server --device cpu` on a checkpoint
     directory with its tokenizer answers /health and one completion with
-    the in-process server's tokens; --tensor_parallel 2 raises."""
-    with pytest.raises(NotImplementedError, match="parallel"):
+    the in-process server's tokens; --tensor_parallel 2 in a single
+    process raises (the world size does not fit the mesh; the launched
+    form is held in tests/test_torch_tp_serving.py)."""
+    for var in ("WORLD_SIZE", "RANK", "MODEGPT_DISTRIBUTED"):
+        monkeypatch.delenv(var, raising=False)
+    with pytest.raises(ValueError, match="tensor_parallel 2 does not divide the world size 1"):
         TS.main(["--model", str(tmp_path), "--tensor_parallel", "2", "--device", "cpu"])
     hf_model.save_pretrained(tmp_path)
     _tokenizer().save_pretrained(tmp_path)

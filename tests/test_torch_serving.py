@@ -261,20 +261,19 @@ SUBMIT_UNPORTED = [
 
 @pytest.mark.parametrize("kw", CTOR_UNPORTED + SUBMIT_UNPORTED, ids=lambda k: next(iter(k)))
 def test_unported_options_raise(models, kw):
-    """Only the mesh is still refused, with NotImplementedError naming the
-    module. The options earlier slices refused are ported: on the same
+    """Every option earlier slices refused is ported: on the same
     arguments the port's batcher serves the JAX batcher's tokens, or
-    raises the exception type the JAX batcher raises."""
+    raises the exception type the JAX batcher raises (an object that is
+    no mesh raises AttributeError in both). A one-rank mesh (no process
+    group; the launched meshes are held in
+    tests/test_torch_tp_serving.py) serves the tokens of a JAX mesh of
+    one device."""
     jpm, tpm = models["llama"][:2]
-    if "mesh" in kw:
-        with pytest.raises(NotImplementedError, match="modegpt_tpu_torch.models.serving"):
-            TBatcher(tpm, **KW, **kw)
-        return
 
-    def outcome(cls, pm):
+    def outcome(cls, pm, **ctor):
         try:
             if kw in CTOR_UNPORTED:
-                b = cls(pm, **KW, **kw)
+                b = cls(pm, **KW, **{**kw, **ctor})
                 rid = b.submit(np.arange(1, 5), max_new_tokens=2)
             else:
                 b = cls(pm, **KW)
@@ -284,6 +283,14 @@ def test_unported_options_raise(models, kw):
             return type(e)
 
     assert outcome(TBatcher, tpm) == outcome(JBatcher, jpm)
+    if "mesh" in kw:
+        from jax.sharding import Mesh
+
+        from modegpt_tpu_torch.parallel.mesh import make_mesh
+
+        one = outcome(TBatcher, tpm, mesh=make_mesh("data:1,model:1", device="cpu"))
+        assert isinstance(one, list)
+        assert one == outcome(JBatcher, jpm, mesh=Mesh(np.asarray(jax.devices()[:1]).reshape(1, 1), ("data", "model")))
 
 
 def _word_tokenizer():
