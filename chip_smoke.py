@@ -12,6 +12,7 @@
     python3 chip_smoke.py --phases build,kernel,main,server
     python3 chip_smoke.py --phases build,kernel,opt
     python3 chip_smoke.py --phases build,kernel,main,stream
+    python3 chip_smoke.py --phases build,kernel,main,cli
     python3 chip_smoke.py --phases build,kernel,parallel
     python3 chip_smoke.py --phases build,kernel,main,tpserve
 
@@ -81,11 +82,12 @@ Phases, each printing one JSON line:
    recomputed from it, seeded requests sent again alone equal, guided
    outputs in their grammar, K3's launches equal to the layers times the
    dispatches counted, a cancel that frees its slot, a 429 under
-   max_queue=0, /metrics counting the round, and `python -m
-   modegpt_tpu_torch.server` as a subprocess answering /health and a
-   completion. Then the decode step timed with the knob table all
-   greedy, with the filter path on and with top_logprobs, in turns, the
-   token choice alone, and the guide rows at the full vocabulary.
+   max_queue=0 and /metrics counting the round. Then the decode step
+   timed with the knob table all greedy, with the filter path on and
+   with top_logprobs, in turns, the token choice alone, and the guide
+   rows at the full vocabulary. (`python -m modegpt_tpu_torch.server` as
+   a subprocess answering /health and a completion runs in the cli
+   phase, beside its other subprocess.)
 
 5. quant  — quantised artifacts and int8 serving of the compressed model
    the main phase reloaded: int8, int4 and nf4 artifacts saved and
@@ -107,7 +109,7 @@ Phases, each printing one JSON line:
 6. moe    — one compression job at the published Qwen3-30B-A3B widths
    (hidden 2048, 32 heads over 4 kv heads, head_dim 128, 128 experts of
    width 768, top 8 renormalised, every layer MoE, vocab 151936, qk norm,
-   untied head), 48 -> 2 layers, random f32 weights from a seed, with the
+   untied head), 48 -> 1 layer, random f32 weights from a seed, with the
    main phase's settings: K1 runs in every forward. Then the reloaded
    artifact, padded, serves the serve phase's 16 requests twice: with
    every expert on every token (moe="dense") and by capacity dispatch
@@ -136,7 +138,7 @@ Phases, each printing one JSON line:
 8. archs  — the dense archs beyond llama and opt. At the published
    Gemma-2-9B widths (hidden 3584, intermediate 14336, 16 heads over 8 kv
    heads of 256, vocab 256000 tied, query_pre_attn_scalar 256, score cap
-   50, final cap 30, a 4096 window on alternate layers), 42 -> 4 layers,
+   50, final cap 30, a 4096 window on alternate layers), 42 -> 2 layers,
    random f32 weights, the main phase's job settings: its soft-capped
    scores take the plain attention in every forward, so K1 must launch 0
    times in the job (the JAX forward sends such layers to XLA, not to
@@ -149,7 +151,7 @@ Phases, each printing one JSON line:
    each padded model through K3 against its plain version (multi-head
    G*S = 1, and groups of 4, 7 and 9).
 9. big    — a random bf16 safetensors checkpoint at Qwen3-32B widths
-   (64 -> 4 layers), compressed host-staged through the streamed sweep
+   (64 -> 2 layers), compressed host-staged through the streamed sweep
    (job A, from disk, loaded through the safetensors path, every layer
    leaf left on the host) and resident through the windowed calibration
    (job B, same weights): ranks, factor stores and perplexities equal,
@@ -160,7 +162,7 @@ Phases, each printing one JSON line:
    fused job against the chunked one at Llama-3-8B widths (job C).
 10. opt   — a random-f32 checkpoint at the published facebook/opt-6.7b
    widths (hidden 4096, ffn 16384, 32 heads of 128, vocab 50272, 2048
-   learned positions, pre-LN, relu, biases, tied head), 32 -> 4 layers,
+   learned positions, pre-LN, relu, biases, tied head), 32 -> 2 layers,
    written as config.json + model.safetensors, compressed through the
    compression CLI (`modegpt_tpu_torch.cli.main`, in process) with the
    whitened-SVD Q/K solve (``--qk_method svd``) and the main phase's
@@ -178,20 +180,49 @@ Phases, each printing one JSON line:
    `export_to_hf` of the dense model loaded by
    `transformers.OPTForCausalLM` (logits within OPT_HF_TOL of the port's
    forward, TF32 off on both sides), and `analysis.search.staged_search`
-   on the model (2 proxy trials at 256 tokens, 1 finalist at 1024):
+   on the model (1 proxy trial at 256 tokens, 1 finalist at 1024):
    finite scores, each trial's seconds and K1 launches. K1's counter is
    zeroed once for the phase; each step's launches (job, calibration,
    both exports, search) equal what its forwards give, and every shape
-   K1 ran at in the phase is a kernel case.
+   K1 ran at in the phase is a kernel case or held here against the
+   plain attention (the ranks, so the export widths, move with depth).
 11. stream — `models.streaming.streaming_generate` on the main phase's
    compressed model, padded: inside the window (prompt 200, 56 new,
    window 256, 4 sinks) its tokens are `generate_padded`'s greedy ones;
    beyond it (prompt 64, 960 new) its first tokens are the run inside the
    window's, every step's logits are finite and device memory stays
-   flat (tokens/s printed); then the eval CLI's ``--generate
-   --streaming_window 256`` on the artifact (a word-level tokenizer
-   saved into it) prints the library's streamed text. The plain
-   attention runs here, as in JAX: K1 and K3 launch 0 times.
+   flat (tokens/s printed). The plain attention runs here, as in JAX:
+   K1 and K3 launch 0 times. (The eval CLI's ``--generate
+   --streaming_window 256`` runs in the cli phase.)
+11b. cli  — the port's user entry points as a user calls them, on the
+   main artifact with the word-level tokenizer: (a) `python -m
+   modegpt_tpu_torch.serve` as a subprocess (8 prompts of words from a
+   file, 32 new tokens, batched prefill, fused decode of 4, prefix
+   caching; it runs beside b), each completion line the decoded tokens
+   of an in-process `ContinuousBatcher` with the same settings on the
+   main phase's padded model, on cuda; beside it `python -m
+   modegpt_tpu_torch.server` answering /health and one completion
+   within 1e-3 of the unrolled forward's row max, and after (a) `python
+   -m modegpt_tpu_torch.evals.cli --generate --streaming_window 256`,
+   its text `streaming_generate`'s; (b) `serve.main(argv)` in process
+   with int8 weights, W8A8 prefill and int8 KV, with prompt lookup, and
+   with the artifact as its own draft, each equal to the in-process
+   batcher with the same settings (and its stats), the speculative ones
+   also to (a)'s tokens but at a printed near-tie, every self-draft
+   accepted; (c) `serve.main --compress_ratio 0.3` on a 2-layer dense
+   bf16 checkpoint at the same widths (`export_to_hf` from the main
+   phase's seed): its tokens a batcher's on the tree a direct
+   `compress_in_memory` gives, K1's launches the layers times the
+   calibration batches; (d) `evals.cli.main(argv)` with --tasks (the
+   synthetic task and the frozen winogrande and arc documents of
+   tests/fixtures) and --generate: accuracies equal to an in-process
+   `evaluate_multiple_choice`, each choice's score within 1e-3 of the
+   plain attention's, the text an in-process `generate`'s; then
+   --generate with --prompt_lookup and with the artifact as
+   --speculative_draft (every draft accepted), each text the plain one's
+   but at a printed near-tie. K3's launches equal the layers times the
+   dispatches of each in-process entry point; every K1 and K3 shape of
+   the phase a kernel case or held here against its plain version.
 
 12. parallel — the compression job on a process mesh at the main
    phase's Llama-3-8B widths (4 layers, the same seeded f32 weights and
@@ -222,7 +253,7 @@ Phases, each printing one JSON line:
    fused decode, once f32 and once int8 weights with W8A8 prefill and int8
    KV, then one padded prefill step (128 tokens) and one decode step from
    an empty pool; (f) the moe phase's seeded Qwen3-30B-A3B-width weights
-   (2 layers, uncompressed: 64 whole experts a rank) serving 4 requests
+   (1 layer, uncompressed: 64 whole experts a rank) serving 4 requests
    with every expert on every token and by dispatch at E / k. Tokens
    equal to one rank's, a divergence allowed only where the one-rank
    model's logits of the two tokens lie within 1e-3 (counted), the
@@ -232,8 +263,11 @@ Phases, each printing one JSON line:
    rank tok/s, dispatch ms, collective seconds and bytes, peak bytes.
    Then (g) `python -m modegpt_tpu_torch.server --tensor_parallel 2` on
    two ranks on the main artifact: 8 concurrent completions (greedy and
-   seeded sampled, some with logprobs), each JSON equal to the in-process
-   one-process server's, and SIGINT on rank 0 stops both ranks.
+   seeded sampled, some with logprobs), a guided choice, a guided regex,
+   a logit bias and a stream, each JSON (a stream's deltas) equal to the
+   in-process one-process server's; a long stream cancelled after its
+   first event ends, rank 0 counts it, and a request after it still
+   answers as one process does; SIGINT on rank 0 stops both ranks.
 
 Then a `{"kernels": [...]}` line (each kernel's launches summed over the
 paths that ran it, and by path), the card's name and power limit as
@@ -246,6 +280,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import functools
 import gc
 import json
 import math
@@ -298,8 +333,9 @@ KERNEL_CASES = [
     dict(name="qwen3_32b_padded_f32", B=2, H=64, Hk=8, T=2048, hd=126, hd_v=126, dtype="float32", window=None),
     # the opt phase (OPT-6.7B widths: 32 heads, no grouping). Its dense
     # forwards are the "mha" case; after the SVD Q/K solve each head keeps
-    # the same rank of q/k and of v (127, 105, 75, 49 by layer), which the
-    # compressed evaluation pads to the widest layer's 127: the job's eval
+    # the same rank of q/k and of v (127, 105, 75, 49 by layer at 4
+    # layers), which the compressed evaluation pads to the widest layer's
+    # 127: the job's eval
     # (B = 2, T = 2048), the search's proxy evals (B = 8, T = 256) and its
     # finalist's (T = 1024); a trial may keep all 128 in its widest layer
     dict(name="opt_svd_padded_f32", B=2, H=32, Hk=32, T=2048, hd=127, hd_v=127, dtype="float32", window=None),
@@ -313,6 +349,9 @@ KERNEL_CASES = [
     # dense model
     *(dict(name=f"opt_export_T128_hd{w}", B=1, H=32, Hk=32, T=128, hd=w, hd_v=w, dtype="float32", window=None)
       for w in (49, 75, 105, 127, 128)),
+    # the cli phase's `serve --compress_ratio`: the in-memory compression's
+    # calibration forwards, batches of 4 (the serve CLI's calibs_batch_size)
+    dict(name="cli_compress_calib_f32", B=4, H=32, Hk=8, T=2048, hd=128, hd_v=128, dtype="float32", window=None),
 ]
 # K2 (flash_attention_hbm) cases. The first is the long phase's shape: one
 # 16384-token window (eval and calibration batches of 1) at 32 heads over
@@ -450,7 +489,9 @@ LLAMA31_8B = dict(  # meta-llama/Llama-3.1-8B config.json
 LONG_LAYERS = 2
 LONG = dict(seq_len=16384, calib_size=4, calibs_batch_size=1, eval_batch_size=1, eval_max_samples=2)
 
-MOE_LAYERS = 2  # Qwen3-30B-A3B's 48 layers cut to 2: 2.49 GB of f32 weights a layer
+# Qwen3-30B-A3B's 48 layers cut to 1 (2 until the cli phase joined the
+# command, which must stay within its time limit): 2.49 GB of f32 weights a layer
+MOE_LAYERS = 1
 MOE_INT8_REQUESTS = 4  # the moe phase's int8 rounds (W8A8 prefill, dense and dispatch)
 QWEN3_30B_A3B = dict(  # Qwen/Qwen3-30B-A3B config.json
     model_type="qwen3_moe", vocab_size=151936, hidden_size=2048, intermediate_size=6144,
@@ -461,7 +502,10 @@ QWEN3_30B_A3B = dict(  # Qwen/Qwen3-30B-A3B config.json
     mlp_only_layers=[], use_sliding_window=False, sliding_window=None, max_window_layers=48,
 )
 
-ARCH_LAYERS = 4  # Gemma-2-9B's 42 layers cut to 4 (two sliding, two full): 0.79 GB of f32 weights a layer
+# Gemma-2-9B's 42 layers cut to 2, one sliding and one full (4 until the cli
+# phase joined the command, which must stay within its time limit): 0.79 GB
+# of f32 weights a layer
+ARCH_LAYERS = 2
 GEMMA2_9B = dict(  # google/gemma-2-9b config.json
     model_type="gemma2", vocab_size=256000, hidden_size=3584, intermediate_size=14336,
     num_hidden_layers=42, num_attention_heads=16, num_key_value_heads=8, head_dim=256,
@@ -925,7 +969,6 @@ def phase_main(records: dict, profile: bool = False, keep_artifact: bool = False
     import torch
 
     from modegpt_tpu_torch.calib.data import load_eval_tokens
-    from modegpt_tpu_torch.compress.artifact import load_compressed_model
     from modegpt_tpu_torch.compress.pipeline import run_compression
     from modegpt_tpu_torch.config import CompressionConfig
     from modegpt_tpu_torch.evals.perplexity import resolve_exec_mode
@@ -970,19 +1013,20 @@ def phase_main(records: dict, profile: bool = False, keep_artifact: bool = False
             config.calib_size / config.calibs_batch_size
         )
         expected = N_LAYERS * n_batches
+        # the compressed model as the pipeline's reload step read it back
+        # from the artifact (every leaf's shape checked against the spec)
         cspec = results["compressed_spec"]
+        params2 = results.pop("compressed_params")
         artifact_bytes = os.path.getsize(os.path.join(results["artifact_dir"], "params.npz"))
-        # reload the artifact once more: its shapes validate against the spec
-        spec2, params2, _ = load_compressed_model(results["artifact_dir"], device="cuda")
         # the compressed model's logits through the kernel agree with the
         # plain attention path on one eval batch (unaligned head dims)
         eval_tokens = load_eval_tokens(None, "synthetic", 512, 1, vocab_size=spec.vocab_size)
         ids = torch.as_tensor(eval_tokens, device="cuda")
         # the padded stack through K1 agrees with the unrolled forward
-        pm = pad_to_uniform(spec2, params2)
+        pm = pad_to_uniform(cspec, params2)
         with torch.no_grad():
-            lk, _ = forward(spec2, params2, ids, attn_impl="flash")
-            lp, _ = forward(spec2, params2, ids, attn_impl="xla")
+            lk, _ = forward(cspec, params2, ids, attn_impl="flash")
+            lp, _ = forward(cspec, params2, ids, attn_impl="xla")
             lpad = forward_padded(pm.spec, pm.layers, pm.other, pm.q_hd_true, ids, attn_impl="flash")
         logit_err = float((lk - lp).abs().max())
         logit_ok = bool(torch.allclose(lk, lp, rtol=1e-3, atol=1e-3))
@@ -1021,8 +1065,6 @@ def phase_main(records: dict, profile: bool = False, keep_artifact: bool = False
             and 0 < sum(cspec.q_ranks) < sum(spec.q_ranks)
             and 0 < sum(cspec.v_ranks) < sum(spec.v_ranks)):
         problems.append("rank lists did not shrink")
-    if spec2 != cspec:
-        problems.append("reloaded artifact's spec differs from the compressed spec")
     if not logit_ok:
         problems.append(f"compressed logits: kernel vs plain attention differ by {logit_err}")
     if not padded_ok:
@@ -1037,7 +1079,7 @@ def phase_main(records: dict, profile: bool = False, keep_artifact: bool = False
         reload_seconds=results["step_seconds"]["reload_artifact"],
         k1_per_eval=N_LAYERS * math.ceil(n_eval / config.eval_batch_size),
     )
-    return {"spec": spec2, "params": params2, "pm": pm, "job": job, "tmp": root,
+    return {"spec": cspec, "params": params2, "pm": pm, "job": job, "tmp": root,
             "artifact_dir": results["artifact_dir"] if keep_artifact else None}
 
 
@@ -1509,11 +1551,13 @@ SERVER_WORDS = ["true", "false", "null", "yes", "no", "maybe", "hello", "world",
                 "lazy", "dog", "user", "system", "assistant"]
 
 
+@functools.lru_cache(maxsize=1)
 def _full_vocab_tokenizer(vocab_size: int):
     """An offline word-level tokenizer over all `vocab_size` ids: <unk> 0,
     <eos> 1, every printable non-space ASCII character, a few words, then
     fillers "w<i>". No token spells whitespace, so a guided JSON output is
-    compact and its length bounded."""
+    compact and its length bounded. Built once a run (~10 s at 128256
+    ids) and shared by the phases that serve the main artifact."""
     import string
 
     from tokenizers import Tokenizer, models, pre_tokenizers
@@ -1590,10 +1634,9 @@ def phase_server(records: dict, main_out: dict) -> dict:
     every sampled token is in the kept set recomputed from the forward;
     guided outputs are in their grammar; K3's launches equal the layers
     times the dispatches counted; a cancel frees its slot; a 429 under
-    max_queue=0 with the scheduler held; /metrics counts the round; the
-    server CLI answers /health and a completion. Then the decode-step
-    and sampling costs, in turns, and the guide-row times at full
-    vocabulary."""
+    max_queue=0 with the scheduler held; /metrics counts the round. Then
+    the decode-step and sampling costs, in turns, and the guide-row times
+    at full vocabulary. (The server CLI's check runs in the cli phase.)"""
     import threading
 
     import numpy as np
@@ -1889,9 +1932,6 @@ def phase_server(records: dict, main_out: dict) -> dict:
         problems.append(f"/metrics counts {metrics.get('modegpt_generated_tokens_total')} tokens, < {2 * n_tokens}")
 
     step_costs = _sampling_costs(batcher, prompts, eos)
-    cli = _server_cli(main_out["artifact_dir"], prompts[0][:200], cspec, cparams)
-    if not cli.get("ok"):
-        problems.append(f"server CLI: {cli}")
     line = {
         "phase": "server", "card": card_line(), "slots": SERVE["slots"], "max_len": SERVE["max_len"],
         "prefill_bucket": SERVE["prefill_bucket"], "decode_attn": batcher.decode_attn,
@@ -1910,7 +1950,7 @@ def phase_server(records: dict, main_out: dict) -> dict:
         "top_logprob_max_abs_err": top_err, "sampled_in_kept_set": kept_ok, "seeded_repeat_same": seeded_same,
         "guided": guided_out, "cancel": cancel, "over_max_queue_status": over[0], "health": health,
         "metrics": {k: float(v) for k, v in metrics.items()}, "guide_rows_v128256": guide_rows,
-        "host_setup": timings, "step_costs": step_costs, "cli": cli,
+        "host_setup": timings, "step_costs": step_costs,
         "seconds": time.perf_counter() - t_phase,
     }
     emit(line)
@@ -1992,30 +2032,38 @@ def _sampling_costs(batcher, prompts, eos) -> dict:
             "vocab": int(logits.shape[-1])}
 
 
-def _server_cli(artifact_dir: str, prompt, cspec, cparams) -> dict:
+def _start_server_cli(artifact_dir: str, workdir: str) -> dict:
     """`python -m modegpt_tpu_torch.server --model <artifact>` on the card,
-    as a subprocess on a free port: /health and one greedy completion,
-    its tokens within 1e-3 of their row's max in the unrolled forward;
-    then SIGINT, and kill if it does not stop."""
-    import signal
+    started as a subprocess on a free port (its log in `workdir`)."""
     import socket
-
-    import torch
 
     with socket.socket() as sock:
         sock.bind(("127.0.0.1", 0))
         port = sock.getsockname()[1]
     root = os.path.dirname(os.path.abspath(__file__))
     env = {**os.environ, "PYTHONPATH": root + os.pathsep + os.environ.get("PYTHONPATH", "")}
-    t0 = time.perf_counter()
-    proc = subprocess.Popen([sys.executable, "-m", "modegpt_tpu_torch.server", "--model", artifact_dir,
-                             "--port", str(port), "--slots", "2", "--max_len", "1024"],
-                            cwd=root, env=env, stdout=subprocess.DEVNULL, stderr=subprocess.PIPE)
+    log = os.path.join(workdir, "server_cli.log")
+    with open(log, "w") as f:
+        proc = subprocess.Popen([sys.executable, "-m", "modegpt_tpu_torch.server", "--model", artifact_dir,
+                                 "--port", str(port), "--slots", "2", "--max_len", "1024"],
+                                cwd=root, env=env, stdout=subprocess.DEVNULL, stderr=f)
+    return {"proc": proc, "port": port, "log": log, "t0": time.perf_counter()}
+
+
+def _server_cli(started: dict, prompt, cspec, cparams) -> dict:
+    """The server CLI `_start_server_cli` started: /health and one greedy
+    completion, its tokens within 1e-3 of their row's max in the unrolled
+    forward; then SIGINT, and kill if it does not stop."""
+    import signal
+
+    import torch
+
+    proc, port, t0 = started["proc"], started["port"], started["t0"]
     out = {"port": port}
     try:
         while True:
             if proc.poll() is not None:
-                out["error"] = proc.stderr.read().decode(errors="replace")[-1500:]
+                out["error"] = open(started["log"]).read()[-1500:]
                 return out
             if time.perf_counter() - t0 > SERVER["cli_timeout"]:
                 out["error"] = "no /health answer"
@@ -2394,8 +2442,6 @@ def phase_long(records: dict, profile: bool = False) -> dict:
             problems.append(f"{key} is not finite")
     if not (0 < sum(cspec.gate_ranks) < sum(spec.gate_ranks) and 0 < sum(cspec.q_ranks) < sum(spec.q_ranks)):
         problems.append("rank lists did not shrink")
-    if spec2 != cspec:
-        problems.append("reloaded artifact's spec differs from the compressed spec")
     if not plain_ok:
         problems.append(f"long-context logits: K2 vs the plain attention differ by {plain_err}")
     if not padded_ok:
@@ -2409,7 +2455,7 @@ def phase_long(records: dict, profile: bool = False) -> dict:
 
 def phase_moe(records: dict, profile: bool = False) -> dict:
     """A compression job and two serve rounds at Qwen3-30B-A3B widths
-    (2 layers): K1 in every forward of the job, K3 in every dispatch."""
+    (MOE_LAYERS): K1 in every forward of the job, K3 in every dispatch."""
     import torch
 
     from modegpt_tpu_torch.calib.data import load_eval_tokens
@@ -2606,8 +2652,6 @@ def phase_moe(records: dict, profile: bool = False) -> dict:
             problems.append(f"{key} is not finite")
     if not (0 < sum(cspec.gate_ranks) < sum(spec.gate_ranks) and 0 < sum(cspec.q_ranks) < sum(spec.q_ranks)):
         problems.append("rank lists did not shrink")
-    if spec2 != cspec:
-        problems.append("reloaded artifact's spec differs from the compressed spec")
     if not logit_ok:
         problems.append(f"compressed logits: kernel vs plain attention differ by {logit_err}")
     if not padded_ok:
@@ -2671,8 +2715,8 @@ def _decode_check(pm) -> dict:
 
 
 def phase_archs(records: dict, profile: bool = False) -> dict:
-    """The dense archs beyond llama and opt. At Gemma-2-9B widths (4
-    layers): a compression job, in which no forward takes K1 (the scores
+    """The dense archs beyond llama and opt. At Gemma-2-9B widths
+    (ARCH_LAYERS): a compression job, in which no forward takes K1 (the scores
     are soft-capped, so every layer takes the plain attention, as the JAX
     forward sends it to XLA), then the serve phase's 16 requests through
     K3 with the cap. Then one forward of each of the seven other archs at
@@ -2833,8 +2877,6 @@ def phase_archs(records: dict, profile: bool = False) -> dict:
             problems.append(f"{key} is not finite")
     if not (0 < sum(cspec.gate_ranks) < sum(spec.gate_ranks) and 0 < sum(cspec.q_ranks) < sum(spec.q_ranks)):
         problems.append("rank lists did not shrink")
-    if spec2 != cspec:
-        problems.append("reloaded artifact's spec differs from the compressed spec")
     if not padded_ok:
         problems.append(f"compressed logits: forward_padded vs unrolled forward differ by {padded_err}")
     if k3_round != k3_expected:
@@ -2868,7 +2910,10 @@ QWEN3_32B = dict(  # Qwen/Qwen3-32B config.json
     tie_word_embeddings=False, attention_bias=False, rope_scaling=None, use_sliding_window=False,
     sliding_window=None, max_window_layers=64, torch_dtype="bfloat16",
 )
-BIG_LAYERS = 4  # Qwen3-32B's 64 layers cut to 4: 1.95 GB of f32 weights a layer, 14 GB with the embeddings
+# Qwen3-32B's 64 layers cut to 2 (4 until the cli phase joined the command,
+# which must stay within its time limit): 1.95 GB of f32 weights a layer,
+# 10 GB with the embeddings
+BIG_LAYERS = 2
 BIG_SEQ_LEN = 2048  # the main phase's sequence length
 # Jobs A and B save int8 artifacts (f32 ones are 11.7 GB each): a card
 # machine's disk takes 45 GiB of writes a run, freed blocks included
@@ -3070,7 +3115,7 @@ CALIB_SOLVE_STEPS = ("stream", "calibrate", "allocate", "solve", "factor_store")
 
 
 def phase_big(records: dict, profile: bool = False) -> dict:
-    """Big-model compression at Qwen3-32B widths (4 layers) from a bf16
+    """Big-model compression at Qwen3-32B widths (2 layers) from a bf16
     safetensors checkpoint: the host-staged streamed job (A) against the
     resident windowed one (B) on the same weights, the staging and flush
     measurements, then the fused job against the chunked one at
@@ -3266,7 +3311,9 @@ def phase_big(records: dict, profile: bool = False) -> dict:
     return line
 
 
-OPT_LAYERS = 4  # facebook/opt-6.7b's 32 layers cut to 4: about 4.1 GB of f32 weights
+# facebook/opt-6.7b's 32 layers cut to 2 (4 until the cli phase joined the
+# command, which must stay within its time limit): about 2.4 GB of f32 weights
+OPT_LAYERS = 2
 OPT_6_7B = dict(  # facebook/opt-6.7b config.json (weights here are random f32, so torch_dtype float32)
     model_type="opt", architectures=["OPTForCausalLM"], vocab_size=50272, hidden_size=4096, ffn_dim=16384,
     num_hidden_layers=32, num_attention_heads=32, max_position_embeddings=2048, word_embed_proj_dim=4096,
@@ -3279,7 +3326,7 @@ OPT_6_7B = dict(  # facebook/opt-6.7b config.json (weights here are random f32, 
 OPT_JOB = ["--qk_method", "svd", "--seq_len", "2048", "--calib_size", "8", "--calibs_batch_size", "2",
            "--eval_batch_size", "2", "--eval_max_samples", "4", "--compression_ratio", "0.3",
            "--solver_precision", "f32_device", "--dataset", "synthetic", "--device", "cuda"]
-OPT_SEARCH = dict(n_trials=2, top_k=1, proxy_seq_len=256, proxy_samples=8)
+OPT_SEARCH = dict(n_trials=1, top_k=1, proxy_seq_len=256, proxy_samples=8)  # 2 trials until the cli phase joined
 # each layer's Q_h^T K_h, an f32 solve against the CPU's f64, relative:
 # the readings on an H100 were 1.1e-4 to 5.6e-3 (the last at layer 3,
 # whose cut at rank 49 falls between close singular values), and the three
@@ -3387,6 +3434,7 @@ def phase_opt(records: dict) -> dict:
     artifact tools and the search on the same model (module docstring,
     phase 10)."""
     import io
+    from concurrent.futures import ThreadPoolExecutor
 
     import torch
 
@@ -3469,10 +3517,17 @@ def phase_opt(records: dict) -> dict:
         mark = k1.launches
         covs = calibrate(spec_d, params_d, batches, range(OPT_LAYERS), accumulate="device").cov_x
         launches["calibrate"], expected["calibrate"] = k1.launches - mark, OPT_LAYERS * len(batches)
-        ridge, svd_rows = CompressionConfig().ridge_qk, []
+        ridge, svd_rows, svd_solves = CompressionConfig().ridge_qk, [], []
+
+        def f64_solve(host, r):  # on the CPU, on a worker thread beside the phase's card work below
+            t0 = time.perf_counter()
+            return compress_qk_layer_svd(*host, r, ridge, H), time.perf_counter() - t0
+
+        f64_worker = ThreadPoolExecutor(max_workers=1)
         for l in range(OPT_LAYERS):
             lp, r = params_d["layers"][l], cspec.q_ranks[l] // H
             host = [covs[l], lp["q"]["kernel"].T, lp["k"]["kernel"].T, lp["q"]["bias"], lp["k"]["bias"]]
+            f64 = f64_worker.submit(f64_solve, [t.double().cpu() for t in host], r)
             t0 = time.perf_counter()
             f32 = compress_qk_layer_svd(*(t.float() for t in host), r, ridge, H)
             torch.cuda.synchronize()
@@ -3480,29 +3535,16 @@ def phase_opt(records: dict) -> dict:
                    "gram_eigs_f32": torch.linalg.eigvalsh(covs[l])[[0, 1, -1]].tolist(),
                    "gram_eigs_f64": torch.linalg.eigvalsh(covs[l].double())[[0, 1, -1]].tolist(),
                    "cut_rel_gap": _cut_gap(*host[:3], r, H, ridge)}
-            t0 = time.perf_counter()
-            f64 = compress_qk_layer_svd(*(t.double().cpu() for t in host), r, ridge, H)
-            row["cpu_f64_s"] = time.perf_counter() - t0
             stored = load_layer_factors(os.path.join(tmp, "layers"), l, "qk")
-            controls = {
+            solves = {
+                "job": SimpleNamespace(q=torch.from_numpy(stored["q"]), k=torch.from_numpy(stored["k"])),
+                "card": f32,
                 "unwhitened": compress_qk_layer_svd(torch.eye(spec.d_model, device="cuda"), *host[1:], r, ridge, H),
                 "bf16_inputs": compress_qk_layer_svd(*(t.bfloat16().float() for t in host), r, ridge, H),
                 "rank_less_1": compress_qk_layer_svd(*host, r - 1, ridge, H),
             }
-            want = _qk_forms(f64.q, f64.k, H)
-            row["job_rel_err"] = _rel_err(_qk_forms(torch.from_numpy(stored["q"]), torch.from_numpy(stored["k"]), H),
-                                          want)
-            row["card_rel_err"] = _rel_err(_qk_forms(f32.q, f32.k, H), want)
-            row["controls_rel_err"] = {name: _rel_err(_qk_forms(f.q, f.k, H), want) for name, f in controls.items()}
-            del want, controls, f32, f64
             svd_rows.append(row)
-            for key in ("job_rel_err", "card_rel_err"):
-                if not row[key] <= OPT_SVD_TOL:
-                    problems.append(f"layer {l}'s Q_h^T K_h: {key} {row[key]} from the CPU's f64 solve")
-            for name, err in row["controls_rel_err"].items():
-                if not err > OPT_SVD_TOL:
-                    problems.append(f"layer {l}'s control {name} is within OPT_SVD_TOL ({err}): the check "
-                                    "cannot tell a wrong solve")
+            svd_solves.append((f64, {k: (f.q, f.k) for k, f in solves.items()}))
         del covs
         line["svd"] = {"tolerance": OPT_SVD_TOL, "layers": svd_rows}
 
@@ -3584,18 +3626,36 @@ def phase_opt(records: dict) -> dict:
         if not all(math.isfinite(v) for _, v in history) or not math.isfinite(best_val):
             problems.append(f"the search scored {[v for _, v in history]}, finalist {best_val}")
         del params_d, cparams, results
+
+        # step 1's Q/K check, read: every solve against the CPU's f64 one
+        for l, (row, (f64, solves)) in enumerate(zip(svd_rows, svd_solves)):
+            f64, row["cpu_f64_s"] = f64.result()
+            want = _qk_forms(f64.q, f64.k, H)
+            errs = {name: _rel_err(_qk_forms(q, k_, H), want) for name, (q, k_) in solves.items()}
+            row["job_rel_err"], row["card_rel_err"] = errs.pop("job"), errs.pop("card")
+            row["controls_rel_err"] = errs
+            del want, f64
+            for key in ("job_rel_err", "card_rel_err"):
+                if not row[key] <= OPT_SVD_TOL:
+                    problems.append(f"layer {l}'s Q_h^T K_h: {key} {row[key]} from the CPU's f64 solve")
+            for name, err in row["controls_rel_err"].items():
+                if not err > OPT_SVD_TOL:
+                    problems.append(f"layer {l}'s control {name} is within OPT_SVD_TOL ({err}): the check "
+                                    "cannot tell a wrong solve")
+        f64_worker.shutdown()
+        del svd_solves
         launches["phase"], expected["phase"] = k1.launches, sum(expected.values())
     torch.cuda.empty_cache()
     line["k1_launches"], line["expected_k1_launches"] = launches, expected
     for step, n in launches.items():
         if n != expected[step]:
             problems.append(f"flash_attention launched {n} times in the phase's {step}, expected {expected[step]}")
-    # every shape K1 ran at in the phase is one the kernel phase held
-    # against the plain version
+    # every shape K1 ran at in the phase: one the kernel phase timed and
+    # held against the plain version, or held here (untimed)
     cased = {(c["B"], c["H"], c["Hk"], c["T"], c["hd"], c["hd_v"], c["dtype"], c["window"]) for c in KERNEL_CASES}
-    line["k1_shapes"] = sorted(map(list, shapes), key=str)
-    for shape in sorted(shapes - cased, key=str):
-        problems.append(f"K1 ran at {shape} (B, H, Hk, T, hd, hd_v, dtype, window), which no kernel case checks")
+    held = [_k1_holds(shape) for shape in sorted(shapes - cased, key=str)]
+    line["k1_shapes"] = {"shapes": sorted(map(list, shapes), key=str), "held_here": held}
+    problems += [f"K1 at {c['shape']} disagrees with the plain attention" for c in held if not c["ok"]]
     records["flash_attention"]["launches_by_phase"]["opt"] = launches["phase"]
     line["phase_seconds"] = time.perf_counter() - t_phase
     emit(line)
@@ -3614,7 +3674,6 @@ def phase_stream(records: dict, main_out: dict) -> dict:
     import numpy as np
     import torch
 
-    from modegpt_tpu_torch.evals import cli as eval_cli
     from modegpt_tpu_torch.kernels import flash_attention as fa_mod
     from modegpt_tpu_torch.kernels import ragged_decode as rd_mod
     from modegpt_tpu_torch.models.padded import forward_padded, generate_padded
@@ -3688,22 +3747,6 @@ def phase_stream(records: dict, main_out: dict) -> dict:
     if max(mem) != min(mem):
         problems.append(f"device memory moved during the stream: {min(mem)} .. {max(mem)} bytes")
 
-    # 3. the eval CLI with --streaming_window on the artifact, with a
-    # word-level tokenizer saved into it
-    tok = _full_vocab_tokenizer(V)
-    tok.save_pretrained(main_out["artifact_dir"])
-    argv = ["--model", main_out["artifact_dir"], "--generate", STREAM["cli_prompt"], "--streaming_window",
-            str(STREAM["window"]), "--max_new_tokens", str(STREAM["cli_new"]), "--device", "cuda"]
-    t0 = time.perf_counter()
-    res = eval_cli.main(argv)
-    cli_s = time.perf_counter() - t0
-    ids = np.asarray([tok(STREAM["cli_prompt"])["input_ids"]])
-    direct = tok.decode(streaming_generate(pm, ids, max_new_tokens=STREAM["cli_new"], eos_token_id=tok.eos_token_id,
-                                           **kw)[0].tolist())
-    line["eval_cli"] = {"seconds": cli_s, "generation_head": res["generation"][:80],
-                        "equals_library_stream": res["generation"] == direct}
-    if res["generation"] != direct or not res["generation"].startswith(STREAM["cli_prompt"]):
-        problems.append("the eval CLI's streamed text differs from streaming_generate's")
     launches = {"flash_attention": fa_mod.flash_attention.launches,
                 "ragged_gqa_attend": rd_mod.ragged_gqa_attend.launches}
     line["launches"] = launches
@@ -3715,6 +3758,494 @@ def phase_stream(records: dict, main_out: dict) -> dict:
     if problems:
         raise AssertionError("; ".join(problems))
     return line
+
+
+# ---- the cli phase: the port's user entry points on the card ----
+
+# The serve CLI in each mode (on the main artifact, and compressing a
+# dense checkpoint in memory) and the eval CLI's tasks and generation, as
+# a user calls them, each held to an in-process reference.
+CLI = dict(
+    requests=8, new_tokens=32,
+    # (a): the serve CLI subprocess's flags
+    serve_flags=["--prefill_exec", "batched", "--steps_per_dispatch", "4", "--prefix_cache"],
+    # (c): Meta-Llama-3-8B widths cut to 2 layers, about 3.0 GB of bf16 safetensors
+    compress_layers=2,
+    compress_flags=["--compress_ratio", "0.3", "--compress_dataset", "synthetic", "--compress_calib_size", "8",
+                    "--compress_seq_len", "2048"],
+    # (d)
+    task_limit=16, generate_new=64, lookup_window=64, score_tol=1e-3, timeout=600,
+)
+# (b): the serve CLI's other flag sets, run in process ("--draft_model"
+# takes the artifact itself: a self-draft)
+CLI_FLAG_SETS = {
+    "int8_w8a8_kv8": ["--quantize_int8", "--a8_prefill", "--kv_dtype", "int8"],
+    "prompt_lookup": ["--spec_decode", "prompt_lookup"],
+    "self_draft": ["--spec_decode", "draft", "--draft_model"],
+}
+
+
+def _serve_batcher(pm, flags, eos, draft_pm=None):
+    """The batcher `serve.main` builds for `flags` (its own parser fills
+    the defaults), on `pm`, quantised as the flags ask."""
+    from modegpt_tpu_torch import serve as serve_mod
+    from modegpt_tpu_torch.models import serving
+    from modegpt_tpu_torch.models.quantize import quantize_padded
+
+    a = serve_mod._parser().parse_args(["--model", "-", *flags])
+    return serving.ContinuousBatcher(
+        quantize_padded(pm) if a.quantize_int8 else pm, slots=a.slots, max_len=a.max_len,
+        prefill_bucket=a.prefill_bucket, eos_token_id=eos, temperature=a.temperature, moe=a.moe_exec,
+        moe_capacity=a.moe_capacity, spec_decode=a.spec_decode, n_draft=a.n_draft, lookup_ngram=a.lookup_ngram,
+        draft_pm=draft_pm if a.spec_decode == "draft" else None, kv_dtype=a.kv_dtype,
+        steps_per_dispatch=a.steps_per_dispatch, prefill_exec=a.prefill_exec, prefix_cache=a.prefix_cache,
+        a8_prefill=a.a8_prefill,
+    )
+
+
+def _reference_round(b, prompts, new: int):
+    """Every prompt through batcher `b` as `serve.main` submits them; the
+    token lists in prompt order. K1 and K3 launches made here are the
+    reference's and are taken back off their counters."""
+    from modegpt_tpu_torch.kernels import flash_attention as fa_mod
+    from modegpt_tpu_torch.kernels import ragged_decode as rd_mod
+
+    saved = fa_mod.flash_attention.launches, rd_mod.ragged_gqa_attend.launches
+    rids = [b.submit(p, max_new_tokens=new) for p in prompts]
+    done = b.run()
+    fa_mod.flash_attention.launches, rd_mod.ragged_gqa_attend.launches = saved
+    return [list(map(int, done[r])) for r in rids]
+
+
+@contextlib.contextmanager
+def _made_batchers():
+    """Every `ContinuousBatcher` built while inside (an entry point's own),
+    so its counters can be read after the entry point returns."""
+    from modegpt_tpu_torch.models import serving
+
+    original, made = serving.ContinuousBatcher, []
+
+    class Made(original):
+        def __init__(self, *args, **kwargs):
+            super().__init__(*args, **kwargs)
+            made.append(self)
+
+    serving.ContinuousBatcher = Made
+    try:
+        yield made
+    finally:
+        serving.ContinuousBatcher = original
+
+
+@contextlib.contextmanager
+def _spied(module, name: str, calls: list):
+    """`module.name` wrapped: each call appends (args, kwargs, seconds)."""
+    import torch
+
+    original = getattr(module, name)
+
+    def spy(*args, **kwargs):
+        t0 = time.perf_counter()
+        out = original(*args, **kwargs)
+        torch.cuda.synchronize()
+        calls.append((args, kwargs, time.perf_counter() - t0))
+        return out
+
+    setattr(module, name, spy)
+    try:
+        yield calls
+    finally:
+        setattr(module, name, original)
+
+
+def _in_process(main_fn, argv):
+    """An entry point's ``main(argv)`` in this process, its stdout (the
+    completions or the generated text and results line) captured and its
+    stderr passed on: (return value, stdout lines, stderr text, wall s)."""
+    import io
+
+    out, err = io.StringIO(), io.StringIO()
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+            ret = main_fn(argv)
+    finally:
+        sys.stderr.write(err.getvalue())
+    return ret, out.getvalue().splitlines(), err.getvalue(), time.perf_counter() - t0
+
+
+def _summary(err: str) -> dict:
+    """The serve CLI's last JSON line on stderr: requests, new tokens,
+    tok/s (of its batcher's run) and device."""
+    return json.loads([ln for ln in err.splitlines() if ln.startswith("{")][-1])
+
+
+def _completions_differ(lines, texts, tokens, prompts, tok) -> list:
+    """Where the serve CLI's JSON completion lines (one a prompt, in
+    order) disagree with reference token lists."""
+    got = [json.loads(ln) for ln in lines if ln.startswith("{") and '"completion"' in ln]
+    if len(got) != len(texts):
+        return [f"{len(got)} completion lines for {len(texts)} prompts"]
+    bad = []
+    for i, (g, text, seq, p) in enumerate(zip(got, texts, tokens, prompts)):
+        new = seq[len(p):]
+        if g["prompt"] != text or g["tokens"] != len(new) or g["completion"] != tok.decode(new):
+            bad.append(f"request {i}: {g['tokens']} tokens {g['completion'][:60]!r}, the reference "
+                       f"{len(new)} {tok.decode(new)[:60]!r}")
+    return bad
+
+
+def _part_at_near_ties(name, got, want, prompts, logits_of, problems) -> list:
+    """Greedy sequences of two modes that should agree: each parting
+    allowed only at a near-tie of the reference's logits (TPSERVE
+    near_tie); returns the partings, printed."""
+    ties = []
+    for i, (g, w, p) in enumerate(zip(got, want, prompts)):
+        d = _first_divergence(g, w, logits_of, len(p))
+        if d is None:
+            continue
+        ties.append({"request": i, "at": d[0], "gap": d[1]})
+        if not d[1] <= TPSERVE["near_tie"]:
+            problems.append(f"{name}: request {i} parts at token {d[0]} by a logit gap of {d[1]}")
+    return ties
+
+
+def _task_files(workdir: str) -> list:
+    """The frozen winogrande and arc documents (tests/fixtures) written in
+    `evals.tasks.load_task`'s {"task", "docs"} form; the --tasks list."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    with open(os.path.join(root, "tests", "fixtures", "task_docs.json")) as f:
+        docs = json.load(f)
+    names = ["synthetic"]
+    for family, key in (("winogrande", "winogrande"), ("arc_easy", "arc")):
+        path = os.path.join(workdir, f"{key}.json")
+        with open(path, "w") as f:
+            json.dump({"task": family, "docs": docs[key]}, f)
+        names.append(path)
+    return names
+
+
+def phase_cli(records: dict, main_out: dict) -> dict:
+    """The port's user entry points on the card (module docstring, phase
+    11b): (a) `python -m modegpt_tpu_torch.serve` as a subprocess, beside
+    it the server CLI and then the streaming eval CLI, (b) `serve.main`
+    in process in three more flag sets, (c) `serve.main --compress_ratio`
+    on a dense checkpoint, (d) `evals.cli.main` with --tasks and three
+    forms of --generate; each against an in-process reference, K1's and
+    K3's launches counted in process."""
+    import gc as gc_mod
+
+    import numpy as np
+    import torch
+
+    from modegpt_tpu_torch import serve as serve_mod
+    from modegpt_tpu_torch.compress.pipeline import compress_in_memory
+    from modegpt_tpu_torch.config import CompressionConfig
+    from modegpt_tpu_torch.evals import cli as eval_cli
+    from modegpt_tpu_torch.evals import tasks as tasks_mod
+    from modegpt_tpu_torch.kernels import flash_attention as fa_mod
+    from modegpt_tpu_torch.kernels import ragged_decode as rd_mod
+    from modegpt_tpu_torch.models import generate as generate_mod
+    from modegpt_tpu_torch.models import speculative
+    from modegpt_tpu_torch.models.forward import FLASH_MIN_T, forward
+    from modegpt_tpu_torch.models.hf import load_hf_model
+    from modegpt_tpu_torch.models.hf_export import export_to_hf
+    from modegpt_tpu_torch.models.init import init_params
+    from modegpt_tpu_torch.models.padded import pad_to_uniform
+    from modegpt_tpu_torch.models.spec import spec_from_hf_config
+    from modegpt_tpu_torch.models.streaming import streaming_generate
+
+    t_phase = time.perf_counter()
+    cspec, cparams, pm, art = main_out["spec"], main_out["params"], main_out["pm"], main_out["artifact_dir"]
+    V, new, L = cspec.vocab_size, CLI["new_tokens"], cspec.n_layers
+    if not os.path.exists(os.path.join(art, "tokenizer.json")):
+        _full_vocab_tokenizer(V).save_pretrained(art)
+    tok = eval_cli._load_tokenizer(art, "")  # the tokenizer both CLIs read
+    eos = tok.eos_token_id
+    problems, steps = [], {}
+    fa_mod.flash_attention.launches = rd_mod.ragged_gqa_attend.launches = 0
+
+    def logits_of(ids):  # the unrolled compressed forward, the near-ties' reference
+        saved = fa_mod.flash_attention.launches
+        out = forward(cspec, cparams, ids)[0]
+        fa_mod.flash_attention.launches = saved
+        return out
+
+    def step_line(name, wall, k3, k3_expected, k1=0, k1_expected=0, **extra):
+        line = {"phase": "cli", "step": name, "wall_seconds": wall,
+                "launches": {"ragged_gqa_attend": k3, "flash_attention": k1},
+                "expected_launches": {"ragged_gqa_attend": k3_expected, "flash_attention": k1_expected}, **extra}
+        if k3 != k3_expected or k1 != k1_expected:
+            problems.append(f"{name}: K3 launched {k3} times (expected {k3_expected}), K1 {k1} ({k1_expected})")
+        emit(line)
+        steps[name] = line
+
+    # the serve phase's id prompts as words of the tokenizer: they must
+    # come back as the same ids
+    id_prompts = [list(map(int, p)) for p in _serve_prompts(V, CLI["requests"])[0]]
+    texts = [tok.decode(p) for p in id_prompts]
+    if [tok(t)["input_ids"] for t in texts] != id_prompts:
+        raise AssertionError("the cli prompts do not round-trip through the tokenizer")
+    root = os.path.dirname(os.path.abspath(__file__))
+    with tempfile.TemporaryDirectory(prefix="modegpt_smoke_cli_") as tmp, _k1_shapes() as k1_shapes, \
+            _k3_shapes() as k3_shapes:
+        prompts_file = os.path.join(tmp, "prompts.txt")
+        with open(prompts_file, "w") as f:
+            f.write("\n".join(texts) + "\n")
+        base = ["--model", art, "--prompts", prompts_file, "--max_new_tokens", str(new)]
+
+        # (a) the serve CLI as a user starts it, and the server phase's
+        # server CLI, both beside the in-process steps
+        env = {**os.environ, "PYTHONPATH": root + os.pathsep + os.environ.get("PYTHONPATH", "")}
+        out_path, err_path = os.path.join(tmp, "serve.out"), os.path.join(tmp, "serve.err")
+        with open(out_path, "w") as fo, open(err_path, "w") as fe:
+            t_a = time.perf_counter()
+            proc = subprocess.Popen([sys.executable, "-m", "modegpt_tpu_torch.serve", *base, *CLI["serve_flags"]],
+                                    cwd=root, env=env, stdout=fo, stderr=fe)
+        server, stream_proc = _start_server_cli(art, tmp), None
+        try:
+            plain = _reference_round(_serve_batcher(pm, CLI["serve_flags"], eos), id_prompts, new)
+
+            # (b) the serve CLI's other flag sets in process
+            for name, flags in CLI_FLAG_SETS.items():
+                flags = flags + [art] if flags[-1] == "--draft_model" else flags
+                gc_mod.collect()
+                torch.cuda.empty_cache()
+                k3_0 = rd_mod.ragged_gqa_attend.launches
+                with _counted_dispatches() as (counts, _), _made_batchers() as made:
+                    done, lines, err, wall = _in_process(serve_mod.main, base + flags + ["--device", "cuda"])
+                k3 = rd_mod.ragged_gqa_attend.launches - k3_0
+                served = [list(map(int, done[r])) for r in sorted(done)]
+                ref_b = _serve_batcher(pm, flags, eos, draft_pm=pm)
+                want = _reference_round(ref_b, id_prompts, new)
+                extra = {"tok_per_s": _summary(err)["tok_per_s"],
+                         "tokens_equal_reference": served == want}
+                if served != want:
+                    problems.append(f"{name}: the serve CLI's tokens differ from the in-process batcher's")
+                problems += [f"{name}: {p}" for p in _completions_differ(lines, texts, served, id_prompts, tok)]
+                cli_b = made[0]
+                if cli_b.spec_decode != "off":
+                    extra["partings_from_a"] = _part_at_near_ties(name, served, plain, id_prompts, logits_of, problems)
+                    drafted = sum(s["drafted"] for s in cli_b.stats.values())
+                    accepted = sum(s["accepted"] for s in cli_b.stats.values())
+                    extra["speculative"] = {"drafted": drafted, "accepted": accepted,
+                                            "stats_equal_reference": cli_b.stats == ref_b.stats}
+                    if cli_b.stats != ref_b.stats:
+                        problems.append(f"{name}: the batcher's stats differ from the in-process run's")
+                    if name == "self_draft" and accepted != drafted:
+                        problems.append(f"self_draft: {accepted} of {drafted} drafts accepted")
+                if cli_b.decode_attn != "ragged":
+                    problems.append(f"{name}: decode_attn resolved to {cli_b.decode_attn}")
+                step_line(f"serve_{name}", wall, k3, counts["layer_dispatches"],
+                          dispatches={k: v for k, v in counts.items() if v}, **extra)
+                del made, cli_b, ref_b, done
+
+            # the eval CLI's --streaming_window as a user runs it (the
+            # stream phase's entry point), beside (c) and (d), once (a) is
+            # done: three artifact loads at once would crowd the card
+            try:
+                proc.wait(timeout=max(1.0, CLI["timeout"] - (time.perf_counter() - t_a)))
+            except subprocess.TimeoutExpired:
+                problems.append("the serve CLI subprocess did not finish")
+            wall_a = time.perf_counter() - t_a
+            stream_out, stream_err = os.path.join(tmp, "stream.out"), os.path.join(tmp, "stream.err")
+            with open(stream_out, "w") as fo, open(stream_err, "w") as fe:
+                t_s = time.perf_counter()
+                stream_proc = subprocess.Popen(
+                    [sys.executable, "-m", "modegpt_tpu_torch.evals.cli", "--model", art, "--generate",
+                     STREAM["cli_prompt"], "--streaming_window", str(STREAM["window"]), "--max_new_tokens",
+                     str(STREAM["cli_new"])], cwd=root, env=env, stdout=fo, stderr=fe)
+
+            # (c) serve --compress_ratio on a dense checkpoint
+            gc_mod.collect()
+            torch.cuda.empty_cache()
+            t0 = time.perf_counter()
+            dspec = spec_from_hf_config(SimpleNamespace(**{**LLAMA3_8B, "num_hidden_layers": CLI["compress_layers"]}))
+            ckpt = os.path.join(tmp, "dense_ckpt")
+            dparams = init_params(dspec, torch.Generator(device="cuda").manual_seed(0), device="cuda")
+            export_to_hf(dspec, dparams, ckpt, dtype=torch.bfloat16)
+            del dparams
+            for fname in os.listdir(art):
+                if fname.startswith(("tokenizer", "special_tokens")):
+                    shutil.copy(os.path.join(art, fname), ckpt)
+            ckpt_bytes = os.path.getsize(os.path.join(ckpt, "model.safetensors"))
+            write_s = time.perf_counter() - t0
+            k1_0, k3_0 = fa_mod.flash_attention.launches, rd_mod.ragged_gqa_attend.launches
+            compressed = []
+            with _counted_dispatches() as (counts, _), _spied(
+                    sys.modules["modegpt_tpu_torch.compress.pipeline"], "compress_in_memory", compressed):
+                done, lines, err, wall = _in_process(
+                    serve_mod.main, ["--model", ckpt, "--prompts", prompts_file, "--max_new_tokens", str(new),
+                                     *CLI["compress_flags"], "--device", "cuda"])
+            k1, k3 = fa_mod.flash_attention.launches - k1_0, rd_mod.ragged_gqa_attend.launches - k3_0
+            served = [list(map(int, done[r])) for r in sorted(done)]
+            a = serve_mod._parser().parse_args(["--model", ckpt, *CLI["compress_flags"]])
+            ccfg = CompressionConfig(
+                compression_ratio=a.compress_ratio, dataset=a.compress_dataset, calib_size=a.compress_calib_size,
+                calibs_batch_size=min(4, a.compress_calib_size), seq_len=a.compress_seq_len,
+                solver_precision="f32_device", device="cuda",
+            ).validate()
+            # the BI prepass and the calibrating sweep each run every
+            # layer's forward once a calibration batch
+            n_calib = math.ceil(ccfg.calib_size / ccfg.calibs_batch_size)
+            saved = fa_mod.flash_attention.launches
+            rspec, rparams, rtok = load_hf_model(ckpt, device="cuda")
+            rspec, rparams = compress_in_memory(rspec, rparams, ccfg, tokenizer=rtok)
+            fa_mod.flash_attention.launches = saved
+            want = _reference_round(_serve_batcher(pad_to_uniform(rspec, rparams), [], eos), id_prompts, new)
+            if served != want:
+                problems.append("compress: the served tokens differ from a batcher's on compress_in_memory's tree")
+            problems += [f"compress: {p}" for p in _completions_differ(lines, texts, served, id_prompts, tok)]
+            step_line("serve_compress", wall, k3, counts["layer_dispatches"], k1, 2 * dspec.n_layers * n_calib,
+                      tok_per_s=_summary(err)["tok_per_s"],
+                      checkpoint={"bytes": ckpt_bytes, "write_seconds": write_s, "dtype": "bfloat16",
+                                  "layers": dspec.n_layers},
+                      compress_seconds=compressed[0][2] if compressed else None, calibration_batches=n_calib,
+                      ranks={"q": list(rspec.q_ranks), "gate": list(rspec.gate_ranks)},
+                      tokens_equal_reference=served == want)
+            del rparams, done
+            shutil.rmtree(ckpt, ignore_errors=True)
+
+            # (d) the eval CLI: tasks and plain generation, then prompt
+            # lookup and a self-draft
+            gc_mod.collect()
+            torch.cuda.empty_cache()
+            task_names = _task_files(tmp)
+            gen_ids = id_prompts[0][: CLI["lookup_window"]] * 2  # repeats for the lookup to draft from
+            gen_text = tok.decode(gen_ids)
+            if tok(gen_text)["input_ids"] != gen_ids:
+                raise AssertionError("the --generate prompt does not round-trip through the tokenizer")
+            gen_argv = ["--generate", gen_text, "--max_new_tokens", str(CLI["generate_new"])]
+            widths, gens = [], []
+            k1_0, k3_0 = fa_mod.flash_attention.launches, rd_mod.ragged_gqa_attend.launches
+            with _spied(tasks_mod, "_token_logprobs", widths), _spied(generate_mod, "generate", gens):
+                res, _, _, wall = _in_process(eval_cli.main, ["--model", art, "--tasks", ",".join(task_names),
+                                                              "--task_limit", str(CLI["task_limit"]), *gen_argv,
+                                                              "--device", "cuda"])
+            k1, k3 = fa_mod.flash_attention.launches - k1_0, rd_mod.ragged_gqa_attend.launches - k3_0
+            widths = [tuple(c[0][2].shape) for c in widths]
+            k1_expected = L * sum(w[1] >= FLASH_MIN_T for w in widths)
+            saved = fa_mod.flash_attention.launches
+            tasks_out = {}
+            for name in task_names:
+                examples = tasks_mod.load_task(name, limit=CLI["task_limit"])
+                mine = tasks_mod.evaluate_multiple_choice(cspec, cparams, examples, tok, return_scores=True)
+                with _plain_attention(tasks_mod):
+                    xla = tasks_mod.evaluate_multiple_choice(cspec, cparams, examples, tok, return_scores=True)
+                finite = np.isfinite(xla["scores"])
+                score_err = float(np.abs(mine["scores"][finite] - xla["scores"][finite]).max())
+                got = res[name]
+                same = (got["acc"], got["acc_norm"], got["n"]) == (mine["acc"], mine["acc_norm"], mine["n"])
+                tasks_out[os.path.basename(name)] = {"acc": got["acc"], "acc_norm": got["acc_norm"], "n": got["n"],
+                                                     "equal_in_process": same, "score_max_abs_err_vs_plain": score_err}
+                if not same:
+                    problems.append(f"task {name}: the CLI's {got} differ from the in-process {mine}")
+                if not score_err <= CLI["score_tol"] or not np.array_equal(finite, np.isfinite(mine["scores"])):
+                    problems.append(f"task {name}: scores {score_err} from the plain attention's")
+            want_ids = generate_mod.generate(cspec, cparams, [gen_ids], max_new_tokens=CLI["generate_new"],
+                                             eos_token_id=eos)[0].tolist()
+            fa_mod.flash_attention.launches = saved
+            plain_text = res["generation"]
+            if plain_text != tok.decode(want_ids):
+                problems.append("--generate: the CLI's text differs from an in-process generate's")
+            step_line("eval_tasks_generate", wall, k3, 0, k1, k1_expected, tasks=tasks_out,
+                      task_batch_widths=widths, generate_seconds=gens[0][2] if gens else None,
+                      generate_tokens_per_s=CLI["generate_new"] / gens[0][2] if gens else None)
+            want_ids = tok(plain_text)["input_ids"]
+            for name, flags, fn in (("eval_prompt_lookup", ["--prompt_lookup"], "prompt_lookup_generate"),
+                                    ("eval_self_draft", ["--speculative_draft", art], "speculative_generate")):
+                gc_mod.collect()
+                torch.cuda.empty_cache()
+                calls, k3_0 = [], rd_mod.ragged_gqa_attend.launches
+                with _counted_dispatches() as (counts, _), _spied(speculative, fn, calls):
+                    res, _, _, wall = _in_process(eval_cli.main, ["--model", art, *gen_argv, *flags,
+                                                                  "--device", "cuda"])
+                k3 = rd_mod.ragged_gqa_attend.launches - k3_0
+                stats = res.get("prompt_lookup") or res.get("spec_decode")
+                got_ids = tok(res["generation"])["input_ids"]
+                ties = _part_at_near_ties(name, [got_ids], [want_ids], [gen_ids], logits_of, problems)
+                if name == "eval_self_draft" and stats["accepted"] != stats["drafted"]:
+                    problems.append(f"{name}: {stats['accepted']} of {stats['drafted']} drafts accepted")
+                step_line(name, wall, k3, counts["layer_dispatches"], speculative=stats, partings_from_plain=ties,
+                          generate_seconds=calls[0][2] if calls else None,
+                          generate_tokens_per_s=CLI["generate_new"] / calls[0][2] if calls else None,
+                          text_equal_plain=res["generation"] == plain_text)
+
+            # the server CLI: /health and one completion (its check's
+            # forward is a reference: its K1 launches are taken back)
+            saved = fa_mod.flash_attention.launches
+            server_cli = _server_cli(server, id_prompts[0][:200], cspec, cparams)
+            fa_mod.flash_attention.launches = saved
+            # first asked here, at the phase's end: ready within this time
+            server_cli["ready_within_seconds"] = server_cli.pop("ready_seconds", None)
+            if not server_cli.get("ok"):
+                problems.append(f"server CLI: {server_cli}")
+            step_line("server_cli_subprocess", server_cli["ready_within_seconds"], 0, 0, **server_cli,
+                      note="the server phase's check of `python -m modegpt_tpu_torch.server`, run here beside (a)")
+
+            # the streaming CLI: its text the library's streamed tokens
+            try:
+                stream_proc.wait(timeout=CLI["timeout"])
+            except subprocess.TimeoutExpired:
+                problems.append("the streaming eval CLI subprocess did not finish")
+            wall_s = time.perf_counter() - t_s
+            ids = np.asarray([tok(STREAM["cli_prompt"])["input_ids"]])
+            direct = tok.decode(streaming_generate(pm, ids, max_new_tokens=STREAM["cli_new"], eos_token_id=eos,
+                                                   window=STREAM["window"], n_sink=STREAM["n_sink"])[0].tolist())
+            text = open(stream_out).read().splitlines()[:1]
+            if stream_proc.returncode != 0 or text != [direct]:
+                problems.append(f"the streaming eval CLI (rc {stream_proc.returncode}) printed {text[:1]!r}, the "
+                                f"library streams {direct[:80]!r}: {open(stream_err).read()[-1500:]}")
+            step_line("eval_streaming_subprocess", wall_s, 0, 0, text_equals_library_stream=text == [direct],
+                      generation_head=direct[:80], note="the stream phase's eval CLI check; plain attention, no "
+                      "kernel by design (its launches are the subprocess's own)")
+        finally:
+            _stop([p for p in (proc, server["proc"], stream_proc) if p is not None])
+        err = open(err_path).read()
+        lines = open(out_path).read().splitlines()
+        summary = _summary(err) if proc.returncode == 0 else {}
+        if proc.returncode != 0:
+            problems.append(f"the serve CLI subprocess exited {proc.returncode}: {err[-1500:]}")
+        else:
+            problems += [f"subprocess: {p}" for p in _completions_differ(lines, texts, plain, id_prompts, tok)]
+            if "cuda" not in summary.get("device", ""):
+                problems.append(f"the serve CLI subprocess served on {summary.get('device')}")
+        step_line("serve_cli_subprocess", wall_a, 0, 0, tok_per_s=summary.get("tok_per_s"), device=summary.get("device"),
+                  flags=CLI["serve_flags"], note="launches are the subprocess's own, not counted here")
+
+    k1_total, k3_total = fa_mod.flash_attention.launches, rd_mod.ragged_gqa_attend.launches
+    records["flash_attention"]["launches_by_phase"]["cli"] = k1_total
+    records["ragged_gqa_attend"]["launches_by_phase"]["cli"] = k3_total
+    # every shape the phase's kernels ran at: a timed kernel case, or held here
+    k1_known = {tuple(c[k] for k in ("B", "H", "Hk", "T", "hd", "hd_v", "dtype", "window")) for c in KERNEL_CASES}
+    k3_known = {_k3_case_key(c) for c in RAGGED_CASES}
+    held = {"flash_attention": [_k1_holds(s) for s in sorted(k1_shapes, key=str) if s not in k1_known],
+            "ragged_gqa_attend": [_k3_holds(s) for s in sorted(k3_shapes, key=str) if s not in k3_known]}
+    problems += [f"{k} at {c['shape']} disagrees with its plain version" for k, v in held.items() for c in v
+                 if not c["ok"]]
+    line = {"phase": "cli", "card": card_line(), "model": "main artifact (Meta-Llama-3-8B widths, 4 layers, f32); "
+            f"a {CLI['compress_layers']}-layer dense bf16 checkpoint for --compress_ratio",
+            "steps": list(steps), "launches": {"flash_attention": k1_total, "ragged_gqa_attend": k3_total},
+            "shapes": {"flash_attention": len(k1_shapes), "ragged_gqa_attend": len(k3_shapes)}, "held_here": held,
+            "seconds": time.perf_counter() - t_phase}
+    emit(line)
+    if problems:
+        raise AssertionError("; ".join(problems))
+    return line
+
+
+@contextlib.contextmanager
+def _plain_attention(module):
+    """`module.forward` with ``attn_impl="xla"``: the plain attention at
+    every T."""
+    import functools
+
+    original = module.forward
+    module.forward = functools.partial(original, attn_impl="xla")
+    try:
+        yield
+    finally:
+        module.forward = original
 
 
 # ---- the parallel phase: the compression job on a process mesh ----
@@ -4052,33 +4583,35 @@ def phase_parallel(records: dict) -> dict:
         out = _launch_parallel(["a_nccl_data1", "a2_nccl_data1_reversed"], tmp)
         out.update(_launch_parallel(["b_gloo_data2_model2"], tmp))
         line["reference"] = _parallel_reference(tmp)
-        # (c) and (d) together: 6 ranks, peaks summing to ~50 GiB of the 80
-        out.update(_launch_parallel(["c_gloo_stage4", "d_gloo_context2"], tmp))
 
-        a, b = out["a_nccl_data1"][0], out["b_gloo_data2_model2"]
-        for r in b:
-            if r["rank_lists"] != a["rank_lists"]:
-                problems.append(f"b rank {r['rank']}: rank lists differ from the one-rank job's")
-            for key in ("baseline_ppl", "compressed_ppl"):
-                rel = abs(r[key] - a[key]) / a[key]
-                if not rel <= PARALLEL_PPL_TOL:
-                    problems.append(f"b rank {r['rank']}: {key} {r[key]} vs {a[key]} ({rel:.2e})")
-        a2 = out["a2_nccl_data1_reversed"][0]
-        if a2["rank_lists"] != a["rank_lists"]:
-            line["a2_rank_lists_differ"] = True  # reported: the noise floor is then not a floor
-        dist = _factor_distances(a["store"], {"b": b[0]["store"], "a2": a2["store"]}, _parallel_spec())
-        line["b_vs_a_factors"], line["a2_vs_a_factors"] = dist["b"], dist["a2"]
-        problems += [f"b vs a: {p}" for p in line["b_vs_a_factors"]["problems"]]
-        la, la2, lb = (torch.load(os.path.join(tmp, f"{job}.logits.pt"))
-                       for job in ("a_nccl_data1", "a2_nccl_data1_reversed", "b_gloo_data2_model2"))
-        err, noise = float((lb - la).abs().max()), float((la2 - la).abs().max())
-        ok = bool(torch.allclose(lb, la, **PARALLEL_LOGIT_TOL)) or err <= PARALLEL_NOISE_FACTOR * noise
-        line["b_vs_a_logits"] = {"rows": list(la.shape[:2]), "max_abs_err": err, "max_abs": float(la.abs().max()),
-                                 "a2_vs_a_max_abs_err": noise, "tolerance": PARALLEL_LOGIT_TOL,
-                                 "noise_factor": PARALLEL_NOISE_FACTOR, "ok": ok}
-        if not ok:
-            problems.append(f"b vs a: compressed logits beyond {PARALLEL_LOGIT_TOL} and {PARALLEL_NOISE_FACTOR}x "
-                            f"the reordered one-rank job's distance: {line['b_vs_a_logits']}")
+        def b_against_a():  # on the host, while (c) and (d) run
+            a, b = out["a_nccl_data1"][0], out["b_gloo_data2_model2"]
+            for r in b:
+                if r["rank_lists"] != a["rank_lists"]:
+                    problems.append(f"b rank {r['rank']}: rank lists differ from the one-rank job's")
+                for key in ("baseline_ppl", "compressed_ppl"):
+                    rel = abs(r[key] - a[key]) / a[key]
+                    if not rel <= PARALLEL_PPL_TOL:
+                        problems.append(f"b rank {r['rank']}: {key} {r[key]} vs {a[key]} ({rel:.2e})")
+            a2 = out["a2_nccl_data1_reversed"][0]
+            if a2["rank_lists"] != a["rank_lists"]:
+                line["a2_rank_lists_differ"] = True  # reported: the noise floor is then not a floor
+            dist = _factor_distances(a["store"], {"b": b[0]["store"], "a2": a2["store"]}, _parallel_spec())
+            line["b_vs_a_factors"], line["a2_vs_a_factors"] = dist["b"], dist["a2"]
+            problems.extend(f"b vs a: {p}" for p in line["b_vs_a_factors"]["problems"])
+            la, la2, lb = (torch.load(os.path.join(tmp, f"{job}.logits.pt"))
+                           for job in ("a_nccl_data1", "a2_nccl_data1_reversed", "b_gloo_data2_model2"))
+            err, noise = float((lb - la).abs().max()), float((la2 - la).abs().max())
+            ok = bool(torch.allclose(lb, la, **PARALLEL_LOGIT_TOL)) or err <= PARALLEL_NOISE_FACTOR * noise
+            line["b_vs_a_logits"] = {"rows": list(la.shape[:2]), "max_abs_err": err, "max_abs": float(la.abs().max()),
+                                     "a2_vs_a_max_abs_err": noise, "tolerance": PARALLEL_LOGIT_TOL,
+                                     "noise_factor": PARALLEL_NOISE_FACTOR, "ok": ok}
+            if not ok:
+                problems.append(f"b vs a: compressed logits beyond {PARALLEL_LOGIT_TOL} and {PARALLEL_NOISE_FACTOR}x "
+                                f"the reordered one-rank job's distance: {line['b_vs_a_logits']}")
+
+        # (c) and (d) together: 6 ranks, peaks summing to ~50 GiB of the 80
+        out.update(_launch_parallel(["c_gloo_stage4", "d_gloo_context2"], tmp, during=b_against_a))
         for job in ("c_gloo_stage4", "d_gloo_context2"):
             errs = out[job][0]["vs_one_rank"]
             bad = {k: v for k, v in errs.items() if not v <= PARALLEL_STAT_TOL}
@@ -4125,7 +4658,7 @@ def phase_parallel(records: dict) -> dict:
 TPSERVE = dict(
     mesh="data:1,model:2", moe_requests=4, step_prompt=128, logit_tol=dict(rtol=1e-3, atol=1e-3),
     near_tie=1e-3, server_requests=8, server_prompt=192, server_new_tokens=16, server_lp_tol=1e-4,
-    server_timeout=600,
+    server_timeout=600, guided_regex="(yes|no)[0-9]{2,4}", logit_bias={"500": 5.0, "1000": 5.0, "7": -100.0},
 )
 # (e): the main artifact's rounds, both in batched prefill with fused decode
 TPSERVE_ROUNDS = {
@@ -4198,7 +4731,7 @@ def _k3_holds(shape) -> dict:
 
 
 def _tpserve_moe_model():
-    """The moe phase's seeded Qwen3-30B-A3B-width weights (2 layers),
+    """The moe phase's seeded Qwen3-30B-A3B-width weights (MOE_LAYERS),
     uncompressed and padded, on the card."""
     import torch
 
@@ -4448,16 +4981,16 @@ def _tpserve_server(main_out: dict, started: dict, tok) -> dict:
             if gs != 200 or ws != 200:
                 out["problems"].append(f"request {i}: status {gs} / {ws}")
                 continue
-            g.pop("id", None), w.pop("id", None)
-            for gc_, wc in zip(g["choices"], w["choices"]):
-                if wc.get("logprobs"):
-                    a, b = gc_.pop("logprobs"), wc.pop("logprobs")
-                    lp_err = max(lp_err, max(abs(x - y) for x, y in zip(a["token_logprobs"], b["token_logprobs"])))
-            if g != w:
+            diff = _answers_differ(g, w)
+            if diff == float("inf"):
                 out["problems"].append(f"request {i}: the TP answer differs from the one-process server's")
+            else:
+                lp_err = max(lp_err, diff)
         out["logprob_max_abs_diff"] = lp_err
         if lp_err > TPSERVE["server_lp_tol"]:
             out["problems"].append(f"logprobs differ by {lp_err}")
+        out["kinds"] = _tp_request_kinds(port, httpd.server_address[1], bodies[0], tok)
+        out["problems"] += out["kinds"].pop("problems")
     finally:
         httpd.shutdown()
         one.close()
@@ -4472,6 +5005,109 @@ def _tpserve_server(main_out: dict, started: dict, tok) -> dict:
         out["seconds"] = time.perf_counter() - t0
     if any(out["rank_exit_codes"]):
         out["problems"].append(f"server ranks exited {out['rank_exit_codes']}: " + open(logs[1]).read()[-1500:])
+    return out
+
+
+def _answers_differ(got: dict, want: dict) -> float:
+    """How far two completion answers part: inf where they differ as JSON
+    (ids and `logprobs` aside), else the largest difference of their
+    choices' token logprobs (0.0 without any)."""
+    got, want = json.loads(json.dumps(got)), json.loads(json.dumps(want))  # copies
+    lps = []
+    for d in (got, want):
+        d.pop("id", None)
+        lps.append([(c.pop("logprobs", None) or {}).get("token_logprobs", []) for c in d["choices"]])
+    if got != want or [len(a) for a in lps[0]] != [len(b) for b in lps[1]]:
+        return float("inf")
+    return max((abs(x - y) for a, b in zip(*lps) for x, y in zip(a, b)), default=0.0)
+
+
+def _answers_equal(got: dict, want: dict) -> bool:
+    """Two completion answers equal, ids aside, logprobs within
+    server_lp_tol."""
+    return _answers_differ(got, want) <= TPSERVE["server_lp_tol"]
+
+
+def _tp_request_kinds(port: int, one_port: int, greedy: dict, tok) -> dict:
+    """(g), the request kinds whose fields cross from rank 0 to the
+    follower with each submit (a guided choice and regex: the guide is
+    pickled to it; a logit bias), a stream of the greedy request
+    `greedy`, and a cancel: each to the two ranks and to the one-process
+    server on `one_port`. The guided outputs in their grammar and every
+    answer the one-process server's; the stream's deltas concatenate to
+    its answer to `greedy`; a long stream cancelled after its first event
+    ends, rank 0 counts the cancel, and `greedy` sent after it still
+    answers the same, so the follower applied the cancel in the same
+    round."""
+    import http.client
+
+    from modegpt_tpu_torch.models import guided
+
+    def post(port_no, body):
+        status, data, _ = _http(port_no, "POST", "/v1/completions", body)
+        return status, json.loads(data)
+
+    out, problems = {}, []
+    prompt = greedy["prompt_ids"][:64]
+    kinds = {
+        "guided_choice": {"prompt_ids": prompt, "max_tokens": 8, "guided_choice": SERVER["choices"]},
+        "guided_regex": {"prompt_ids": prompt, "max_tokens": 12, "guided_regex": TPSERVE["guided_regex"]},
+        "logit_bias": {"prompt_ids": prompt, "max_tokens": TPSERVE["server_new_tokens"],
+                       "logit_bias": TPSERVE["logit_bias"]},
+    }
+    token_bytes = guided.token_bytes_from_tokenizer(tok)
+    for name, body in kinds.items():
+        (gs, g), (ws, w) = post(port, body), post(one_port, body)
+        ids = g["choices"][0]["token_ids"] if gs == 200 else []
+        out[name] = {"status": gs, "tokens": ids, "equal_one_process": gs == ws == 200 and _answers_equal(g, w)}
+        if not out[name]["equal_one_process"]:
+            problems.append(f"{name}: the TP answer differs from the one-process server's ({gs}, {ws})")
+        if name.startswith("guided"):
+            text = b"".join(token_bytes[t] for t in ids[:-1]).decode(errors="replace")
+            pattern = guided.regex_for_choice(SERVER["choices"]) if name == "guided_choice" else body["guided_regex"]
+            out[name]["text"] = text
+            if not ids or ids[-1] != tok.eos_token_id or not guided.compile_charset(pattern).fullmatch(text.encode()):
+                problems.append(f"{name}: {text!r} is not in its grammar")
+
+    ws, want = post(one_port, greedy)
+    choice = want["choices"][0]
+    status, data, first = _http(port, "POST", "/v1/completions", {**greedy, "stream": True})
+    events = _sse(data)
+    streamed_lp = [x for e in events for x in e.get("logprobs", [])]
+    out["stream"] = {"status": status, "events": len(events), "seconds_to_first_event": first,
+                     "tokens_equal": [t for e in events for t in e["token_ids"]] == choice["token_ids"],
+                     "text_equal": "".join(e.get("text", "") for e in events) == choice["text"],
+                     "logprob_max_abs_diff": max((abs(a - b) for a, b in zip(
+                         streamed_lp, choice["logprobs"]["token_logprobs"])), default=0.0),
+                     "done": data.rstrip().endswith(b"data: [DONE]")}
+    st = out["stream"]
+    if not (status == ws == 200 and st["tokens_equal"] and st["text_equal"] and st["done"]
+            and len(streamed_lp) == len(choice["token_ids"]) and st["logprob_max_abs_diff"] <= TPSERVE["server_lp_tol"]):
+        problems.append(f"stream: {st}")
+
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=TPSERVE["server_timeout"])
+    conn.request("POST", "/v1/completions", body=json.dumps({"prompt_ids": prompt, "max_tokens": SERVER["cancel_tokens"],
+                                                             "stream": True}),
+                 headers={"Content-Type": "application/json"})
+    resp = conn.getresponse()
+    head = _sse(resp.readline() + resp.readline())
+    status, data, _ = _http(port, "POST", "/v1/cancel", {"id": head[0]["id"] if head else "cmpl-?"})
+    rest = resp.read()
+    conn.close()
+    metrics = dict(ln.split() for ln in _http(port, "GET", "/metrics")[1].decode().splitlines()
+                   if not ln.startswith("#"))
+    after_status, after = post(port, greedy)
+    out["cancel"] = c = {
+        "status": status, "reply": json.loads(data), "stream_done": rest.rstrip().endswith(b"data: [DONE]"),
+        "tokens_streamed": sum(len(e["token_ids"]) for e in head + _sse(rest)),
+        "requests_cancelled_rank0": float(metrics.get("modegpt_requests_cancelled_total", 0)),
+        "after_equal_one_process": after_status == 200 and _answers_equal(after, want),
+    }
+    if not (status == 200 and c["reply"].get("cancelled") and c["stream_done"]
+            and c["tokens_streamed"] < SERVER["cancel_tokens"] and c["requests_cancelled_rank0"] >= 1
+            and c["after_equal_one_process"]):
+        problems.append(f"cancel: {c}")
+    out["problems"] = problems
     return out
 
 
@@ -4491,7 +5127,7 @@ def phase_tpserve(records: dict, main_out: dict) -> dict:
     t_phase = time.perf_counter()
     problems = []
     line = {"phase": "tpserve", "mesh": TPSERVE["mesh"], "backend": "gloo", "card": card_line(),
-            "model": "main artifact (Meta-Llama-3-8B widths, 4 layers); Qwen3-30B-A3B widths, 2 layers"}
+            "model": "main artifact (Meta-Llama-3-8B widths, 4 layers); Qwen3-30B-A3B widths, 1 layer"}
     cspec, cparams, pm = main_out["spec"], main_out["params"], main_out["pm"]
     tok = _full_vocab_tokenizer(cspec.vocab_size)
     if not os.path.exists(os.path.join(main_out["artifact_dir"], "tokenizer.json")):
@@ -4615,7 +5251,7 @@ def card_line() -> str:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--phases",
-                    default="build,kernel,main,serve,sched,server,stream,quant,tpserve,moe,long,archs,opt,big,"
+                    default="build,kernel,main,serve,sched,server,stream,cli,quant,tpserve,moe,long,archs,opt,big,"
                     "parallel")
     ap.add_argument("--profile", action="store_true",
                     help="trace the main job, the serve round, the quant phase's int8 rounds, the moe "
@@ -4648,13 +5284,13 @@ def main(argv=None) -> int:
         emit(phase_build())
     if "kernel" in phases:
         phase_kernel(records)
-    if {"main", "serve", "sched", "server", "stream", "quant", "tpserve", "moe", "long", "archs", "opt", "big",
-            "parallel"} & set(phases) and "kernel" not in phases:
-        raise SystemExit("chip_smoke: the main, serve, sched, server, stream, quant, tpserve, moe, long, archs, "
-                         "opt, big and parallel phases need the kernel phase's records")
-    if {"main", "serve", "sched", "server", "stream", "quant", "tpserve"} & set(phases):
+    if {"main", "serve", "sched", "server", "stream", "cli", "quant", "tpserve", "moe", "long", "archs", "opt",
+            "big", "parallel"} & set(phases) and "kernel" not in phases:
+        raise SystemExit("chip_smoke: the main, serve, sched, server, stream, cli, quant, tpserve, moe, long, "
+                         "archs, opt, big and parallel phases need the kernel phase's records")
+    if {"main", "serve", "sched", "server", "stream", "cli", "quant", "tpserve"} & set(phases):
         main_out = phase_main(records, args.profile,
-                              keep_artifact=bool({"server", "stream", "tpserve"} & set(phases)))
+                              keep_artifact=bool({"server", "stream", "cli", "tpserve"} & set(phases)))
         try:
             if "serve" in phases:
                 phase_serve(records, main_out, args.profile)
@@ -4667,6 +5303,10 @@ def main(argv=None) -> int:
             if "stream" in phases:
                 torch.cuda.empty_cache()
                 phase_stream(records, main_out)
+            if "cli" in phases:
+                gc.collect()
+                torch.cuda.empty_cache()
+                phase_cli(records, main_out)
             if "quant" in phases:
                 torch.cuda.empty_cache()
                 phase_quant(records, main_out, args.profile)

@@ -994,3 +994,61 @@ def test_tp_serving_ranks_run_k3_on_their_heads(cuda_device, tmp_path):
     for out in outs:
         assert out["serve"]["tokens"] == [list(map(int, done[r])) for r in rids]
         assert out["serve"]["pool_heads"] == spec.n_kv_heads // 2 and out["serve"]["k3_launches"] > 0
+
+
+def _tiny_checkpoint(path):
+    """A tiny llama HF checkpoint with a word-piece tokenizer saved beside
+    it (ids below the model's 128), as the CLIs load it."""
+    transformers = pytest.importorskip("transformers")
+    from tokenizers import Tokenizer, models, pre_tokenizers, trainers
+
+    cfg = transformers.LlamaConfig(vocab_size=128, hidden_size=64, intermediate_size=144, num_hidden_layers=2,
+                                   num_attention_heads=4, num_key_value_heads=2, max_position_embeddings=256)
+    torch.manual_seed(0)
+    transformers.LlamaForCausalLM(cfg).save_pretrained(path)
+    tok = Tokenizer(models.BPE(unk_token="<unk>"))
+    tok.pre_tokenizer = pre_tokenizers.Whitespace()
+    tok.train_from_iterator(["the quick brown fox jumps over the lazy dog", "user says hello world again"],
+                            trainers.BpeTrainer(vocab_size=100, special_tokens=["<unk>", "<s>", "</s>"]))
+    transformers.PreTrainedTokenizerFast(tokenizer_object=tok, unk_token="<unk>", bos_token="<s>", eos_token="</s>",
+                                         pad_token="</s>").save_pretrained(path)
+    return str(path)
+
+
+CLI_PROMPTS = ["the quick brown fox", "user says hello world again and the lazy dog", "over the"]
+SERVE_FLAG_SETS = {
+    "batched_fused_prefix": ["--prefill_exec", "batched", "--steps_per_dispatch", "4", "--prefix_cache"],
+    "int8_w8a8_kv8": ["--quantize_int8", "--a8_prefill", "--kv_dtype", "int8"],
+}
+
+
+@pytest.mark.parametrize("flags", sorted(SERVE_FLAG_SETS))
+def test_serve_cli_on_the_card_equals_the_cpu(cuda_device, tmp_path, flags):
+    """`serve.main` on the card (K3 on every dispatch) returns the tokens
+    of the same call with --device cpu."""
+    from modegpt_tpu_torch import serve
+    from modegpt_tpu_torch.kernels.ragged_decode import ragged_gqa_attend
+
+    ckpt = _tiny_checkpoint(tmp_path)
+    argv = ["--model", ckpt, *(a for p in CLI_PROMPTS for a in ("--prompt", p)), "--max_new_tokens", "12",
+            "--slots", "2", "--max_len", "64", "--prefill_bucket", "8", *SERVE_FLAG_SETS[flags]]
+    before = ragged_gqa_attend.launches
+    card = serve.main(argv + ["--device", "cuda"])
+    assert ragged_gqa_attend.launches > before
+    assert card == serve.main(argv + ["--device", "cpu"])
+
+
+def test_eval_cli_prompt_lookup_on_the_card_equals_the_cpu(cuda_device, tmp_path):
+    """`evals.cli.main --generate --prompt_lookup` on the card (K3 on the
+    padded stack) prints the text of the same call with --device cpu."""
+    from modegpt_tpu_torch.evals import cli
+    from modegpt_tpu_torch.kernels.ragged_decode import ragged_gqa_attend
+
+    ckpt = _tiny_checkpoint(tmp_path)
+    argv = ["--model", ckpt, "--generate", "the quick brown fox the quick brown fox the quick", "--prompt_lookup",
+            "--max_new_tokens", "16"]
+    before = ragged_gqa_attend.launches
+    card = cli.main(argv + ["--device", "cuda"])
+    assert ragged_gqa_attend.launches > before
+    cpu = cli.main(argv + ["--device", "cpu"])
+    assert card["generation"] == cpu["generation"] and card["prompt_lookup"] == cpu["prompt_lookup"]

@@ -30,7 +30,10 @@ sets up, from the same numpy inputs and seeded tiny HF models.
 * the unrolled TP forward of compressed and MoE trees (`param_shardings`)
   within 2e-4 of JAX's forward;
 * ``--tensor_parallel 2`` over HTTP: each JSON answer equal to the
-  one-process server's;
+  one-process server's (greedy, seeded, logprobs, stop, penalties, ``n``,
+  ``min_tokens``, guided choice and regex, ``logit_bias``), a stream's
+  deltas its non-streamed answer, and after a cancel of a stream the
+  ranks still in lockstep;
 * the error paths: ``n_kv_heads % model``, the world size against the
   mesh.
 """
@@ -302,9 +305,9 @@ def _free_port():
         return s.getsockname()[1]
 
 
-def _post(port, body):
+def _post(port, body, path="/v1/completions"):
     conn = http.client.HTTPConnection("127.0.0.1", port, timeout=120)
-    conn.request("POST", "/v1/completions", body=json.dumps(body), headers={"Content-Type": "application/json"})
+    conn.request("POST", path, body=json.dumps(body), headers={"Content-Type": "application/json"})
     resp = conn.getresponse()
     data = resp.read()
     conn.close()
@@ -360,11 +363,10 @@ def _outputs(world, name):
 # ---- the server over HTTP ----
 
 
-def test_server_tensor_parallel_matches_one_process(world):
-    """`python -m modegpt_tpu_torch.server --tensor_parallel 2` on 2 ranks
-    (rank 0 serves HTTP, rank 1 follows it): 8 concurrent completions,
-    greedy and seeded sampled, each answer equal to the one-process
-    server's on the same checkpoint; SIGINT on rank 0 ends both ranks."""
+@pytest.fixture(scope="module")
+def servers(world):
+    """The tensor-parallel server's port once it answers /health, and the
+    one-process port server on the same checkpoint, its reference."""
     from modegpt_tpu_torch.models.hf import params_from_hf_model
 
     spec, params = params_from_hf_model(_hf("llama"), device="cpu")
@@ -385,24 +387,117 @@ def test_server_tensor_parallel_matches_one_process(world):
             except OSError:
                 time.sleep(0.2)
         assert status == 200 and health["status"] == "ok"
-        with ThreadPoolExecutor(len(SERVER_REQUESTS)) as pool:
-            got = list(pool.map(lambda body: _post(world.port_no, body), SERVER_REQUESTS))
-        want = [_post(httpd.server_address[1], body) for body in SERVER_REQUESTS]
+        yield types.SimpleNamespace(tp=world.port_no, one=httpd.server_address[1])
     finally:
         httpd.shutdown()
         one.close()
+
+
+def _same_answer(got, want):
+    """Two completion answers equal as JSON, ids and times aside, logprobs
+    to 1e-5."""
+    (gs, g), (ws, w) = got, want
+    assert gs == ws == 200, (g, w)
+    for key in ("id", "created"):
+        g.pop(key, None), w.pop(key, None)
+    assert [c["token_ids"] for c in g["choices"]] == [c["token_ids"] for c in w["choices"]]
+    for gc, wc in zip(g["choices"], w["choices"]):
+        if wc.get("logprobs"):
+            np.testing.assert_allclose(gc["logprobs"]["token_logprobs"], wc["logprobs"]["token_logprobs"], atol=1e-5)
+            gc.pop("logprobs"), wc.pop("logprobs")
+    assert g == w
+
+
+def test_server_tensor_parallel_matches_one_process(servers):
+    """`python -m modegpt_tpu_torch.server --tensor_parallel 2` on 2 ranks
+    (rank 0 serves HTTP, rank 1 follows it): 8 concurrent completions,
+    greedy and seeded sampled, each answer equal to the one-process
+    server's on the same checkpoint."""
+    with ThreadPoolExecutor(len(SERVER_REQUESTS)) as pool:
+        got = list(pool.map(lambda body: _post(servers.tp, body), SERVER_REQUESTS))
+    want = [_post(servers.one, body) for body in SERVER_REQUESTS]
+    for g, w in zip(got, want):
+        _same_answer(g, w)
+
+
+# the request kinds whose fields cross from rank 0 to its followers with
+# each submit: a guide (pickled to every rank), a logit bias; and a stream
+SERVER_KINDS = {
+    "guided_choice": {"prompt": "says", "max_tokens": 16, "guided_choice": ["hello", "dog", "lazy"]},
+    "guided_regex": {"prompt": "quick", "max_tokens": 16, "guided_regex": "(the|a)(fox|dog)+"},
+    "logit_bias": {"prompt_ids": [9, 8, 7], "max_tokens": 8, "logit_bias": {"40": 3.5, "41": 2.0, "2": -100}},
+    "stream": {"prompt": "the quick brown fox", "max_tokens": 10, "logprobs": True, "stream": True},
+}
+
+
+def _stream(port, body):
+    """(status, SSE events) of a streamed completion."""
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=120)
+    conn.request("POST", "/v1/completions", body=json.dumps(body), headers={"Content-Type": "application/json"})
+    resp = conn.getresponse()
+    data = resp.read()
+    conn.close()
+    events = [json.loads(line[len(b"data: "):]) for line in data.split(b"\n")
+              if line.startswith(b"data: ") and b"[DONE]" not in line]
+    return resp.status, events, data.rstrip().endswith(b"data: [DONE]")
+
+
+@pytest.mark.parametrize("kind", sorted(SERVER_KINDS))
+def test_server_tensor_parallel_request_kinds(servers, kind):
+    """A guided (choice, regex), a logit-biased and a streamed request to
+    the two ranks: the one-process server's answer (a stream's deltas
+    concatenate to its non-streamed tokens, text and logprobs)."""
+    body = SERVER_KINDS[kind]
+    if kind != "stream":
+        got, want = _post(servers.tp, body), _post(servers.one, body)
+        _same_answer(got, want)
+        if kind == "guided_choice":  # the pieces before EOS spell one choice
+            ids = got[1]["choices"][0]["token_ids"]
+            assert "".join(_tokenizer().convert_ids_to_tokens(ids[:-1])) in body["guided_choice"]
+        return
+    status, events, done = _stream(servers.tp, body)
+    ws, want = _post(servers.one, {**body, "stream": False})
+    assert status == ws == 200 and done
+    choice = want["choices"][0]
+    assert [t for e in events for t in e["token_ids"]] == choice["token_ids"]
+    assert "".join(e["text"] for e in events) == choice["text"]
+    np.testing.assert_allclose([x for e in events for x in e["logprobs"]], choice["logprobs"]["token_logprobs"],
+                               atol=1e-5)
+
+
+def test_server_tensor_parallel_cancel_keeps_the_ranks_in_lockstep(world, servers):
+    """A streamed request cancelled through POST /v1/cancel after its
+    first event: the stream ends, rank 0 counts the cancel, and a request
+    sent after it still answers as the one-process server does, so the
+    follower applied the cancel in the same round. Then SIGINT on rank 0
+    ends both ranks with exit code 0. (Runs last: it stops the ranks.)"""
+    try:
+        conn = http.client.HTTPConnection("127.0.0.1", servers.tp, timeout=120)
+        conn.request("POST", "/v1/completions", body=json.dumps({"prompt_ids": [5, 6, 7], "max_tokens": 56,
+                                                                 "stream": True}),
+                     headers={"Content-Type": "application/json"})
+        resp = conn.getresponse()
+        first = resp.readline()
+        while not first.startswith(b"data: "):
+            first = resp.readline()
+        rid = json.loads(first[len(b"data: "):])["id"]
+        status, reply = _post(servers.tp, {"id": rid}, "/v1/cancel")
+        rest = resp.read()
+        conn.close()
+        assert status == 200 and reply == {"id": rid, "cancelled": True}
+        assert rest.rstrip().endswith(b"data: [DONE]")
+        events = [json.loads(line[len(b"data: "):]) for line in (first + rest).split(b"\n")
+                  if line.startswith(b"data: ") and b"[DONE]" not in line]
+        assert sum(len(e["token_ids"]) for e in events) < 56  # cut short
+        conn = http.client.HTTPConnection("127.0.0.1", servers.tp, timeout=30)
+        conn.request("GET", "/metrics")
+        metrics = conn.getresponse().read().decode()
+        conn.close()
+        assert "modegpt_requests_cancelled_total 1" in metrics.splitlines()
+        for body in (SERVER_REQUESTS[0], SERVER_REQUESTS[3]):
+            _same_answer(_post(servers.tp, body), _post(servers.one, body))
+    finally:
         world.server.procs[0].send_signal(signal.SIGINT)
-    for (gs, g), (ws, w) in zip(got, want):
-        assert gs == ws == 200, (g, w)
-        for key in ("id", "created"):
-            g.pop(key, None), w.pop(key, None)
-        assert [c["token_ids"] for c in g["choices"]] == [c["token_ids"] for c in w["choices"]]
-        for gc, wc in zip(g["choices"], w["choices"]):
-            if wc.get("logprobs"):
-                np.testing.assert_allclose(gc["logprobs"]["token_logprobs"], wc["logprobs"]["token_logprobs"],
-                                           atol=1e-5)
-                gc.pop("logprobs"), wc.pop("logprobs")
-        assert g == w
     logs = world.server.wait()  # both ranks exit 0 after rank 0's shutdown
     assert "follows rank 0" in logs[1]
 
