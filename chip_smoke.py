@@ -105,6 +105,17 @@ Phases, each printing one JSON line:
    at the last prompt position), K3's launches equal to the layers times
    each round's dispatches. With --profile the two int8 rounds are
    traced, with the dequantised copies and the int8 GEMMs as ranges.
+   Then the orbax artifacts (`compress/orbax_format`, no orbax on this
+   machine): (a) the model saved with ``backend="orbax"`` in float32 and
+   bfloat16 and reloaded on the card, every leaf equal bit for bit to
+   the npz reload (bfloat16: an npz artifact saved beside it), the
+   seconds and bytes of each beside npz's; (b) the committed JAX-written
+   fixture (``tests/fixtures/torch_orbax_llama``, zstd chunks through the
+   hand-written decoder) equal to its npz twin; (c) ``evals.cli.main
+   --dataset synthetic`` on the float32 orbax artifact: the main job's
+   perplexity (rtol 1e-6), K1 launched and counted; (d) one
+   ``serve.main`` round from it (8 requests, 16 new tokens): the npz
+   model's tokens, K3 launched layers times dispatches.
 
 6. moe    — one compression job at the published Qwen3-30B-A3B widths
    (hidden 2048, 32 heads over 4 kv heads, head_dim 128, 128 experts of
@@ -2121,14 +2132,169 @@ def _leaves_named(tree, name: str):
             yield from _leaves_named(v, name)
 
 
+ORBAX = dict(requests=8, new_tokens=16)
+ORBAX_FIXTURE = os.path.join("tests", "fixtures", "torch_orbax_llama")
+
+
+def _same_leaves(a, b, where: str, problems: list) -> int:
+    """Walk two parameter trees; a problem for each leaf that is not
+    equal bit for bit (same dtype, same values). Returns the leaves."""
+    import torch
+
+    if isinstance(a, dict) or isinstance(b, dict):
+        if not (isinstance(a, dict) and isinstance(b, dict)) or sorted(a) != sorted(b):
+            problems.append(f"{where}: the trees differ in their keys")
+            return 0
+        return sum(_same_leaves(a[k], b[k], f"{where}/{k}", problems) for k in a)
+    if isinstance(a, (list, tuple)):
+        if not isinstance(b, (list, tuple)) or len(a) != len(b):
+            problems.append(f"{where}: the trees differ in their layers")
+            return 0
+        return sum(_same_leaves(x, y, f"{where}/{i}", problems) for i, (x, y) in enumerate(zip(a, b)))
+    if a is None or b is None:
+        if (a is None) != (b is None):
+            problems.append(f"{where}: a leaf is missing on one side")
+        return 0
+    if a.dtype != b.dtype or a.shape != b.shape or not torch.equal(a, b.to(a.device)):
+        problems.append(f"{where}: not equal bit for bit")
+    return 1
+
+
+def _dir_bytes(path: str) -> int:
+    return sum(os.path.getsize(os.path.join(d, f)) for d, _, files in os.walk(path) for f in files)
+
+
+def _quant_orbax(main_out: dict, problems: list):
+    """(a)-(d) of the quant phase: the main model's orbax artifacts.
+    (a) saved in float32 and bfloat16 and reloaded on the card, every
+    leaf against the npz reload (float32: the main job's own; bfloat16:
+    an npz artifact saved and reloaded here), seconds and bytes of each;
+    (b) the committed JAX-written fixture (zstd chunks) against its npz
+    twin; (c) `evals.cli.main --dataset synthetic` on the float32 orbax
+    artifact: the main job's perplexity, K1 counted; (d) one `serve.main`
+    round from it: the npz model's tokens, K3 counted. Returns (line, K1
+    launches, K3 launches)."""
+    import torch
+
+    from modegpt_tpu_torch import serve as serve_mod
+    from modegpt_tpu_torch.compress.artifact import load_compressed_model, save_compressed_model
+    from modegpt_tpu_torch.evals import cli as eval_cli
+    from modegpt_tpu_torch.kernels import flash_attention as fa_mod
+    from modegpt_tpu_torch.kernels import ragged_decode as rd_mod
+
+    cspec, cparams, pm, job = main_out["spec"], main_out["params"], main_out["pm"], main_out["job"]
+    line = {"npz_float32": {"bytes": job["artifact_bytes"], "save_seconds": job["save_seconds"],
+                            "reload_seconds": job["reload_seconds"], "source": "the main job's steps"}}
+    root = os.path.dirname(os.path.abspath(__file__))
+    with tempfile.TemporaryDirectory(prefix="modegpt_smoke_orbax_") as tmp:
+        # (a) save and reload through the port, beside npz
+        for dtype, backends in (("float32", ("orbax",)), ("bfloat16", ("npz", "orbax"))):
+            reloads = {}
+            for backend in backends:
+                path = os.path.join(tmp, f"{backend}_{dtype}")
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                save_compressed_model(path, cspec, cparams, dtype=dtype, backend=backend)
+                save_s = time.perf_counter() - t0
+                t0 = time.perf_counter()
+                _, reloads[backend], _ = load_compressed_model(path, device="cuda")
+                torch.cuda.synchronize()
+                reload_s = time.perf_counter() - t0
+                line[f"{backend}_{dtype}"] = dict(bytes=_dir_bytes(path), save_seconds=save_s,
+                                                  reload_seconds=reload_s)
+            want = cparams if dtype == "float32" else reloads["npz"]
+            line[f"orbax_{dtype}"]["leaves_equal_npz"] = _same_leaves(
+                reloads["orbax"], want, f"orbax {dtype}", problems)
+            if dtype == "bfloat16":
+                shutil.rmtree(os.path.join(tmp, f"npz_{dtype}"))
+                shutil.rmtree(os.path.join(tmp, f"orbax_{dtype}"))
+            del reloads, want
+            torch.cuda.empty_cache()
+
+        # (b) the JAX-written fixture, zstd inside, decoded on this host
+        fixture = {}
+        for variant, dt in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+            t0 = time.perf_counter()
+            spec_f, got, _ = load_compressed_model(os.path.join(root, ORBAX_FIXTURE, variant), device="cuda")
+            seconds = time.perf_counter() - t0
+            twin_spec, twin, _ = load_compressed_model(os.path.join(root, ORBAX_FIXTURE, "npz"), device="cuda")
+            twin = _cast_tree(twin, dt)
+            if spec_f != twin_spec:
+                problems.append(f"fixture {variant}: spec differs from its npz twin's")
+            fixture[variant] = dict(seconds=seconds, leaves_equal_npz=_same_leaves(
+                got, twin, f"fixture {variant}", problems))
+        line["jax_fixture"] = fixture
+
+        # (c) the eval CLI on the float32 orbax artifact; first, timed
+        # apart, the tokenizer lookup it makes (none is saved there: the
+        # lookup fails, after transformers' first import in this process)
+        art = os.path.join(tmp, "orbax_float32")
+        t0 = time.perf_counter()
+        eval_cli._load_tokenizer(art, "")
+        lookup_s = time.perf_counter() - t0
+        fa_mod.flash_attention.launches = 0
+        t0 = time.perf_counter()
+        out = eval_cli.main(["--model", art, "--dataset", "synthetic", "--seq_len", str(job["seq_len"]),
+                             "--eval_max_samples", str(job["eval_max_samples"]),
+                             "--eval_batch_size", str(job["eval_batch_size"]), "--device", "cuda"])
+        k1 = fa_mod.flash_attention.launches
+        ppl = out["ppl-synthetic"]
+        line["eval_cli"] = dict(seconds=time.perf_counter() - t0, tokenizer_lookup_seconds=lookup_s,
+                                ppl=ppl, npz_ppl=job["compressed_ppl"],
+                                k1_launches=k1, k1_expected=job["k1_per_eval"])
+        if not math.isclose(ppl, job["compressed_ppl"], rel_tol=1e-6):
+            problems.append(f"eval CLI on the orbax artifact: perplexity {ppl}, the npz job's "
+                            f"{job['compressed_ppl']}")
+        if k1 != job["k1_per_eval"]:
+            problems.append(f"eval CLI on the orbax artifact launched K1 {k1} times, expected {job['k1_per_eval']}")
+
+        # (d) one serve.main round from it, against the npz model's batcher
+        npz_art = main_out["artifact_dir"]
+        if npz_art and os.path.exists(os.path.join(npz_art, "tokenizer.json")):
+            tok = eval_cli._load_tokenizer(npz_art, "")
+        else:
+            tok = _full_vocab_tokenizer(cspec.vocab_size)
+        tok.save_pretrained(art)
+        id_prompts = [list(map(int, p)) for p in _serve_prompts(cspec.vocab_size, ORBAX["requests"])[0]]
+        prompts_file = os.path.join(tmp, "prompts.txt")
+        with open(prompts_file, "w") as f:
+            f.write("\n".join(tok.decode(p) for p in id_prompts) + "\n")
+        new = ORBAX["new_tokens"]
+        want = _reference_round(_serve_batcher(pm, [], tok.eos_token_id), id_prompts, new)
+        rd_mod.ragged_gqa_attend.launches = 0
+        with _counted_dispatches() as (counts, _):
+            done, _, err, wall = _in_process(serve_mod.main, ["--model", art, "--prompts", prompts_file,
+                                                              "--max_new_tokens", str(new), "--device", "cuda"])
+        k3 = rd_mod.ragged_gqa_attend.launches
+        served = [list(map(int, done[r])) for r in sorted(done)]
+        line["serve"] = dict(seconds=wall, requests=len(id_prompts), new_tokens=new,
+                             tokens_equal_npz=served == want, k3_launches=k3,
+                             k3_expected=counts["layer_dispatches"], tok_per_s=_summary(err)["tok_per_s"])
+        if served != want:
+            problems.append("serve.main from the orbax artifact: tokens differ from the npz model's")
+        if k3 != counts["layer_dispatches"] or k3 == 0:
+            problems.append(f"serve.main from the orbax artifact launched K3 {k3} times, expected "
+                            f"{counts['layer_dispatches']}")
+    return line, k1, k3
+
+
+def _cast_tree(tree, dtype):
+    if isinstance(tree, dict):
+        return {k: _cast_tree(v, dtype) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [_cast_tree(v, dtype) for v in tree]
+    return tree.to(dtype) if tree is not None and tree.is_floating_point() else tree
+
+
 def phase_quant(records: dict, main_out: dict, profile: bool = False) -> dict:
     """Quantised artifacts and int8 serving of the main phase's compressed
     model: int8, int4 and nf4 artifacts saved, reloaded dequantised and
     evaluated (K1); int8 and int4 resident forwards (K1) against the
     dequantised ones; then the serve phase's 16 requests three times,
-    f32, int8 weight-only and int8 with W8A8 prefill (K3). With
-    `profile`, the two int8 rounds run under torch.profiler with the
-    dequantised copies and the int8 GEMMs as ranges."""
+    f32, int8 weight-only and int8 with W8A8 prefill (K3); then the
+    orbax artifacts (`_quant_orbax`, (a)-(d)). With `profile`, the two
+    int8 rounds run under torch.profiler with the dequantised copies and
+    the int8 GEMMs as ranges."""
     import torch
 
     from modegpt_tpu_torch.calib.data import load_eval_tokens
@@ -2288,13 +2454,17 @@ def phase_quant(records: dict, main_out: dict, profile: bool = False) -> dict:
     same_new = sum(int(x == y) for r_a, r_w, p in zip(a8["rids"], wo["rids"], prompts)
                    for x, y in zip(a8["done"][r_a][len(p):], wo["done"][r_w][len(p):]))
 
+    torch.cuda.empty_cache()
+    orbax, k1, k3 = _quant_orbax(main_out, problems)
+    k1_total += k1
+    k3_total += k3
     records["flash_attention"]["launches_by_phase"]["quant"] = k1_total
     records["ragged_gqa_attend"]["launches_by_phase"]["quant"] = k3_total
     line = {
         "phase": "quant", "model": "Meta-Llama-3-8B widths", "n_layers": cspec.n_layers,
         "float32_artifact": {"bytes": job["artifact_bytes"], "save_seconds": job["save_seconds"],
                              "reload_seconds": job["reload_seconds"], "compressed_ppl": job["compressed_ppl"]},
-        "artifacts": artifacts,
+        "artifacts": artifacts, "orbax": orbax,
         "resident": resident, "float32_device_bytes": _tree_bytes(cparams),
         "decode_step_dequant_copy": {"ms": convert_ms, "int8_weights": n_q,
                                      "bound_ms": 1e3 * 5 * n_q / HBM_BYTES_PER_S, "bound_by": "bytes"},

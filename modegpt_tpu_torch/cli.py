@@ -12,6 +12,10 @@ A mesh job (``--mesh_shape data:2,model:2``) runs one process per rank
 
 NCCL with a card per rank; ranks that share a card need
 ``MODEGPT_DIST_BACKEND=gloo``.
+
+While the job runs, a watchdog thread rewrites ``./.mem-usage`` every
+second with the host RSS and the rank's card's bytes
+(`utils.memory.start_memory_watchdog`), as the JAX CLI's does.
 """
 
 from __future__ import annotations
@@ -24,12 +28,15 @@ def main(argv=None):
 
     from modegpt_tpu_torch.compress.pipeline import run_compression
     from modegpt_tpu_torch.config import CompressionConfig
-    from modegpt_tpu_torch.parallel.mesh import maybe_initialize_distributed
+    from modegpt_tpu_torch.parallel.mesh import maybe_initialize_distributed, rank_device
     from modegpt_tpu_torch.utils.logging import setup_logging
+    from modegpt_tpu_torch.utils.memory import start_memory_watchdog
 
     config = CompressionConfig.from_args(argv)
     logger = setup_logging(level=logging.DEBUG if config.debug else logging.INFO)
     joined = maybe_initialize_distributed(config.device)
+    # after the distributed init, which binds this rank to its card
+    watchdog = start_memory_watchdog(devices=[rank_device(config.device)])
     try:
         if joined:
             logger.info("torch.distributed: rank %d of %d, backend %s",
@@ -39,6 +46,7 @@ def main(argv=None):
         logger.info("config: %s", config.to_dict())
         results = run_compression(config)  # builds this rank's mesh from --mesh_shape
     finally:
+        watchdog._stop_event.set()
         if joined:
             dist.destroy_process_group()
     summary = {

@@ -1,10 +1,9 @@
 """Compressed-model persistence: per-layer factor store + final artifact.
 
-Port of ``modegpt_tpu.compress.artifact``, npz backend, float32 and
-bfloat16 storage. The on-disk format is the JAX package's, so an
-artifact written by either package loads in the other, MoE ones
-included (``layers/3/experts/up/kernel`` [E, d, r], ``layers/3/router``,
-``layers/3/shared/...``, ``layers/3/shared_gate``):
+Port of ``modegpt_tpu.compress.artifact``. The on-disk formats are the
+JAX package's, so an artifact written by either package loads in the
+other, MoE ones included (``layers/3/experts/up/kernel`` [E, d, r],
+``layers/3/router``, ``layers/3/shared/...``, ``layers/3/shared_gate``):
 
 * the factor store: one ``layer_{i}_{suffix}.npz`` per layer and solver
   (the reference's temp store names, model_adapter.py:184-191);
@@ -29,7 +28,10 @@ quantised artifact reloads dequantised to float32, or with
 ``resident_int8`` keeps its int8 or int4 ``kernel`` leaves resident
 (`models.quantize`).
 
-The orbax backend is not ported: ``orbax.checkpoint`` imports JAX.
+The orbax backend (``backend="orbax"``, float32 or bfloat16 storage)
+keeps the parameters as an orbax checkpoint under ``params_orbax/``
+(`compress.orbax_format`, written and read without orbax) beside a
+``spec.json`` with ``"backend": "orbax"`` and an empty dtype map.
 """
 
 from __future__ import annotations
@@ -41,6 +43,7 @@ from typing import Dict, Optional, Tuple
 import numpy as np
 import torch
 
+from modegpt_tpu_torch.compress import orbax_format
 from modegpt_tpu_torch.models.convert import to_tensor
 from modegpt_tpu_torch.models.forward import check_supported, column_major, pack_int4, true_div
 from modegpt_tpu_torch.models.spec import ModelSpec
@@ -236,21 +239,39 @@ def save_compressed_model(
     dtype: str = "float32",
     backend: str = "npz",
 ) -> str:
-    """Write the artifact: spec.json + params.npz + tokenizer_source.txt.
+    """Write the artifact: spec.json + params.npz (or params_orbax/) +
+    tokenizer_source.txt.
 
     dtype: "float32" or "bfloat16" (floating leaves; integer leaves keep
     their dtype), or "int8", "int4" or "nf4": projection kernels and
     embeddings quantised weight-only (~4x, ~8x and ~8x smaller than
-    float32), every other floating leaf float32. backend: "npz" (orbax
-    is not ported).
+    float32), every other floating leaf float32. backend: "npz" (one
+    file, every dtype) or "orbax" (an orbax checkpoint; float32 and
+    bfloat16 only, as in the JAX package).
     """
-    if backend != "npz":
-        raise NotImplementedError(
-            f"modegpt_tpu_torch.compress.artifact: backend {backend!r} is not ported (npz only)"
-        )
+    if backend not in ("npz", "orbax"):
+        raise ValueError(f"artifact backend must be npz or orbax, got {backend!r}")
     if dtype not in _STORAGE_DTYPES:
         raise ValueError(f"storage dtype must be one of {', '.join(_STORAGE_DTYPES)}, got {dtype!r}")
+    if backend == "orbax" and dtype in _QUANTISED:
+        raise ValueError(f"{dtype} quantization is supported by the npz backend only")
     os.makedirs(save_dir, exist_ok=True)
+    if backend == "orbax":
+        target = torch.bfloat16 if dtype == "bfloat16" else torch.float32
+
+        def cast(tree):
+            if isinstance(tree, dict):
+                return {k: cast(v) for k, v in tree.items()}
+            if isinstance(tree, (list, tuple)):
+                return [cast(v) for v in tree]
+            if tree is None:
+                return None
+            t = _as_tensor(tree)
+            return t.to(target) if t.is_floating_point() else t
+
+        orbax_format.save_tree(os.path.abspath(os.path.join(save_dir, "params_orbax")), cast(params))
+        _write_sidecar(save_dir, spec, {}, dtype, metadata, tokenizer_source, backend="orbax")
+        return save_dir
     stored, dtypes = {}, {}
     for key, leaf in _flatten(params).items():
         if dtype in _QUANTISED and leaf is not None and _is_weight_key(key):
@@ -260,18 +281,26 @@ def save_compressed_model(
                 continue
         stored[key], dtypes[key] = _to_storage(leaf, dtype)
     np.savez(os.path.join(save_dir, "params.npz"), **stored)
+    _write_sidecar(save_dir, spec, dtypes, dtype, metadata, tokenizer_source)
+    return save_dir
+
+
+def _write_sidecar(save_dir: str, spec: ModelSpec, dtypes: Dict, dtype: str, metadata: Optional[Dict],
+                   tokenizer_source: str, backend: Optional[str] = None) -> None:
+    """spec.json (the JAX package's keys; "backend" only for orbax) and
+    tokenizer_source.txt."""
     sidecar = {
         "format_version": _FORMAT_VERSION,
         "spec": spec.to_dict(),
         "dtypes": dtypes,
         "storage_dtype": dtype,
+        **({"backend": backend} if backend else {}),
         "metadata": metadata or {},
     }
     with open(os.path.join(save_dir, "spec.json"), "w") as f:
         json.dump(sidecar, f, indent=2)
     with open(os.path.join(save_dir, "tokenizer_source.txt"), "w") as f:
         f.write(tokenizer_source.strip())
-    return save_dir
 
 
 def _unflatten(flat: Dict, n_layers: int) -> Dict:
@@ -306,18 +335,25 @@ def load_compressed_model(save_dir: str, device: DeviceLike = "cuda", resident_i
     codes, or int4 packed two a byte, `models.quantize`) plus ``scale``
     ([out], or [E, out] for expert stacks), which the forward consumes
     directly; a router's kernel too, as in the JAX package. Embeddings
-    and nf4 always dequantise."""
+    and nf4 always dequantise. An orbax artifact (float32 or bfloat16,
+    never quantised) loads its checkpoint's leaves as they were saved."""
     dev = resolve_device(device)
     with open(os.path.join(save_dir, "spec.json")) as f:
         sidecar = json.load(f)
     if sidecar["format_version"] > _FORMAT_VERSION:
         raise ValueError(f"artifact written by a newer format: {sidecar['format_version']}")
-    if sidecar.get("backend", "npz") != "npz":
-        raise NotImplementedError(
-            f"modegpt_tpu_torch.compress.artifact: backend {sidecar['backend']!r} is not ported"
-        )
     spec = ModelSpec.from_dict(sidecar["spec"])
     check_supported(spec)
+    backend = sidecar.get("backend", "npz")
+    if backend == "orbax":
+        params = orbax_format.load_tree(os.path.abspath(os.path.join(save_dir, "params_orbax")), dev)
+        params.setdefault("lm_head", None)
+        if isinstance(params.get("layers"), dict):
+            params["layers"] = [params["layers"][str(i)] for i in range(spec.n_layers)]
+        _validate_shapes(spec, params)
+        return spec, params, _read_tokenizer_source(save_dir)
+    if backend != "npz":
+        raise ValueError(f"unknown artifact backend {backend!r}")
     flat = {}
     with np.load(os.path.join(save_dir, "params.npz")) as z:
         for key in z.files:

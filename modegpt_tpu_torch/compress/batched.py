@@ -24,6 +24,10 @@ A MoE layer's experts are solved one after another: the ridge of each
 Cholesky escalates on its own matrix (`ops.psd`), which a batch over
 the experts would have to carry per matrix.
 
+Under ``config.debug`` the first two layers' Grams are logged with
+`ops.psd.psd_diagnostics` (JAX ``batched.py:1083-1096``): the Type-I
+Gram (a MoE layer's, one expert at a time) and the attention input's.
+
 Precision follows ``config.solver_precision``: ``f64_cpu`` solves in
 float64 on the CPU (VO whitening by eigh, the reference's); ``f32_device``
 solves in float32 on the model's device (VO whitening by the escalated
@@ -60,6 +64,7 @@ from modegpt_tpu_torch.config import CompressionConfig
 from modegpt_tpu_torch.models.convert import to_numpy
 from modegpt_tpu_torch.models.spec import ModelSpec
 from modegpt_tpu_torch.ops.mlp import nystrom_down, nystrom_mlp, nystrom_scores, nystrom_select
+from modegpt_tpu_torch.ops.psd import psd_diagnostics
 from modegpt_tpu_torch.ops.qk import (
     compress_qk_layer_opt,
     compress_qk_layer_rope,
@@ -223,6 +228,22 @@ def solve_chunk_batched(
     def stack(arrs):
         return torch.stack(arrs) if isinstance(arrs[0], torch.Tensor) else np.stack(arrs)
 
+    if config.debug:
+        # covariance conditioning of the first two layers (reference:
+        # sqrt_M's debug prints, compression_utils.py:28-45); a MoE
+        # layer's Type-I Grams one expert at a time
+        for l in layers[:2]:
+            grams = []
+            if "mlp" in order:
+                cov = calib.cov_mlp[l]
+                if cov.dim() == 3:
+                    grams += [(f"cov_mlp expert {e}", c, config.nystrom_ridge) for e, c in enumerate(cov)]
+                else:
+                    grams.append(("cov_mlp", cov, config.nystrom_ridge))
+            if "vo" in order:
+                grams.append(("cov_x", calib.cov_x[l], config.ridge_vo))
+            for name, g, ridge in grams:
+                logger.info("[debug] layer %d %s: %s", l, name, psd_diagnostics(g.to(device=dev, dtype=dt), ridge))
     out: Dict[str, Dict[int, Dict]] = {s: {} for s in ("mlp", "qk", "vo") if s in order}
     # the leaves each solved suffix makes dead (scratch_params)
     dead = [key for s, keys in (("mlp", ("up", "gate", "down", "experts", "shared")), ("qk", ("q", "k")),

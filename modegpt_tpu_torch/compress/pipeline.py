@@ -62,8 +62,11 @@ evaluation.
 streamed sweep and the chunked loop) with `torch.profiler`
 (`utils.profiling.trace`) into one Chrome trace a job.
 
-The one path of the JAX pipeline this port does not have, orbax
-artifacts, raises NotImplementedError up front.
+``artifact_backend="orbax"`` saves and reloads the artifact as an orbax
+checkpoint (`compress.orbax_format`), float32 or bfloat16.
+
+`solve_layer` is the JAX package's public one-layer solve: one layer's
+factors, dense or MoE, as host numpy in HF layout.
 """
 
 from __future__ import annotations
@@ -79,7 +82,7 @@ from typing import Dict, Optional
 import torch
 
 from modegpt_tpu_torch.calib.data import load_calibration_batches, load_eval_tokens
-from modegpt_tpu_torch.calib.engine import calibrate, calibrate_window
+from modegpt_tpu_torch.calib.engine import CalibrationResult, calibrate, calibrate_window
 from modegpt_tpu_torch.compress import offload
 from modegpt_tpu_torch.compress.artifact import (
     load_compressed_model,
@@ -103,15 +106,28 @@ from modegpt_tpu_torch.utils.profiling import trace
 
 logger = logging.getLogger("modegpt_tpu_torch")
 
-__all__ = ["run_compression", "compress_in_memory"]
+__all__ = ["run_compression", "compress_in_memory", "solve_layer"]
 
 
-def _check_ported(config: CompressionConfig) -> None:
-    """Raise for a knob that selects a path this port does not have."""
-    if config.artifact_backend != "npz":
-        raise NotImplementedError(
-            f"modegpt_tpu_torch.compress.pipeline: not ported: artifact_backend={config.artifact_backend}"
-        )
+def solve_layer(
+    spec: ModelSpec,
+    layer_params: Dict,
+    layer_idx: int,
+    keep_ratio: float,
+    calib: CalibrationResult,
+    config: CompressionConfig,
+    order: str,
+    device: Optional[torch.device] = None,
+) -> Dict[str, Dict]:
+    """Run the requested solvers (``order``: mlp, qk, vo) for one layer;
+    returns factor dicts keyed by suffix, every array host numpy in HF
+    layout (JAX ``pipeline.solve_layer``). A MoE layer solves each
+    expert against its routed tokens' Gram at the layer's one rank, and
+    a shared expert at its own. The solves run where
+    ``config.solver_precision`` puts them (`compress.batched`)."""
+    out = solve_chunk_batched(spec, {"layers": {layer_idx: layer_params}}, [layer_idx],
+                              {layer_idx: keep_ratio}, calib, config, order, device=device)
+    return {suffix: factors[layer_idx] for suffix, factors in out.items()}
 
 
 def _suffixes(order: str):
@@ -216,7 +232,6 @@ def run_compression(
     from modegpt_tpu_torch.utils.logging import setup_logging
 
     setup_logging()
-    _check_ported(config)
     dev = resolve_device(config.device if device is None else device)
     if mesh is None and config.mesh_shape:
         mesh = make_mesh(config.mesh_shape, device=dev)

@@ -17,6 +17,7 @@ from typing import Tuple
 import torch
 
 __all__ = [
+    "psd_diagnostics",
     "sqrt_psd",
     "sqrt_and_inv_sqrt_psd",
     "ridge_inverse_diag",
@@ -30,6 +31,26 @@ def _ridged_eigh(M: torch.Tensor, ridge: float, scaled: bool):
     w, V = torch.linalg.eigh(M)
     scale = w[..., -1:] if scaled else 1.0
     return w + ridge * scale, V
+
+
+def psd_diagnostics(M: torch.Tensor, ridge: float = 1e-4, scaled: bool = False) -> dict:
+    """Eigenvalue range and condition numbers of a PSD matrix, before and
+    after the ridge (``ridge * max_eig`` when ``scaled``): the
+    reference's conditioning prints and non-PSD warning inside sqrt_M
+    (compression_utils.py:28-45), as data the solver logs under
+    ``--debug`` (JAX ``ops.psd.psd_diagnostics``)."""
+    w = torch.linalg.eigvalsh(M)
+    w_max, w_min, w_mean = float(w[-1]), float(w[0]), float(torch.mean(w))
+    scale = w_max if scaled else 1.0
+    w_reg_min = w_min + ridge * scale
+    return {
+        "max_eig": w_max,
+        "min_eig": w_min,
+        "mean_eig": w_mean,
+        "cond_pre": w_max / (w_min + 1e-9),
+        "cond_post": (w_max + ridge * scale) / (w_reg_min + 1e-9),
+        "is_psd": bool(w_min >= -1e-9 * max(w_max, 1.0)),
+    }
 
 
 def sqrt_psd(M: torch.Tensor, ridge: float = 1e-4, scaled: bool = False) -> torch.Tensor:

@@ -54,6 +54,7 @@ import torch.distributed as dist
 __all__ = [
     "Mesh",
     "maybe_initialize_distributed",
+    "rank_device",
     "parse_mesh_shape",
     "make_mesh",
     "shard_batch",
@@ -127,7 +128,7 @@ def maybe_initialize_distributed(device: Union[str, torch.device] = "cuda") -> b
     return True
 
 
-def _rank_device(device: Union[str, torch.device]) -> torch.device:
+def rank_device(device: Union[str, torch.device]) -> torch.device:
     """This rank's device for a job asked to run on ``device``: under a
     distributed CUDA job the card `maybe_initialize_distributed` bound
     the rank to, else ``device`` itself."""
@@ -237,7 +238,7 @@ def make_mesh(mesh_shape: str = "", device: Union[str, torch.device] = "cuda") -
             f"mesh {axes} needs {total} ranks but the world size is {world}: run one process per "
             f"rank (python -m torch.distributed.run --nproc_per_node {total} ...)"
         )
-    return Mesh(axes, _rank_device(device))
+    return Mesh(axes, rank_device(device))
 
 
 def shard_batch(mesh: Mesh, batch):

@@ -50,3 +50,38 @@ def test_library_path_changes_with_its_own_source_only(csrc_copy, tmp_path, name
         f.write("\n// edited\n")
     after = _paths(csrc_copy, tmp_path)
     assert {n for n in build.SOURCES if before[n] != after[n]} == {name}
+
+
+def test_host_sources_name_every_cpp_file():
+    present = sorted(f[: -len(".cpp")] for f in os.listdir(build.CSRC_DIR) if f.endswith(".cpp"))
+    assert sorted(build.HOST_SOURCES) == present
+    assert not set(build.HOST_SOURCES) & set(build.SOURCES)
+
+
+@pytest.mark.parametrize("name", build.HOST_SOURCES)
+def test_host_library_path_changes_with_its_own_source_only(csrc_copy, tmp_path, name):
+    def paths():
+        return {n: build._lib_path(n, str(csrc_copy), str(tmp_path / "build"))
+                for n in build.SOURCES + build.HOST_SOURCES}
+
+    before = paths()
+    for header in (f for f in os.listdir(csrc_copy) if f.endswith(".cuh")):
+        with open(csrc_copy / header, "a") as f:
+            f.write("\n// edited\n")
+    assert paths()[name] == before[name]  # a CUDA header does not rebuild host code
+    with open(csrc_copy / f"{name}.cpp", "a") as f:
+        f.write("\n// edited\n")
+    after = paths()
+    assert {n for n in build.HOST_SOURCES if before[n] != after[n]} == {name}
+
+
+def test_host_source_builds_with_the_host_compiler_and_loads():
+    """The zstd decoder builds here (g++), as on the card's machine, and
+    its library loads and decodes."""
+    from modegpt_tpu_torch.compress import zstd
+
+    build.build_all(["zstd_decode"])
+    assert os.path.exists(build._lib_path("zstd_decode"))
+    # a raw-block frame: magic, header (single segment, 1-byte size), block
+    frame = b"\x28\xb5\x2f\xfd" + b"\x20\x03" + bytes([(3 << 3) | 1, 0, 0]) + b"abc"
+    assert zstd.decompress(frame) == b"abc"

@@ -10,6 +10,7 @@ Tolerances are the JAX package's own kernel tolerances: float32 rtol
 2e-4 / atol 2e-5, bfloat16 2e-2.
 """
 
+import os
 from types import SimpleNamespace
 
 import numpy as np
@@ -1052,3 +1053,60 @@ def test_eval_cli_prompt_lookup_on_the_card_equals_the_cpu(cuda_device, tmp_path
     assert ragged_gqa_attend.launches > before
     cpu = cli.main(argv + ["--device", "cpu"])
     assert card["generation"] == cpu["generation"] and card["prompt_lookup"] == cpu["prompt_lookup"]
+
+
+ORBAX_FIXTURE = os.path.join(os.path.dirname(os.path.abspath(__file__)), "fixtures", "torch_orbax_llama")
+
+
+def _leaves(tree, path=""):
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in _leaves(tree[k], f"{path}/{k}")]
+    if isinstance(tree, (list, tuple)):
+        return [x for i, v in enumerate(tree) for x in _leaves(v, f"{path}/{i}")]
+    return [(path, tree)]
+
+
+def _same_leaves(a, b):
+    la, lb = _leaves(a), _leaves(b)
+    assert [p for p, _ in la] == [p for p, _ in lb]
+    for (path, x), (_, y) in zip(la, lb):
+        assert (x is None) == (y is None), path
+        if x is not None:
+            assert x.dtype == y.dtype and torch.equal(x.cpu(), y.cpu()), path
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_orbax_round_trip_on_the_card(cuda_device, tmp_path, dtype):
+    """An orbax artifact saved from the card reloads on it bit for bit,
+    and equals its reload on the CPU."""
+    from modegpt_tpu_torch.compress.artifact import load_compressed_model, save_compressed_model
+
+    spec, params = _tiny_llama_on(cuda_device)
+    d = str(tmp_path / "orbax")
+    save_compressed_model(d, spec, params, "tok", dtype=dtype, backend="orbax")
+    s2, card, tok = load_compressed_model(d, device="cuda")
+    assert s2 == spec and tok == "tok"
+    assert card["layers"][0]["q"]["kernel"].is_cuda
+    want = getattr(torch, dtype)
+    _same_leaves(card, _cast_floats(params, want))
+    _same_leaves(card, load_compressed_model(d, device="cpu")[1])
+
+
+def _cast_floats(tree, dtype):
+    if isinstance(tree, dict):
+        return {k: _cast_floats(v, dtype) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [_cast_floats(v, dtype) for v in tree]
+    return tree.to(dtype) if tree is not None and tree.is_floating_point() else tree
+
+
+@pytest.mark.parametrize("variant", ["f32", "bf16"])
+def test_jax_written_orbax_fixture_on_the_card(cuda_device, variant):
+    """The committed JAX-written artifact (zstd chunks) loads on the card
+    equal to its npz twin: the hand-written decoder on the card's host."""
+    from modegpt_tpu_torch.compress.artifact import load_compressed_model
+
+    spec, got, _ = load_compressed_model(os.path.join(ORBAX_FIXTURE, variant), device="cuda")
+    twin_spec, twin, _ = load_compressed_model(os.path.join(ORBAX_FIXTURE, "npz"), device="cuda")
+    assert spec == twin_spec and got["layers"][0]["q"]["kernel"].is_cuda
+    _same_leaves(got, _cast_floats(twin, torch.float32 if variant == "f32" else torch.bfloat16))

@@ -172,13 +172,11 @@ def test_f32_device_solver_runs_on_the_model_device(tmp_path):
         pytest.param(dict(mesh_shape="data:2"), ValueError, "world size is 1", id="mesh_shape"),
         # shard_stats leaves each rank its own layers: only the layer-parallel f32 solve takes them
         pytest.param(dict(shard_stats=True, mesh_shape="data:1"), ValueError, "shard_stats", id="shard_stats"),
-        pytest.param(dict(artifact_backend="orbax"), NotImplementedError, "modegpt_tpu_torch",
-                     id="artifact_backend"),
     ],
 )
 def test_unported_paths_raise(tmp_path, knob, error, match):
-    """What the port still refuses: orbax artifacts; and the mesh knobs'
-    misuse (the mesh paths themselves are tests/test_torch_parallel.py's)."""
+    """The mesh knobs' misuse (the mesh paths themselves are
+    tests/test_torch_parallel.py's)."""
     spec, params = t_params_from_hf(_tiny_llama(), device="cpu")
     with pytest.raises(error, match=match):
         t_run(_config(TConfig, tmp_path, device="cpu", **knob), spec=spec, params=params)

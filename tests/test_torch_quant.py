@@ -495,14 +495,6 @@ def test_run_compression_with_a_quantised_artifact_matches_jax(tmp_path, dtype):
         np.testing.assert_allclose(out["ppl-synthetic"], got["compressed_ppl"], rtol=1e-6)
 
 
-def test_orbax_backend_still_raises(tmp_path):
-    _, _, t_spec, t_params = _pair("llama")
-    with pytest.raises(NotImplementedError, match="modegpt_tpu_torch"):
-        t_run(_job_config(TConfig, tmp_path, artifact_backend="orbax", device="cpu"), spec=t_spec, params=t_params)
-    with pytest.raises(NotImplementedError, match="modegpt_tpu_torch.compress.artifact"):
-        t_artifact.save_compressed_model(str(tmp_path / "a"), t_spec, t_params, backend="orbax")
-
-
 def _prompts(lengths, seed=0):
     rng = np.random.default_rng(seed)
     return [rng.integers(1, 128, size=(n,)).astype(np.int32) for n in lengths]
