@@ -1,0 +1,10 @@
+"""idle_pct.serve: the share of the traced stretch of the serving window
+in which no device operation ran, in %: 100 * (1 - union of the
+operations' intervals / traced seconds). Moves ``itl_p95_ms``."""
+
+
+def read(record):
+    tr = record.get("trace")
+    if not tr or tr["window_s"] <= 0:
+        return None
+    return 100.0 * (1.0 - tr["busy_s"] / tr["window_s"])
