@@ -75,6 +75,7 @@ from modegpt_tpu_torch.ops.qk import (
 )
 from modegpt_tpu_torch.ops.vo import vo_factors_from_full, vo_full_factors
 from modegpt_tpu_torch.parallel.mesh import gather_objects
+from modegpt_tpu_torch.utils.profiling import span
 
 logger = logging.getLogger("modegpt_tpu_torch")
 
@@ -179,6 +180,14 @@ def solve_chunk_batched(
         if parts is None:
             return none
         return {s: {l: f for part in parts for l, f in part[s].items()} for s in none}
+    with span("modegpt.compress.decompose"):
+        return _solve_layers(spec, params, layers, keep_ratios, calib, config, order, fetch, scratch_params,
+                             host_params, device)
+
+
+def _solve_layers(spec, params, layers, keep_ratios, calib, config, order, fetch, scratch_params, host_params,
+                  device) -> Dict[str, Dict[int, Dict]]:
+    """`solve_chunk_batched` on this process alone."""
     dev, dt = solver_placement(config, device or _tree_device(params["layers"][layers[0]]))
     whiten = "eigh" if config.solver_precision == "f64_cpu" else "cholesky"
     H, Hk = spec.n_heads, spec.n_kv_heads

@@ -66,6 +66,7 @@ from modegpt_tpu_torch.models.forward import _bi_piece, _embed, _layer
 from modegpt_tpu_torch.models.spec import ModelSpec
 from modegpt_tpu_torch.ops.rope import rope_cos_sin
 from modegpt_tpu_torch.utils.device import DeviceLike, resolve_device
+from modegpt_tpu_torch.utils.profiling import span
 
 logger = logging.getLogger("modegpt_tpu_torch")
 
@@ -456,59 +457,60 @@ def stream_bi_sweep(
 def _bi_sweep(spec, params, batches, attn_impl, stats_out, stage_dtype, adaptive, dev, stager) -> List[float]:
     """`stream_bi_sweep` through a given stager (the tap sweep reuses its
     pinned buffers)."""
-    t_pre = time.perf_counter()
+    with span("modegpt.compress.bi_prepass"):
+        t_pre = time.perf_counter()
 
-    def stage_layer(lp, dtype):
-        if dtype in ("int8", "int4"):
-            return _stage_quantized(lp, dtype, stager, stats_out)
-        return stager(lp)
+        def stage_layer(lp, dtype):
+            if dtype in ("int8", "int4"):
+                return _stage_quantized(lp, dtype, stager, stats_out)
+            return stager(lp)
 
-    def timed(lp, dtype):
-        t0 = time.perf_counter()
-        staged = stage_layer(lp, dtype)
-        _sync(dev)
-        return staged, time.perf_counter() - t0
+        def timed(lp, dtype):
+            t0 = time.perf_counter()
+            staged = stage_layer(lp, dtype)
+            _sync(dev)
+            return staged, time.perf_counter() - t0
 
-    stacks = [
-        _embed_batches(spec, _ready(stager(_embed_leaves(spec, params)), dev), g, dev)
-        for g in _group_batches(batches)
-    ]
-    n_seq = sum(int(b.shape[0]) for b in batches)
-    bi = np.zeros(spec.n_layers, dtype=np.float64)
+        stacks = [
+            _embed_batches(spec, _ready(stager(_embed_leaves(spec, params)), dev), g, dev)
+            for g in _group_batches(batches)
+        ]
+        n_seq = sum(int(b.shape[0]) for b in batches)
+        bi = np.zeros(spec.n_layers, dtype=np.float64)
 
-    if adaptive and stage_dtype in ("int8", "int4") and spec.n_layers >= 3:
-        # measure the stagings on real layers, then stage the rest the
-        # cheapest way; the probed layers keep the staging they got
-        staged0, t_raw = timed(params["layers"][0], "bf16")
-        staged1, t_q = timed(params["layers"][1], "int8")
-        probe = {"bf16": t_raw, "quantized": t_q}
-        prestaged = {0: staged0, 1: staged1}
-        if t_raw <= t_q:
-            stage_dtype = "bf16"
-        elif spec.n_layers >= 4:
-            prestaged[2], t_q4 = timed(params["layers"][2], "int4")
-            probe["quantized_int4"] = t_q4
-            stage_dtype = "int4" if t_q4 < t_q else "int8"
+        if adaptive and stage_dtype in ("int8", "int4") and spec.n_layers >= 3:
+            # measure the stagings on real layers, then stage the rest the
+            # cheapest way; the probed layers keep the staging they got
+            staged0, t_raw = timed(params["layers"][0], "bf16")
+            staged1, t_q = timed(params["layers"][1], "int8")
+            probe = {"bf16": t_raw, "quantized": t_q}
+            prestaged = {0: staged0, 1: staged1}
+            if t_raw <= t_q:
+                stage_dtype = "bf16"
+            elif spec.n_layers >= 4:
+                prestaged[2], t_q4 = timed(params["layers"][2], "int4")
+                probe["quantized_int4"] = t_q4
+                stage_dtype = "int4" if t_q4 < t_q else "int8"
+            if stats_out is not None:
+                stats_out["bi_stage_probe_s"] = probe
+                stats_out["bi_stage_dtype"] = stage_dtype
+            logger.info("BI prepass staging probe: %s -> %s", probe, stage_dtype)
+        else:
+            prestaged = {0: stage_layer(params["layers"][0], stage_dtype)}
+
+        staged = prestaged.pop(0)
+        for l in range(spec.n_layers):
+            lp = _ready(staged, dev)
+            if l + 1 < spec.n_layers:  # the next layer's copy overlaps this layer's forward
+                staged = prestaged.pop(l + 1, None) or stage_layer(params["layers"][l + 1], stage_dtype)
+            for i in range(len(stacks)):
+                _, bi_l = _stream_layer_step(spec, l, lp, stacks[i], False, attn_impl, "highest")
+                bi[l] += float(bi_l)
+            del lp
+            logger.info("BI prepass: layer %d/%d done", l + 1, spec.n_layers)
         if stats_out is not None:
-            stats_out["bi_stage_probe_s"] = probe
-            stats_out["bi_stage_dtype"] = stage_dtype
-        logger.info("BI prepass staging probe: %s -> %s", probe, stage_dtype)
-    else:
-        prestaged = {0: stage_layer(params["layers"][0], stage_dtype)}
-
-    staged = prestaged.pop(0)
-    for l in range(spec.n_layers):
-        lp = _ready(staged, dev)
-        if l + 1 < spec.n_layers:  # the next layer's copy overlaps this layer's forward
-            staged = prestaged.pop(l + 1, None) or stage_layer(params["layers"][l + 1], stage_dtype)
-        for i in range(len(stacks)):
-            _, bi_l = _stream_layer_step(spec, l, lp, stacks[i], False, attn_impl, "highest")
-            bi[l] += float(bi_l)
-        del lp
-        logger.info("BI prepass: layer %d/%d done", l + 1, spec.n_layers)
-    if stats_out is not None:
-        stats_out["prepass_s"] = time.perf_counter() - t_pre
-    return (bi / n_seq).tolist()
+            stats_out["prepass_s"] = time.perf_counter() - t_pre
+        return (bi / n_seq).tolist()
 
 
 def stream_calibrate_solve(

@@ -60,7 +60,9 @@ evaluation.
 
 ``profile_dir`` traces the calibrate + solve section (the fused job, the
 streamed sweep and the chunked loop) with `torch.profiler`
-(`utils.profiling.trace`) into one Chrome trace a job.
+(`utils.profiling.trace`) into one Chrome trace a job, in which the
+program's spans (`utils.profiling.SPANS`) mark the BI pre-pass, the Gram
+taps and the solves.
 
 ``artifact_backend="orbax"`` saves and reloads the artifact as an orbax
 checkpoint (`compress.orbax_format`), float32 or bfloat16.

@@ -73,6 +73,7 @@ from modegpt_tpu_torch.kernels.flash_attention import (
 from modegpt_tpu_torch.models.spec import ARCHS, ModelSpec
 from modegpt_tpu_torch.ops.rope import apply_rope, masked_flat_rms_norm, masked_head_rms_norm, rope_cos_sin
 from modegpt_tpu_torch.parallel.mesh import all_gather, all_reduce
+from modegpt_tpu_torch.utils.profiling import span
 
 __all__ = ["forward", "forward_taps", "CalibStats", "check_supported", "SUPPORTED_ARCHS"]
 
@@ -774,9 +775,10 @@ def _layer(
     k = _linear(x_ln, p["k"]).reshape(B, T, Hkl, q_hd)
     v = _linear(x_ln, p["v"]).reshape(B, T, Hkl, v_hd)
     if collect:
-        taps["cov_x"] = _gram(x_ln.reshape(-1, spec.d_model), gram_precision)
-        taps["cov_q"] = _head_gram(q, gram_precision)
-        taps["cov_k"] = _head_gram(k, gram_precision)
+        with span("modegpt.compress.taps"):
+            taps["cov_x"] = _gram(x_ln.reshape(-1, spec.d_model), gram_precision)
+            taps["cov_q"] = _head_gram(q, gram_precision)
+            taps["cov_k"] = _head_gram(k, gram_precision)
     q, k, rotary_mask = _tp_qk_norms(spec, p, q, k, rotary_mask, tp)
     q = q.transpose(1, 2)  # [B, H, T, q_hd]
     k = k.transpose(1, 2)
@@ -795,12 +797,13 @@ def _layer(
 
     x, h, h_shared = _mlp_block(spec, p, x, layer_idx, collect, tp=tp)
     if collect:
-        if spec.is_moe_layer(layer_idx):
-            taps["cov_mlp"] = _moe_gram(h)  # "highest" whatever gram_precision says, as JAX
-        else:
-            taps["cov_mlp"] = _gram(h.reshape(-1, h.shape[-1]), gram_precision)
-        if h_shared is not None:
-            taps["cov_shared"] = _gram(h_shared.reshape(-1, h_shared.shape[-1]), gram_precision)
+        with span("modegpt.compress.taps"):
+            if spec.is_moe_layer(layer_idx):
+                taps["cov_mlp"] = _moe_gram(h)  # "highest" whatever gram_precision says, as JAX
+            else:
+                taps["cov_mlp"] = _gram(h.reshape(-1, h.shape[-1]), gram_precision)
+            if h_shared is not None:
+                taps["cov_shared"] = _gram(h_shared.reshape(-1, h_shared.shape[-1]), gram_precision)
     return x, (taps if collect else None)
 
 

@@ -92,6 +92,7 @@ from modegpt_tpu_torch.models.forward import (
 )
 from modegpt_tpu_torch.models.spec import ModelSpec
 from modegpt_tpu_torch.ops.rope import apply_rope, apply_rope_ragged, rope_cos_sin
+from modegpt_tpu_torch.utils.profiling import span
 
 __all__ = [
     "PaddedModel",
@@ -558,33 +559,34 @@ def _model_step_padded(
     and lengths; the logits come out whole on every rank.
 
     Returns (logits [B, S or 1, V], length + S as a host value)."""
-    check_supported(spec)
-    B, S = tokens.shape
-    dev = tokens.device
-    if index is None:
-        index = step_indices([length], B, S, cache_k.shape[3], dev)[0]
-    x = _embed(spec, other, tokens, index.positions)
-    cos = sin = None
-    if spec.uses_rope:
-        cos, sin = rope_cos_sin(index.positions.reshape(-1).to(torch.int32), spec.head_dim, spec.rope_theta,
-                                dtype=x.dtype, scaling=spec.rope_scaling)
-        cos = cos.reshape(B, S, -1)
-        sin = sin.reshape(B, S, -1)
-    pools = (cache_k, cache_v) + (tuple(cache_scales) if cache_scales is not None else ())
-    for l in range(spec.n_layers):
-        x = _layer_padded(
-            spec, _layer_params(layers, l), q_hd_true[l], x, cos, sin, decode_attn,
-            _layer_window(spec, l), cache=tuple(c[l] for c in pools), pos=index.pos, write_ix=index.write_ix,
-            layer=l, moe=moe, moe_capacity=moe_capacity, token_valid=token_valid, mesh=mesh,
-        )
-    if isinstance(logits_at, torch.Tensor):
-        x = x[torch.arange(B, device=dev), logits_at][:, None]
-    elif logits_at is not None:
-        x = x[:, logits_at : logits_at + 1]
-    logits = _unembed(spec, other, x)
-    if np.ndim(length) == 0:
-        return logits, int(length) + S
-    return logits, np.asarray(length) + S
+    with span("modegpt.model.step"):
+        check_supported(spec)
+        B, S = tokens.shape
+        dev = tokens.device
+        if index is None:
+            index = step_indices([length], B, S, cache_k.shape[3], dev)[0]
+        x = _embed(spec, other, tokens, index.positions)
+        cos = sin = None
+        if spec.uses_rope:
+            cos, sin = rope_cos_sin(index.positions.reshape(-1).to(torch.int32), spec.head_dim, spec.rope_theta,
+                                    dtype=x.dtype, scaling=spec.rope_scaling)
+            cos = cos.reshape(B, S, -1)
+            sin = sin.reshape(B, S, -1)
+        pools = (cache_k, cache_v) + (tuple(cache_scales) if cache_scales is not None else ())
+        for l in range(spec.n_layers):
+            x = _layer_padded(
+                spec, _layer_params(layers, l), q_hd_true[l], x, cos, sin, decode_attn,
+                _layer_window(spec, l), cache=tuple(c[l] for c in pools), pos=index.pos, write_ix=index.write_ix,
+                layer=l, moe=moe, moe_capacity=moe_capacity, token_valid=token_valid, mesh=mesh,
+            )
+        if isinstance(logits_at, torch.Tensor):
+            x = x[torch.arange(B, device=dev), logits_at][:, None]
+        elif logits_at is not None:
+            x = x[:, logits_at : logits_at + 1]
+        logits = _unembed(spec, other, x)
+        if np.ndim(length) == 0:
+            return logits, int(length) + S
+        return logits, np.asarray(length) + S
 
 
 def prefill_padded(pm: PaddedModel, prompt_ids: torch.Tensor, cache):

@@ -77,6 +77,9 @@ alternatives for ``top_logprobs``). A seeded request draws row by row
 from a hash of (seed, draw index), so its stream is the same alone, in
 any batch, fused or not, prefilled per slot or batched.
 
+Under a profiler each step, each dispatch of the padded stack and the
+sampling are spans (`utils.profiling.span`).
+
 Tensor- and expert-parallel serving (``mesh``, JAX ``serving.py:1014-1026``):
 SPMD, one process per rank of a `parallel.mesh.Mesh`. The batcher
 shards its model, the draft model and their pools with
@@ -100,6 +103,7 @@ from numpy.lib.stride_tricks import sliding_window_view
 from modegpt_tpu_torch.models.generate import _sample, apply_repetition_penalty, sample_rows
 from modegpt_tpu_torch.models.padded import PaddedModel, _model_step_padded, step_indices, upload
 from modegpt_tpu_torch.models.quantize import with_act_quant
+from modegpt_tpu_torch.utils.profiling import span
 
 __all__ = [
     "ServeState",
@@ -265,28 +269,29 @@ def _pick(smp: Sampling, logits: torch.Tensor, generator: Optional[torch.Generat
     when None) enter the penalty pools on the device. ``counts`` [B]
     int64 on the device: each seeded row's draw index. Returns (tokens
     [B], lp, tids, tlps), the last three None unless asked for."""
-    x = logits
-    if smp.allow is not None:
-        x = x.masked_fill(~smp.allow, float("-inf"))
-    if smp.bias is not None:
-        x = x + smp.bias.to(x.dtype)
-    if smp.samp is not None:
-        nxt = sample_rows(x, smp.samp, generator, smp.presence, smp.gen_counts,
-                          smp.seeds, counts if smp.seeds is not None else None, smp.samp_dev)
-    else:
-        if smp.rep_penalty is not None:
-            x = apply_repetition_penalty(x, smp.presence, smp.rep_penalty)
-        nxt = _sample(x, generator, smp.temperature, smp.top_k, top_p=smp.top_p, min_p=smp.min_p)
-    lp = _chosen_logprob(logits, nxt) if smp.want_lp else None
-    tids, tlps = _top_logprobs(logits) if smp.top_lp else (None, None)
-    rows = torch.arange(nxt.shape[0], device=nxt.device)
-    if smp.presence is not None:
-        mark = torch.ones_like(nxt, dtype=torch.bool) if commit is None else commit
-        smp.presence[rows, nxt] = smp.presence[rows, nxt] | mark
-    if smp.gen_counts is not None:
-        add = torch.ones_like(nxt, dtype=torch.int32) if commit is None else commit.to(torch.int32)
-        smp.gen_counts.index_put_((rows, nxt), add, accumulate=True)
-    return nxt, lp, tids, tlps
+    with span("modegpt.serve.sample"):
+        x = logits
+        if smp.allow is not None:
+            x = x.masked_fill(~smp.allow, float("-inf"))
+        if smp.bias is not None:
+            x = x + smp.bias.to(x.dtype)
+        if smp.samp is not None:
+            nxt = sample_rows(x, smp.samp, generator, smp.presence, smp.gen_counts,
+                              smp.seeds, counts if smp.seeds is not None else None, smp.samp_dev)
+        else:
+            if smp.rep_penalty is not None:
+                x = apply_repetition_penalty(x, smp.presence, smp.rep_penalty)
+            nxt = _sample(x, generator, smp.temperature, smp.top_k, top_p=smp.top_p, min_p=smp.min_p)
+        lp = _chosen_logprob(logits, nxt) if smp.want_lp else None
+        tids, tlps = _top_logprobs(logits) if smp.top_lp else (None, None)
+        rows = torch.arange(nxt.shape[0], device=nxt.device)
+        if smp.presence is not None:
+            mark = torch.ones_like(nxt, dtype=torch.bool) if commit is None else commit
+            smp.presence[rows, nxt] = smp.presence[rows, nxt] | mark
+        if smp.gen_counts is not None:
+            add = torch.ones_like(nxt, dtype=torch.int32) if commit is None else commit.to(torch.int32)
+            smp.gen_counts.index_put_((rows, nxt), add, accumulate=True)
+        return nxt, lp, tids, tlps
 
 
 def _counts_on(smp: Sampling, device) -> Optional[torch.Tensor]:
@@ -928,26 +933,27 @@ class ContinuousBatcher:
         and bias tables while some request uses them, logprobs while some
         request asks. `slot` narrows the logprob flags to one slot (a
         per-slot prefill chunk)."""
-        live = self._live() if slot is None else [slot]
-        smp = Sampling(presence=self.presence, gen_counts=self.gen_counts,
-                       want_lp=any(self.slot_want_lp[s] for s in live),
-                       top_lp=any(self.slot_top_k[s] for s in live))
-        if self.per_request:
-            if self._samp_dev is None:
-                self._samp_dev = upload(self.samp, self.device)
-            smp.samp, smp.samp_dev = self.samp, self._samp_dev
-            if any(self.slot_seed[s] is not None for s in self._live()):
-                smp.seeds = self._seeds(generator)
-                smp.counts = np.asarray([max(0, len(self.slot_out[s]) - self.slot_plen[s])
-                                         for s in range(self.slots)], np.int64)
-        else:
-            smp.temperature, smp.top_p, smp.min_p = self.temperature, self.top_p, self.min_p
-            smp.rep_penalty = self.rep_penalty
-        if any(self.slot_guide[s] is not None for s in self._live()):
-            smp.allow = self._table_on_device("allow")
-        if any(self.slot_bias[s] is not None or self.slot_min_tokens[s] > 0 for s in self._live()):
-            smp.bias = self._table_on_device("bias")
-        return smp
+        with span("modegpt.serve.sample"):
+            live = self._live() if slot is None else [slot]
+            smp = Sampling(presence=self.presence, gen_counts=self.gen_counts,
+                           want_lp=any(self.slot_want_lp[s] for s in live),
+                           top_lp=any(self.slot_top_k[s] for s in live))
+            if self.per_request:
+                if self._samp_dev is None:
+                    self._samp_dev = upload(self.samp, self.device)
+                smp.samp, smp.samp_dev = self.samp, self._samp_dev
+                if any(self.slot_seed[s] is not None for s in self._live()):
+                    smp.seeds = self._seeds(generator)
+                    smp.counts = np.asarray([max(0, len(self.slot_out[s]) - self.slot_plen[s])
+                                             for s in range(self.slots)], np.int64)
+            else:
+                smp.temperature, smp.top_p, smp.min_p = self.temperature, self.top_p, self.min_p
+                smp.rep_penalty = self.rep_penalty
+            if any(self.slot_guide[s] is not None for s in self._live()):
+                smp.allow = self._table_on_device("allow")
+            if any(self.slot_bias[s] is not None or self.slot_min_tokens[s] > 0 for s in self._live()):
+                smp.bias = self._table_on_device("bias")
+            return smp
 
     def _table(self, name: str) -> np.ndarray:
         """The host copy of the allow (all True) or bias (zeros) table."""
@@ -1268,32 +1274,33 @@ class ContinuousBatcher:
         ``self.logprobs`` and ``self.top_logprobs``), `drained` is True
         when the queue and every slot are empty. `generator` draws the
         sampled tokens (greedy needs none)."""
-        finished: Dict[int, List[int]] = {}
-        for s in range(self.slots):
-            rid = self.slot_req[s]
-            if rid is not None and self._slot_finished(s):
-                finished[rid] = self.slot_out[s]
-                if self.slot_want_lp[s]:
-                    self.logprobs[rid] = self.slot_lp[s]
-                if self.slot_top_k[s]:
-                    self.top_logprobs[rid] = self.slot_top[s]
-                self._release(s)
-        self._admit()
-        if (self.mixed_prefill_decode and self.prefill_exec == "batched"
-                and self.spec_decode == "off" and any(self.slot_chunks)):
-            self._batched_rounds(generator, mixed=True)
+        with span("modegpt.serve.step"):
+            finished: Dict[int, List[int]] = {}
+            for s in range(self.slots):
+                rid = self.slot_req[s]
+                if rid is not None and self._slot_finished(s):
+                    finished[rid] = self.slot_out[s]
+                    if self.slot_want_lp[s]:
+                        self.logprobs[rid] = self.slot_lp[s]
+                    if self.slot_top_k[s]:
+                        self.top_logprobs[rid] = self.slot_top[s]
+                    self._release(s)
+            self._admit()
+            if (self.mixed_prefill_decode and self.prefill_exec == "batched"
+                    and self.spec_decode == "off" and any(self.slot_chunks)):
+                self._batched_rounds(generator, mixed=True)
+                return finished, False
+            self._prefill_step(generator)
+            active = np.zeros((self.slots,), bool)
+            active[self._decode_rows()] = True
+            if not active.any():
+                drained = not self.queue and all(r is None for r in self.slot_req)
+                return finished, drained
+            if self.spec_decode != "off":
+                self._speculative_step(active)
+            else:
+                self._decode_round(active, generator)
             return finished, False
-        self._prefill_step(generator)
-        active = np.zeros((self.slots,), bool)
-        active[self._decode_rows()] = True
-        if not active.any():
-            drained = not self.queue and all(r is None for r in self.slot_req)
-            return finished, drained
-        if self.spec_decode != "off":
-            self._speculative_step(active)
-        else:
-            self._decode_round(active, generator)
-        return finished, False
 
     def _decode_round(self, active: np.ndarray, generator: Optional[torch.Generator]) -> None:
         """One decode dispatch over the decode-active slots, fused over

@@ -10,7 +10,8 @@
 * `inspect_artifact`: the same JSON as JAX's, dense, compressed and MoE
   (a shared expert included), with ``--device cpu``;
 * `utils.profiling`: ``profile_dir`` writes a Chrome trace of the
-  calibrate + solve steps on the CPU;
+  calibrate + solve steps on the CPU, with the program's spans, of a
+  job on the default path and of a streamed one;
 * `analysis.search`: `random_search` draws JAX's trials from the same
   seed, `staged_search` scores them within rtol 1e-4 of JAX's, and
   `run_optuna_study` raises without optuna.
@@ -52,7 +53,6 @@ from modegpt_tpu_torch.models.hf_export import export_to_hf as t_export  # noqa:
 from modegpt_tpu_torch.models.safetensors_io import read_hf_config  # noqa: E402
 from modegpt_tpu_torch.models.spec import spec_from_hf_config  # noqa: E402
 from modegpt_tpu_torch.ops.vo import compress_vo_layer as t_vo  # noqa: E402
-from modegpt_tpu_torch.utils.profiling import phase_timer  # noqa: E402
 
 
 def _tiny_opt():
@@ -88,17 +88,22 @@ def _job_config(root, **kw):
 def artifacts(tmp_path_factory):
     """Artifacts written by the port: llama, opt and gpt2 compressed (the
     llama job traced into ``profile_dir``), qwen2_moe (a mixed stack with
-    shared experts) compressed, qwen3_moe and llama dense."""
+    shared experts) compressed, qwen3_moe and llama dense; the llama job
+    streamed, traced into another ``profile_dir``."""
     root = tmp_path_factory.mktemp("tools")
     out = {}
     for name in ("llama", "opt", "gpt2", "qwen2_moe"):
         spec, params = t_params_from_hf(MODELS[name](), device="cpu")
         kw = dict(profile_dir=str(root / "trace")) if name == "llama" else {}
         out[name] = t_run(_job_config(root / name, **kw), spec=spec, params=params)["artifact_dir"]
+    spec, params = t_params_from_hf(MODELS["llama"](), device="cpu")
+    t_run(_job_config(root / "llama_stream", profile_dir=str(root / "trace_stream"), calib_exec="stream"),
+          spec=spec, params=params)
     for name in ("qwen3_moe", "llama"):
         spec, params = t_params_from_hf(MODELS[name](), device="cpu")
         out[name + "_dense"] = t_artifact.save_compressed_model(str(root / f"{name}_dense"), spec, params, "src")
     out["trace_dir"] = str(root / "trace")
+    out["stream_trace_dir"] = str(root / "trace_stream")
     return out
 
 
@@ -173,16 +178,28 @@ def test_inspect_defaults_to_cuda(artifacts, monkeypatch):
         t_inspect([artifacts["llama"]])
 
 
-def test_profile_dir_writes_a_trace(artifacts):
-    traces = [f for f in os.listdir(artifacts["trace_dir"]) if f.startswith("trace_") and f.endswith(".json")]
+def _trace_events(trace_dir):
+    traces = [f for f in os.listdir(trace_dir) if f.startswith("trace_") and f.endswith(".json")]
     assert len(traces) == 1
-    with open(os.path.join(artifacts["trace_dir"], traces[0])) as f:
-        events = json.load(f)["traceEvents"]
+    with open(os.path.join(trace_dir, traces[0])) as f:
+        return json.load(f)["traceEvents"]
+
+
+def _compress_spans(events):
+    return {e.get("name") for e in events if str(e.get("name", "")).startswith("modegpt.compress.")}
+
+
+def test_profile_dir_writes_a_trace(artifacts):
+    """The default path (no BI pre-pass): the taps and the solves."""
+    events = _trace_events(artifacts["trace_dir"])
     assert any("aten::" in str(e.get("name", "")) for e in events)
-    metrics = {}
-    with phase_timer("solve", metrics):
-        pass
-    assert set(metrics) == {"solve_seconds"} and metrics["solve_seconds"] >= 0
+    assert _compress_spans(events) == {"modegpt.compress.taps", "modegpt.compress.decompose"}
+
+
+def test_profile_dir_shows_a_streamed_job_s_spans(artifacts):
+    events = _trace_events(artifacts["stream_trace_dir"])
+    assert _compress_spans(events) == {"modegpt.compress.bi_prepass", "modegpt.compress.taps",
+                                       "modegpt.compress.decompose"}
 
 
 def test_random_search_draws_jax_trials():
