@@ -43,6 +43,14 @@ from pinned memory, so a run of dispatches whose offsets the host knows
 ahead (fused decode, draft steps) issues without a host wait between
 them.
 
+A decode dispatch over a whole slot table (one new token a row) is
+~30 launches a layer, which the host issues far slower than the card runs
+them. Where its shapes and buffers are fixed (`_replayable`: one process,
+K3, no dispatch-MoE capacity, every row inside the pool) it is captured
+once as a CUDA graph (`DecodeGraph`, held with the pools) and replayed:
+one launch, the same kernels on the same buffers, its offsets filled
+from the host in one copy. Every other dispatch runs op by op.
+
 A quantised stack is quantised AFTER padding
 (`models.quantize.quantize_padded`), as in the JAX package. Zero pads
 change no column's max-abs, so ``quantize_padded(pad_to_uniform(p))``
@@ -96,6 +104,7 @@ from modegpt_tpu_torch.utils.profiling import span
 
 __all__ = [
     "PaddedModel",
+    "DecodeGraph",
     "pad_to_uniform",
     "padding_overhead",
     "forward_padded",
@@ -495,6 +504,111 @@ class StepIndex(NamedTuple):
     positions: torch.Tensor
 
 
+class DecodeGraph:
+    """The whole-table decode dispatch of one slot table as a CUDA graph,
+    replayed in place of its op-by-op issue: the same kernels in the same
+    order on the same buffers, so the same numbers. The pools' owner
+    holds one (`serving.ServeState.graph`) and frees it with them.
+
+    `_model_step_padded` captures it at the first dispatch that
+    `_replayable` admits (one eager warm-up run on a side stream, whose
+    result the dispatch returns, then the capture) and replays it at every
+    later one. The graph reads fixed addresses: the tokens (the owner's
+    ``last_token``, updated in place), the pools, the weights, and the
+    index buffer ``ix`` [3, B] int64 (rows, zeros, each row's offset),
+    from which the graph forms its `StepIndex`. A replay fills the
+    offsets from the host's lengths in one pinned copy, and its logits
+    land in one [B, 1, V] tensor, overwritten by the next replay. The
+    graph is keyed on what it reads (the tensors' addresses, shapes and
+    dtypes, the weights' and spec's identities, which it keeps alive); a
+    dispatch with another key captures anew.
+
+    Counters, plain integers over the process: ``captures``; ``replays``;
+    ``eager``, the whole-table decode dispatches that ran op by op (those
+    `_replayable` refused, and each capturing one). Each replay also adds
+    the K3 launches recorded at capture to ``ragged_gqa_attend.launches``."""
+
+    captures = 0
+    replays = 0
+    eager = 0
+
+    def __init__(self):
+        self._key = None
+        self._held = None  # what the graph reads, kept alive with it
+        self._graph = None
+        self._ix: Optional[torch.Tensor] = None
+        self._logits: Optional[torch.Tensor] = None
+        self._k3 = 0
+
+    def _buffers(self, B: int, device) -> None:
+        self._ix = torch.zeros((3, B), dtype=torch.int64, device=device)
+        self._ix[0] = torch.arange(B, device=device)
+
+    def _fill(self, length: Length) -> None:
+        """Each row's offset into the index buffer, in one copy (from
+        pinned memory on a card, without waiting)."""
+        B = self._ix.shape[1]
+        host = torch.from_numpy(np.array(np.broadcast_to(np.asarray(length, dtype=np.int64).reshape(-1), (B,))))
+        if self._ix.is_cuda:
+            host = host.pin_memory()
+        self._ix[2].copy_(host, non_blocking=True)
+
+    def _index(self) -> StepIndex:
+        """The dispatch's `StepIndex`, formed from the buffer: every row
+        writes its one new position at its offset."""
+        rows, zeros, t = self._ix
+        return StepIndex(pos=t.to(torch.int32), write_ix=(rows, zeros, t), positions=t.view(-1, 1))
+
+    def run(self, key: tuple, held: tuple, length: Length, stack) -> torch.Tensor:
+        """The logits of ``stack`` (a function of the `StepIndex`) at the
+        rows' host offsets ``length``: a replay, or a capture when ``key``
+        is not the graph's."""
+        if key != self._key:
+            return self._capture(key, held, length, stack)
+        self._fill(length)
+        self._graph.replay()
+        ragged_gqa_attend.launches += self._k3
+        DecodeGraph.replays += 1
+        return self._logits
+
+    def _capture(self, key: tuple, held: tuple, length: Length, stack) -> torch.Tensor:
+        self._key = self._held = self._graph = self._logits = None  # the old graph goes first
+        dev = held[0].device
+        self._buffers(held[0].shape[0], dev)
+        self._fill(length)
+        cur, side = torch.cuda.current_stream(dev), torch.cuda.Stream(dev)
+        side.wait_stream(cur)
+        with torch.cuda.stream(side):  # the warm-up `torch.cuda.graph` asks for, on the capture stream
+            logits = stack(self._index())
+        cur.wait_stream(side)
+        logits.record_stream(cur)
+        graph, n0 = torch.cuda.CUDAGraph(), ragged_gqa_attend.launches
+        with torch.cuda.graph(graph, stream=side, capture_error_mode="thread_local"):
+            out = stack(self._index())
+        self._k3, ragged_gqa_attend.launches = ragged_gqa_attend.launches - n0, n0  # recorded, not run
+        self._key, self._held, self._graph, self._logits = key, held, graph, out
+        DecodeGraph.captures += 1
+        DecodeGraph.eager += 1
+        return logits
+
+
+def _replayable(tokens: torch.Tensor, pools: Sequence[torch.Tensor], length: Length, decode_attn: str,
+                logits_at, moe: str, token_valid: Optional[torch.Tensor], index: Optional[StepIndex],
+                mesh) -> bool:
+    """Whether a dispatch over a whole slot table may replay its
+    `DecodeGraph`: a decode (one new token a row, every position's
+    logits), on one process (no mesh), through K3, with no dispatch-MoE
+    expert capacity (its counts come back to the host), an index the
+    dispatch builds itself (a caller that uploaded a run of dispatches'
+    indices ahead issues them op by op) and every row's offset inside the
+    pool (a write at the pool's end is dropped on the host, which a fixed
+    index cannot do). The caller checks that the tensors are on a card."""
+    return (
+        tokens.shape[1] == 1 and logits_at is None and mesh is None and decode_attn == "ragged"
+        and moe != "dispatch" and token_valid is None and index is None and int(np.max(length)) < pools[0].shape[3]
+    )
+
+
 def step_indices(lengths: Sequence[Length], B: int, S: int, T: int, device) -> list:
     """The `StepIndex` of each of ``len(lengths)`` dispatches of S new
     tokens over a pool of T positions, each at its rows' offsets (a host
@@ -534,6 +648,7 @@ def _model_step_padded(
     token_valid: Optional[torch.Tensor] = None,
     index: Optional[StepIndex] = None,
     mesh=None,
+    graph: Optional[DecodeGraph] = None,
 ):
     """New tokens [B, S] through the padded stack with a stacked cache.
 
@@ -558,32 +673,54 @@ def _model_step_padded(
     its ``model`` axis runs the step on its heads with the same tokens
     and lengths; the logits come out whole on every rank.
 
+    ``graph``: the pools' `DecodeGraph`, given when the pools are a whole
+    slot table. A decode dispatch over it (S = 1, every position's
+    logits) replays the graph where `_replayable` admits it and the
+    tensors are on a card, and runs op by op otherwise; the returned
+    logits are then the graph's, overwritten by its next replay. Every
+    other dispatch runs op by op.
+
     Returns (logits [B, S or 1, V], length + S as a host value)."""
     with span("modegpt.model.step"):
         check_supported(spec)
         B, S = tokens.shape
         dev = tokens.device
-        if index is None:
-            index = step_indices([length], B, S, cache_k.shape[3], dev)[0]
-        x = _embed(spec, other, tokens, index.positions)
-        cos = sin = None
-        if spec.uses_rope:
-            cos, sin = rope_cos_sin(index.positions.reshape(-1).to(torch.int32), spec.head_dim, spec.rope_theta,
-                                    dtype=x.dtype, scaling=spec.rope_scaling)
-            cos = cos.reshape(B, S, -1)
-            sin = sin.reshape(B, S, -1)
         pools = (cache_k, cache_v) + (tuple(cache_scales) if cache_scales is not None else ())
-        for l in range(spec.n_layers):
-            x = _layer_padded(
-                spec, _layer_params(layers, l), q_hd_true[l], x, cos, sin, decode_attn,
-                _layer_window(spec, l), cache=tuple(c[l] for c in pools), pos=index.pos, write_ix=index.write_ix,
-                layer=l, moe=moe, moe_capacity=moe_capacity, token_valid=token_valid, mesh=mesh,
-            )
-        if isinstance(logits_at, torch.Tensor):
-            x = x[torch.arange(B, device=dev), logits_at][:, None]
-        elif logits_at is not None:
-            x = x[:, logits_at : logits_at + 1]
-        logits = _unembed(spec, other, x)
+
+        def stack(index: StepIndex) -> torch.Tensor:
+            x = _embed(spec, other, tokens, index.positions)
+            cos = sin = None
+            if spec.uses_rope:
+                cos, sin = rope_cos_sin(index.positions.reshape(-1).to(torch.int32), spec.head_dim,
+                                        spec.rope_theta, dtype=x.dtype, scaling=spec.rope_scaling)
+                cos = cos.reshape(B, S, -1)
+                sin = sin.reshape(B, S, -1)
+            for l in range(spec.n_layers):
+                x = _layer_padded(
+                    spec, _layer_params(layers, l), q_hd_true[l], x, cos, sin, decode_attn,
+                    _layer_window(spec, l), cache=tuple(c[l] for c in pools), pos=index.pos,
+                    write_ix=index.write_ix, layer=l, moe=moe, moe_capacity=moe_capacity,
+                    token_valid=token_valid, mesh=mesh,
+                )
+            if isinstance(logits_at, torch.Tensor):
+                x = x[torch.arange(B, device=dev), logits_at][:, None]
+            elif logits_at is not None:
+                x = x[:, logits_at : logits_at + 1]
+            return _unembed(spec, other, x)
+
+        logits = None
+        if graph is not None and S == 1 and logits_at is None:  # a whole-table decode
+            if tokens.is_cuda and _replayable(tokens, pools, length, decode_attn, logits_at, moe, token_valid,
+                                              index, mesh):
+                key = (id(spec), id(layers), id(other), id(q_hd_true)) + tuple(
+                    (t.data_ptr(), t.shape, t.stride(), t.dtype) for t in (tokens,) + pools)
+                logits = graph.run(key, (tokens, pools, spec, layers, other, q_hd_true), length, stack)
+            else:
+                DecodeGraph.eager += 1
+        if logits is None:
+            if index is None:
+                index = step_indices([length], B, S, cache_k.shape[3], dev)[0]
+            logits = stack(index)
         if np.ndim(length) == 0:
             return logits, int(length) + S
         return logits, np.asarray(length) + S

@@ -36,6 +36,16 @@ whole pool.
 ``"auto"`` takes the kernel for every dispatch on a CUDA device
 (prefill, mixed, decode, draft and verify) and the plain path on the CPU.
 
+The single decode step over the whole slot table (`_one_decode_step`,
+behind `decode_slots` and the batcher's unfused decode round) replays a
+CUDA graph of the padded stack on a card (`models.padded.DecodeGraph`,
+held by the `ServeState` with its pools): one launch in place of the
+36-layer step's op-by-op issue, bit-equal to it. It stays eager on the
+CPU, under tensor parallelism, with ``decode_attn="xla"``, with
+``moe="dispatch"`` and while some slot's length sits at the pool's end.
+Every other dispatch is issued op by op: prefill chunks, batched and
+mixed rounds, fused decode, draft and verify steps.
+
 Where the JAX package keeps the slot lengths on the device, the port
 keeps them on the host (``ServeState.lengths``, numpy): the host decides
 which cache writes fall past the pool, so none reaches the device as an
@@ -101,7 +111,7 @@ import torch
 from numpy.lib.stride_tricks import sliding_window_view
 
 from modegpt_tpu_torch.models.generate import _sample, apply_repetition_penalty, sample_rows
-from modegpt_tpu_torch.models.padded import PaddedModel, _model_step_padded, step_indices, upload
+from modegpt_tpu_torch.models.padded import DecodeGraph, PaddedModel, _model_step_padded, step_indices, upload
 from modegpt_tpu_torch.models.quantize import with_act_quant
 from modegpt_tpu_torch.utils.profiling import span
 
@@ -125,6 +135,8 @@ class ServeState(NamedTuple):
     # int8 KV: per-(layer, slot, head, position) scales; None = model dtype
     k_scale: Optional[torch.Tensor] = None  # [L, slots, Hk, max_len] float32
     v_scale: Optional[torch.Tensor] = None
+    # the whole-table decode dispatch's CUDA graph over these pools (`models.padded.DecodeGraph`)
+    graph: Optional[DecodeGraph] = None
 
     @property
     def scales(self):
@@ -171,6 +183,7 @@ def init_serve_state(pm: PaddedModel, slots: int, max_len: int,
         last_token=torch.zeros((slots,), dtype=torch.int64, device=dev),
         k_scale=scales(),
         v_scale=scales(),
+        graph=DecodeGraph(),
     )
 
 
@@ -182,9 +195,11 @@ def _chunks(prompt: np.ndarray, bucket: int) -> List[Tuple[np.ndarray, int, bool
 
 
 def _step(pm: PaddedModel, state: ServeState, tokens: torch.Tensor, length, **kw):
-    """`_model_step_padded` of `pm` over the whole slot table of `state`."""
+    """`_model_step_padded` of `pm` over the whole slot table of `state`
+    (a decode dispatch may replay the table's `DecodeGraph`)."""
     return _model_step_padded(pm.spec, pm.layers, pm.other, pm.q_hd_true, tokens, state.cache_k,
-                              state.cache_v, length, cache_scales=state.scales, mesh=pm.mesh, **kw)[0]
+                              state.cache_v, length, cache_scales=state.scales, mesh=pm.mesh,
+                              graph=state.graph, **kw)[0]
 
 
 # device-side top-logprobs width: OpenAI caps top_logprobs at 20, and the
@@ -394,7 +409,13 @@ def _one_decode_step(pm: PaddedModel, state: ServeState, active: np.ndarray, tem
     not advance, their cache write lands at their current position, to
     be overwritten on reuse, and their tokens claim no dispatch-MoE
     expert capacity and enter no pool. Returns the tokens [slots],
-    chosen under `sampling` (the static knobs when None)."""
+    chosen under `sampling` (the static knobs when None).
+
+    On a card the dispatch replays the pools' decode graph
+    (``state.graph``, `models.padded.DecodeGraph`; captured at the first
+    such step), unless it runs tensor-parallel, through the plain
+    attention, with dispatched experts or with a slot at the pool's end;
+    those run op by op, as does every step on the CPU."""
     active = np.asarray(active, bool)
     dev = _device(pm)
     active_dev = upload(active, dev)

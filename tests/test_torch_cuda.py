@@ -1110,3 +1110,203 @@ def test_jax_written_orbax_fixture_on_the_card(cuda_device, variant):
     twin_spec, twin, _ = load_compressed_model(os.path.join(ORBAX_FIXTURE, "npz"), device="cuda")
     assert spec == twin_spec and got["layers"][0]["q"]["kernel"].is_cuda
     _same_leaves(got, _cast_floats(twin, torch.float32 if variant == "f32" else torch.bfloat16))
+
+
+# ---- the whole-table decode dispatch as a CUDA graph (models.padded.DecodeGraph) ----
+
+
+def _tiny_qwen3(device):
+    """A tiny compressed Qwen3: per-head q/k norm, a rotary mask of kept
+    RoPE pairs a kv head, and ranks that differ by layer (so the stack is
+    padded), weights on ``device``."""
+    from modegpt_tpu_torch.models.padded import pad_to_uniform
+
+    spec = spec_from_hf_config(SimpleNamespace(
+        model_type="qwen3", vocab_size=256, hidden_size=64, intermediate_size=96, num_hidden_layers=3,
+        num_attention_heads=4, num_key_value_heads=2, head_dim=16, max_position_embeddings=512,
+        rms_norm_eps=1e-6, rope_theta=1e6, hidden_act="silu", tie_word_embeddings=False,
+        attention_bias=False, rope_scaling=None,
+    ))
+    H, Hk, hd = spec.n_heads, spec.n_kv_heads, spec.head_dim
+    rq, rv, rm = (12, 16, 8), (16, 12, 16), (96, 70, 50)
+    spec = spec.with_ranks(q_ranks=[H * r for r in rq], k_ranks=[Hk * r for r in rq], v_ranks=[Hk * r for r in rv],
+                           o_ranks=[H * r for r in rv], gate_ranks=list(rm), has_rotary_masks=True)
+    params = init_params(spec, torch.Generator().manual_seed(0), scale=0.2, device="cpu")
+    gen = torch.Generator().manual_seed(1)
+    for lp, r in zip(params["layers"], rq):
+        pairs = torch.rand((Hk, hd // 2), generator=gen).argsort(dim=-1)[:, : r // 2]
+        lp["rotary_mask"] = torch.cat([pairs, pairs + hd // 2], dim=-1).to(torch.int32)
+    return pad_to_uniform(spec, _tree_to(params, device))
+
+
+def _graph_counts():
+    from modegpt_tpu_torch.models.padded import DecodeGraph
+
+    return np.array([DecodeGraph.captures, DecodeGraph.replays, DecodeGraph.eager])
+
+
+def _pools_of(state):
+    return [p for p in (state.cache_k, state.cache_v, state.k_scale, state.v_scale) if p is not None]
+
+
+def _graphed_and_eager(pm, slots, max_len, kv_dtype="model"):
+    """Two empty slot tables: one with its decode graph, one without."""
+    from modegpt_tpu_torch.models.serving import init_serve_state
+
+    graphed = init_serve_state(pm, slots, max_len, kv_dtype=kv_dtype)
+    return graphed, init_serve_state(pm, slots, max_len, kv_dtype=kv_dtype)._replace(graph=None)
+
+
+def _prefill_both(pm, states, slot, piece):
+    from modegpt_tpu_torch.models.serving import _prefill_chunk
+
+    for st in states:
+        _prefill_chunk(pm, st, slot, piece, 0, 32, True, 0.0, None, decode_attn="ragged")
+
+
+@pytest.mark.parametrize("kv_dtype", ["model", "int8"])
+def test_decode_graph_replays_the_eager_dispatch_bit_for_bit(cuda_device, kv_dtype):
+    """20 whole-table decode dispatches over 8 slots whose lengths change
+    (rows advance or stall, a slot restarts with a new prompt): the
+    replayed logits and the pools equal the op-by-op dispatch's bit for
+    bit, the graph is captured once, and every dispatch, the capturing
+    one and each replay, adds one K3 launch a layer."""
+    from modegpt_tpu_torch.kernels.ragged_decode import ragged_gqa_attend
+    from modegpt_tpu_torch.models.serving import _step
+
+    pm = _tiny_qwen3(cuda_device)
+    L = pm.spec.n_layers
+    graphed, eager = _graphed_and_eager(pm, 8, 64, kv_dtype)
+    rng = np.random.default_rng(3)
+    for s in range(8):
+        _prefill_both(pm, (graphed, eager), s, rng.integers(0, 256, int(rng.integers(1, 20))))
+    counts = _graph_counts()
+    for i in range(20):
+        if i % 7 == 3:
+            _prefill_both(pm, (graphed, eager), int(rng.integers(8)), rng.integers(0, 256, int(rng.integers(1, 20))))
+        before = ragged_gqa_attend.launches
+        got = _step(pm, graphed, graphed.last_token[:, None], graphed.lengths, decode_attn="ragged").clone()
+        assert ragged_gqa_attend.launches - before == L
+        want = _step(pm, eager, eager.last_token[:, None], eager.lengths, decode_attn="ragged")
+        assert torch.equal(got, want), f"dispatch {i}"
+        active = rng.random(8) < 0.7
+        nxt = torch.argmax(got[:, -1], dim=-1)
+        for st in (graphed, eager):
+            st.last_token.copy_(torch.where(torch.from_numpy(active).to(cuda_device), nxt, st.last_token))
+            st.lengths[active] += 1
+    torch.cuda.synchronize()
+    assert (_graph_counts() - counts).tolist() == [1, 19, 1]
+    for a, b in zip(_pools_of(graphed), _pools_of(eager)):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("kv_dtype", ["model", "int8"])
+def test_batcher_with_the_decode_graph_serves_the_eager_tokens(cuda_device, kv_dtype):
+    """A tiny Qwen3 batcher on 8 slots, 20 steps of greedy and seeded
+    sampled requests of changing lengths: every step's tokens equal those
+    of the same batcher without its decode graph, and its decode
+    dispatches replay."""
+    from modegpt_tpu_torch.models.serving import ContinuousBatcher
+
+    pm = _tiny_qwen3(cuda_device)
+    rng = np.random.default_rng(7)
+    prompts = [rng.integers(1, 256, int(n)) for n in rng.integers(3, 40, 12)]
+    budgets = [int(n) for n in rng.integers(2, 12, 12)]
+    served, replays = {}, {}
+    for name in ("graph", "eager"):
+        b = ContinuousBatcher(pm, slots=8, max_len=96, prefill_bucket=16, decode_attn="ragged",
+                              per_request_sampling=True, kv_dtype=kv_dtype)
+        if name == "eager":
+            b.state = b.state._replace(graph=None)
+        for i, (p, n) in enumerate(zip(prompts, budgets)):
+            b.submit(p, max_new_tokens=n, **({} if i % 2 == 0 else dict(temperature=0.7, top_p=0.9, seed=i)))
+        counts = _graph_counts()
+        steps = []
+        for _ in range(20):
+            b.step(torch.Generator(device=cuda_device).manual_seed(0))
+            steps.append([list(map(int, out)) for out in b.slot_out])
+        served[name], replays[name] = steps, (_graph_counts() - counts)[1]
+    assert served["graph"] == served["eager"]
+    assert replays["graph"] >= 10 and replays["eager"] == 0
+
+
+def test_decode_graph_row_at_the_pools_end_runs_eager(cuda_device):
+    """A whole-table decode with a row at the pool's end runs op by op
+    (its write is dropped on the host) and leaves the pool as the eager
+    path does; with the row back inside the pool the graph replays
+    again, not captured anew."""
+    from modegpt_tpu_torch.models.serving import _step
+
+    pm = _tiny_qwen3(cuda_device)
+    T = 32
+    graphed, eager = _graphed_and_eager(pm, 4, T)
+    rng = np.random.default_rng(5)
+    for s, n in enumerate((5, 9, 3, 7)):
+        _prefill_both(pm, (graphed, eager), s, rng.integers(0, 256, n))
+    for row_len, counted in ((None, [1, 0, 1]), (T, [0, 0, 1]), (10, [0, 1, 0])):
+        if row_len is not None:
+            for st in (graphed, eager):
+                st.lengths[1] = row_len
+        counts = _graph_counts()
+        got = _step(pm, graphed, graphed.last_token[:, None], graphed.lengths, decode_attn="ragged").clone()
+        want = _step(pm, eager, eager.last_token[:, None], eager.lengths, decode_attn="ragged")
+        torch.cuda.synchronize()
+        assert (_graph_counts() - counts).tolist() == counted
+        assert torch.equal(got, want)
+        for a, b in zip(_pools_of(graphed), _pools_of(eager)):
+            assert torch.equal(a, b)
+
+
+_GRAPH_TINY = dict(_TINY, num_hidden_layers=2)
+GRAPH_ARCHS = {
+    "llama": dict(_GRAPH_TINY, model_type="llama", hidden_act="silu", tie_word_embeddings=False),
+    "llama_int8_weights": dict(_GRAPH_TINY, model_type="llama", hidden_act="silu", tie_word_embeddings=False),
+    "mistral": dict(_GRAPH_TINY, model_type="mistral", hidden_act="silu", sliding_window=8),
+    "qwen2": dict(_GRAPH_TINY, model_type="qwen2", hidden_act="silu", use_sliding_window=False),
+    "gemma": dict(_GRAPH_TINY, model_type="gemma", hidden_activation="gelu_pytorch_tanh"),
+    "gemma2": dict(TINY_CONFIGS["gemma2"], num_hidden_layers=2),
+    "olmo2": dict(TINY_CONFIGS["olmo2"], num_hidden_layers=2),
+    "phi3": dict(_GRAPH_TINY, model_type="phi3", hidden_act="silu", sliding_window=8),
+    "starcoder2": dict(_GRAPH_TINY, model_type="starcoder2", hidden_act="gelu_pytorch_tanh", use_bias=True,
+                       sliding_window=8),
+    "gpt2": dict(model_type="gpt2", vocab_size=256, n_embd=64, n_layer=2, n_head=4, n_inner=None,
+                 n_positions=128, activation_function="gelu_new", layer_norm_epsilon=1e-5, tie_word_embeddings=True),
+    "opt_post_ln": dict(model_type="opt", vocab_size=256, hidden_size=64, num_hidden_layers=2, num_attention_heads=4,
+                        ffn_dim=128, max_position_embeddings=128, activation_function="relu",
+                        do_layer_norm_before=False, tie_word_embeddings=True, enable_bias=True),
+    "qwen2_moe_dense_experts": dict(vars(QUANT_MOE)),
+}
+
+
+@pytest.mark.parametrize("arch", sorted(GRAPH_ARCHS))
+def test_decode_graph_for_every_arch(cuda_device, arch):
+    """Every architecture's whole-table decode captures (no read back to
+    the host inside the step: gemma's and gemma2's scalar factors are
+    host constants) and replays the eager dispatch's logits and pools bit
+    for bit; int8 weight-only and a dense-expert MoE stack too."""
+    from modegpt_tpu_torch.models.padded import pad_to_uniform
+    from modegpt_tpu_torch.models.quantize import quantize_padded
+    from modegpt_tpu_torch.models.serving import _step
+
+    spec = spec_from_hf_config(SimpleNamespace(**GRAPH_ARCHS[arch]))
+    params = init_params(spec, torch.Generator().manual_seed(0), scale=0.2, device="cpu")
+    pm = pad_to_uniform(spec, _tree_to(params, cuda_device))
+    if arch.endswith("int8_weights"):
+        pm = quantize_padded(pm)
+    graphed, eager = _graphed_and_eager(pm, 4, 64)
+    rng = np.random.default_rng(2)
+    for s, n in enumerate((5, 12, 1, 30)):
+        _prefill_both(pm, (graphed, eager), s, rng.integers(0, 256, n))
+    counts = _graph_counts()
+    for i in range(3):
+        got = _step(pm, graphed, graphed.last_token[:, None], graphed.lengths, decode_attn="ragged").clone()
+        want = _step(pm, eager, eager.last_token[:, None], eager.lengths, decode_attn="ragged")
+        assert torch.equal(got, want), f"dispatch {i}"
+        nxt = torch.argmax(got[:, -1], dim=-1)
+        for st in (graphed, eager):
+            st.last_token.copy_(nxt)
+            st.lengths[:] += 1
+    torch.cuda.synchronize()
+    assert (_graph_counts() - counts).tolist() == [1, 2, 1]
+    for a, b in zip(_pools_of(graphed), _pools_of(eager)):
+        assert torch.equal(a, b)
