@@ -566,33 +566,44 @@ def _moe_mlp(spec: ModelSpec, p: Dict, x: torch.Tensor, collect: bool, tp=None):
     of the routed-weighted sum, and one all-reduce over ``model`` adds
     the parts; the shared expert is column/row split (`_shared_expert`).
     h_routed and h_shared are then gathered over the axis.
+
+    The routed part (router, expert products, weighted sum, routed mask)
+    runs inside the span ``modegpt.moe.experts``; ``_moe_mlp.calls`` and
+    ``_moe_mlp.tokens`` count the calls and the tokens they took.
     """
     B, T, d = x.shape
     N, E = B * T, spec.n_experts
+    _moe_mlp.calls += 1
+    _moe_mlp.tokens += N
     e0, El = _expert_range(spec, p, tp)
-    x2 = x.reshape(N, d)
-    w, idx = _route(spec, p, x2)
-    ek = p["experts"]
-    h = _act(_expert_mm(x2, ek["gate"]), spec.act)
-    h = h.mul_(_expert_mm(x2, ek["up"]))  # [El, N, D]
-    D = h.shape[-1]
-    w_full = torch.zeros((N, E), dtype=torch.float32, device=x.device).scatter_(-1, idx, w)
-    y = _expert_down_sum(h, ek["down"], w_full[:, e0 : e0 + El].to(x.dtype)).view(B, T, d)
-    if El < E:
-        y = all_reduce(tp, y, "model")
-    h_routed = h_shared = None
-    if collect:
-        routed = torch.zeros((N, E), dtype=h.dtype, device=x.device).scatter_(-1, idx, 1.0)[:, e0 : e0 + El]
-        h_routed = h.mul_(routed.T[..., None]).transpose(0, 1).reshape(B, T, El, D)
+    with span("modegpt.moe.experts"):
+        x2 = x.reshape(N, d)
+        w, idx = _route(spec, p, x2)
+        ek = p["experts"]
+        h = _act(_expert_mm(x2, ek["gate"]), spec.act)
+        h = h.mul_(_expert_mm(x2, ek["up"]))  # [El, N, D]
+        D = h.shape[-1]
+        w_full = torch.zeros((N, E), dtype=torch.float32, device=x.device).scatter_(-1, idx, w)
+        y = _expert_down_sum(h, ek["down"], w_full[:, e0 : e0 + El].to(x.dtype)).view(B, T, d)
         if El < E:
-            h_routed = all_gather(tp, h_routed, "model", dim=2)
-    del h
+            y = all_reduce(tp, y, "model")
+        h_routed = h_shared = None
+        if collect:
+            routed = torch.zeros((N, E), dtype=h.dtype, device=x.device).scatter_(-1, idx, 1.0)[:, e0 : e0 + El]
+            h_routed = h.mul_(routed.T[..., None]).transpose(0, 1).reshape(B, T, El, D)
+            if El < E:
+                h_routed = all_gather(tp, h_routed, "model", dim=2)
+        del h
     if "shared" in p:
         ys, hs = _shared_expert(spec, p, x, tp)
         y = y + ys
         if collect:
             h_shared = hs if tp is None else all_gather(tp, hs, "model", dim=-1)
     return y, h_routed, h_shared
+
+
+_moe_mlp.calls = 0
+_moe_mlp.tokens = 0
 
 
 def _shared_expert(spec: ModelSpec, p: Dict, x: torch.Tensor, tp=None):
@@ -645,48 +656,52 @@ def _moe_mlp_dispatch(
     and sorts every token (the capacity is the global one, so the same
     assignments are dropped), fills and runs only its experts' buffers,
     and one all-reduce over ``model`` adds the ranks' sums.
+
+    Everything but the shared expert runs inside the span
+    ``modegpt.moe.experts``.
     """
     B, T, d = x.shape
     N, E, k = B * T, spec.n_experts, spec.experts_per_tok
     e0, El = _expert_range(spec, p, tp)
-    C = max(1, min(N, int(math.ceil(capacity_factor * N * k / E))))
-    dev = x.device
-    xf = x.reshape(N, d)
-    w, idx = _route(spec, p, xf)  # [N, k]
-    expert_of = idx.reshape(-1)
-    if token_valid is not None:
-        tv = token_valid.reshape(-1).to(dev).repeat_interleave(k)
-        expert_of = torch.where(tv, expert_of, torch.full_like(expert_of, E))
-    token_of = torch.arange(N, device=dev).repeat_interleave(k)
+    with span("modegpt.moe.experts"):
+        C = max(1, min(N, int(math.ceil(capacity_factor * N * k / E))))
+        dev = x.device
+        xf = x.reshape(N, d)
+        w, idx = _route(spec, p, xf)  # [N, k]
+        expert_of = idx.reshape(-1)
+        if token_valid is not None:
+            tv = token_valid.reshape(-1).to(dev).repeat_interleave(k)
+            expert_of = torch.where(tv, expert_of, torch.full_like(expert_of, E))
+        token_of = torch.arange(N, device=dev).repeat_interleave(k)
 
-    # stable sort by expert: earlier tokens win the capacity slots
-    order = torch.argsort(expert_of, stable=True)
-    sorted_e = expert_of[order]
-    counts = torch.bincount(expert_of, minlength=E + 1)
-    starts = torch.cumsum(counts, 0) - counts
-    slot = torch.arange(N * k, device=dev) - starts[sorted_e]
-    keep = (slot < C) & (sorted_e >= e0) & (sorted_e < e0 + El)  # a real expert of this rank's
-    e_ix, s_ix = (sorted_e - e0).clamp(0, El - 1), slot.clamp(max=C - 1)
-    tok_sorted = token_of[order]
+        # stable sort by expert: earlier tokens win the capacity slots
+        order = torch.argsort(expert_of, stable=True)
+        sorted_e = expert_of[order]
+        counts = torch.bincount(expert_of, minlength=E + 1)
+        starts = torch.cumsum(counts, 0) - counts
+        slot = torch.arange(N * k, device=dev) - starts[sorted_e]
+        keep = (slot < C) & (sorted_e >= e0) & (sorted_e < e0 + El)  # a real expert of this rank's
+        e_ix, s_ix = (sorted_e - e0).clamp(0, El - 1), slot.clamp(max=C - 1)
+        tok_sorted = token_of[order]
 
-    buf = torch.zeros((El, C, d), dtype=x.dtype, device=dev)
-    vals = torch.where(keep[:, None], xf[tok_sorted], torch.zeros((), dtype=x.dtype, device=dev))
-    buf.index_put_((e_ix, s_ix), vals, accumulate=True)  # dropped ones add zeros
+        buf = torch.zeros((El, C, d), dtype=x.dtype, device=dev)
+        vals = torch.where(keep[:, None], xf[tok_sorted], torch.zeros((), dtype=x.dtype, device=dev))
+        buf.index_put_((e_ix, s_ix), vals, accumulate=True)  # dropped ones add zeros
 
-    ek = p["experts"]
-    h = _act(_expert_mm(buf, ek["gate"]), spec.act) * _expert_mm(buf, ek["up"])
-    y_e = _expert_mm(h, ek["down"])  # [E, C, d]
+        ek = p["experts"]
+        h = _act(_expert_mm(buf, ek["gate"]), spec.act) * _expert_mm(buf, ek["up"])
+        y_e = _expert_mm(h, ek["down"])  # [E, C, d]
 
-    # each assignment's weighted output back at its unsorted place, then
-    # summed over the token's k assignments (no atomics)
-    w_sorted = w.reshape(-1).to(x.dtype)[order]
-    picked = torch.where(keep[:, None], y_e[e_ix, s_ix] * w_sorted[:, None],
-                         torch.zeros((), dtype=x.dtype, device=dev))
-    contrib = torch.empty_like(picked)
-    contrib[order] = picked
-    y = contrib.view(N, k, d).sum(dim=1).view(B, T, d)
-    if El < E:
-        y = all_reduce(tp, y, "model")
+        # each assignment's weighted output back at its unsorted place, then
+        # summed over the token's k assignments (no atomics)
+        w_sorted = w.reshape(-1).to(x.dtype)[order]
+        picked = torch.where(keep[:, None], y_e[e_ix, s_ix] * w_sorted[:, None],
+                             torch.zeros((), dtype=x.dtype, device=dev))
+        contrib = torch.empty_like(picked)
+        contrib[order] = picked
+        y = contrib.view(N, k, d).sum(dim=1).view(B, T, d)
+        if El < E:
+            y = all_reduce(tp, y, "model")
     if "shared" in p:
         y = y + _shared_expert(spec, p, x, tp)[0]
     return y

@@ -85,17 +85,23 @@ def _cholesky_escalated(A: torch.Tensor, ridge: float) -> torch.Tensor:
     factorisation's own rounding scale, ``max(32 r, 8 * eps * trace(A))``,
     then geometrically, for at most 9 attempts in all. A singular f32
     Gram (fewer calibration tokens than the kept rank) would otherwise
-    give NaN factors. The well-conditioned case runs one factorisation.
+    give NaN factors. The well-conditioned case runs one factorisation
+    and reads one flag back to the host (both tests in one); the trace is
+    read only once a factorisation has failed. On the card each read
+    waits for the queue, and a MoE layer's per-expert solves make two of
+    these calls an expert.
     """
     n = A.shape[-1]
     eye = torch.eye(n, dtype=A.dtype, device=A.device)
-    floor = 8.0 * torch.finfo(A.dtype).eps * float(torch.trace(A))
+    floor = None
     r = float(ridge)
     for k in range(_ESCALATION_TRIES):
         if k > 0:
+            if floor is None:
+                floor = 8.0 * torch.finfo(A.dtype).eps * float(torch.trace(A))
             r = max(r * 32.0, floor)
         L, info = torch.linalg.cholesky_ex(A + r * eye)
-        if int(info) == 0 and not bool(torch.isnan(torch.diagonal(L)).any()):
+        if bool((info == 0) & ~torch.isnan(torch.diagonal(L)).any()):
             break
     return L
 

@@ -39,6 +39,7 @@ SPANS = (
     "modegpt.serve.step",  # models.serving.ContinuousBatcher.step: sweep, admission, scheduling, commits
     "modegpt.model.step",  # models.padded._model_step_padded: one dispatch of the padded stack
     "modegpt.serve.sample",  # the batcher's sampling tables and every token choice (serving._pick)
+    "modegpt.moe.experts",  # models.forward._moe_mlp and _moe_mlp_dispatch: router, experts, weighted sum
 )
 
 _OFF = contextlib.nullcontext()

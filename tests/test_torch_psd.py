@@ -86,3 +86,50 @@ def test_singular_f32_gram_escalates_ridge():
     np.testing.assert_allclose(got.numpy(), want, rtol=1e-3, atol=1e-3 * np.abs(want).max())
     # the f32 leverage scores built on it are finite too
     assert torch.isfinite(tpsd.ridge_inverse_diag(torch.from_numpy(A), 1e-6)).all()
+
+
+class _HostReads(torch.utils._python_dispatch.TorchDispatchMode):
+    """Counts the values read back to the host (``item``, ``int``,
+    ``float``, ``bool`` of a tensor): on the card each one waits for the
+    queue."""
+
+    def __init__(self):
+        super().__init__()
+        self.n = 0
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        if func is torch.ops.aten._local_scalar_dense.default:
+            self.n += 1
+        return func(*args, **(kwargs or {}))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_cholesky_escalated_reads_one_flag_when_well_conditioned(dtype):
+    A = torch.from_numpy(_psd(6, 24)).to(dtype)
+    with _HostReads() as reads:
+        got = tpsd._cholesky_escalated(A, 1e-6)
+    assert reads.n == 1
+    want = torch.linalg.cholesky(A + 1e-6 * torch.eye(24, dtype=dtype))
+    assert torch.equal(got, want)
+
+
+def test_escalation_reads_the_trace_once_and_a_flag_per_attempt():
+    """The singular Gram of the test above: the ridges tried are 1e-6,
+    then max(32 r, 8 eps trace(A)) and on geometrically; the factor is
+    the plain Cholesky at the ridge that first succeeds."""
+    A = torch.from_numpy(_psd(7, 48, rank=2, scale=1e3).astype(np.float32))
+    eye = torch.eye(48)
+    floor = 8.0 * torch.finfo(torch.float32).eps * float(torch.trace(A))
+    r, ridges = 1e-6, []
+    for k in range(tpsd._ESCALATION_TRIES):
+        if k > 0:
+            r = max(r * 32.0, floor)
+        ridges.append(r)
+        L, info = torch.linalg.cholesky_ex(A + r * eye)
+        if int(info) == 0 and not bool(torch.isnan(torch.diagonal(L)).any()):
+            break
+    assert len(ridges) > 1
+    with _HostReads() as reads:
+        got = tpsd._cholesky_escalated(A, 1e-6)
+    assert reads.n == len(ridges) + 1
+    assert torch.equal(got, L)
